@@ -22,11 +22,15 @@ from libdogleg_tpu_torch.solver import (
     solve_products,
     solve_products_batched,
 )
-from libdogleg_tpu_torch.ops.newton import DenseNewtonSolver
+from libdogleg_tpu_torch.ops.newton import (
+    BlockedDenseNewtonSolver,
+    DenseNewtonSolver,
+)
 from libdogleg_tpu_torch.problems import (
     DenseProblem,
     ProductsProblem,
     ResidualProblem,
+    SparseProblem,
     optimize,
 )
 from libdogleg_tpu_torch.ops.mega import megakernel_optimize
@@ -43,10 +47,12 @@ __all__ = [
     "init_solver_state",
     "run_solver",
     "result_from_state",
+    "BlockedDenseNewtonSolver",
     "DenseNewtonSolver",
     "DenseProblem",
     "ProductsProblem",
     "ResidualProblem",
+    "SparseProblem",
     "optimize",
     "megakernel_optimize",
 ]

@@ -1,9 +1,9 @@
 """Carrying parameters, data and results across the package boundary.
 
 What crosses between the JAX package and this one are the solver
-parameters, the measurements and the start points; both sides speak numpy
-at the boundary. Nothing here imports jax: a JAX DoglegParameters is read by
-field name.
+parameters, the measurements, the start points and model instances; both
+sides speak numpy at the boundary. Nothing here imports jax: a JAX
+DoglegParameters or GridMRF is read by field name.
 """
 
 from __future__ import annotations
@@ -50,3 +50,17 @@ def result_to_numpy(result: SolveResult) -> SolveResult:
     return result._replace(
         **{k: conv(v) for k, v in result._asdict().items()
            if k != "history"}, history=history)
+
+
+def grid_mrf_from_reference(jax_grid: Any, device=None,
+                            dtype=torch.float64):
+    """The port's GridMRF holding the arrays of a JAX GridMRF
+    (libdogleg_tpu.models.grid_mrf), on `device` in `dtype`, so both
+    packages solve the same instance."""
+    from libdogleg_tpu_torch.models import grid_mrf
+    g = jax_grid
+    return grid_mrf.from_arrays(
+        g.width, g.height, g.block_size, np.asarray(g.edges),
+        np.asarray(g.z_prior), np.asarray(g.z_edge), g.w_prior, g.w_edge,
+        np.asarray(g.p_true), None if g.mix is None else np.asarray(g.mix),
+        dtype=dtype, device=device)

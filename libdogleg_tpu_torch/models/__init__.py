@@ -1,6 +1,6 @@
 """Problem-family models. Ported so far: quadratic_surface, the reference
-sample.c problem."""
+sample.c problem, and grid_mrf, the large block-sparse grid model."""
 
-from libdogleg_tpu_torch.models import quadratic_surface
+from libdogleg_tpu_torch.models import grid_mrf, quadratic_surface
 
-__all__ = ["quadratic_surface"]
+__all__ = ["grid_mrf", "quadratic_surface"]

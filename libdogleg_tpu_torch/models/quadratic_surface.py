@@ -21,8 +21,9 @@ import numpy as np
 import torch
 
 from libdogleg_tpu_torch.problems import (DenseProblem, ProductsProblem,
-                                          ResidualProblem)
+                                          ResidualProblem, SparseProblem)
 from libdogleg_tpu_torch.solver import Products
+from libdogleg_tpu_torch.sparsity import dense_structure
 
 NSTATE = 6
 GRID_WIDTH = 10
@@ -133,6 +134,22 @@ def make_dense_problem(measurements: torch.Tensor) -> DenseProblem:
     def f(p):
         return residuals(p, measurements, gx, gy), jacobian(p, gx, gy)
     return DenseProblem(f=f)
+
+
+def make_sparse_problem(measurements: torch.Tensor,
+                        block_rows: int = 4) -> SparseProblem:
+    """Sparse mode. The demo problem is fully dense (sample.c:113-116), so
+    the block pattern stores every block: the block-CSR machinery exercised
+    the way sample.c exercises the CHOLMOD path with a dense pattern."""
+    gx, gy = make_grid(measurements.dtype, measurements.device)
+    structure = dense_structure(NMEAS, NSTATE, block_rows=block_rows,
+                                block_cols=NSTATE)
+
+    def f(p):
+        x = residuals(p, measurements, gx, gy)
+        J = jacobian(p, gx, gy)
+        return x, J.reshape(structure.nnzb, block_rows, NSTATE)
+    return SparseProblem(f=f, structure=structure)
 
 
 def make_products_problem(measurements: torch.Tensor) -> ProductsProblem:

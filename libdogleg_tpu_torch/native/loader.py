@@ -1,8 +1,9 @@
 """Builds and loads the package's CUDA kernels (csrc/*.cu).
 
-The sources are compiled at first use with nvcc into one shared library with
-a plain C interface, under _build/ beside this file, and loaded with ctypes.
-The library's file name carries a hash of the sources and flags, so an edit
+The sources are compiled at first use with nvcc, one process per source, all
+started together, and linked into one shared library with a plain C
+interface, under _build/ beside this file, and loaded with ctypes. The
+library's file name carries a hash of the sources and flags, so an edit
 rebuilds it and a stale build is never loaded. Nothing is compiled or loaded
 at import time.
 """
@@ -25,7 +26,7 @@ _BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 # No --use_fast_math: the solver's NaN-rho rule needs IEEE comparisons and
 # the pivot test needs isfinite. -Xptxas -v reports registers and spills.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -69,27 +70,45 @@ def library_path() -> pathlib.Path:
     return _BUILD_DIR / f"libdogleg_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds):
+    """Run the commands concurrently; raise with the output of any that
+    fails. Returns the joined output of all of them."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs, failed = [], []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate(timeout=900)
+            outs.append(out)
+            if proc.returncode:
+                failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{out}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return "".join(outs)
+
+
 def build() -> BuildInfo:
     """Compile csrc/*.cu unless a build of the current sources exists."""
     so = library_path()
     if so.exists():
         return BuildInfo(so, 0.0, "")
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, *map(str, _sources()), "-o", tmp]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=900)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, s.stem + ".o") for s in _sources()]
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", o]
+                    for s, o in zip(_sources(), objs)])
+        tmp = os.path.join(tmpdir, so.name)
+        log += _run([[nvcc, "-shared", *NVCC_FLAGS[:2], *objs, "-o", tmp]])
         os.replace(tmp, so)  # atomic: a concurrent build never sees half
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return BuildInfo(so, time.perf_counter() - t0, proc.stdout + proc.stderr)
+    return BuildInfo(so, time.perf_counter() - t0, log)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -98,6 +117,19 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, name)
         # p0, meas_t, gx, gy, B, params, 9 outputs, device, stream
         fn.argtypes = [ptr, ptr, ptr, ptr, i32, ptr] + [ptr] * 9 + [i32, ptr]
+        fn.restype = i32
+    for dt in ("f32", "f64"):
+        # W, B, p, L, Linv, ok, device, stream
+        fn = getattr(lib, f"dogleg_panelchol_{dt}")
+        fn.argtypes = [ptr, i32, i32, ptr, ptr, ptr, i32, ptr]
+        fn.restype = i32
+        # vals, bm, bn, pair_i, pair_j, run_ptr, nout, out, device, stream
+        fn = getattr(lib, f"dogleg_bcsr_jtj_{dt}")
+        fn.argtypes = [ptr, i32, i32, ptr, ptr, ptr, i32, ptr, i32, ptr]
+        fn.restype = i32
+        # vals, bm, bn, indptr, indices, v, nmeas, out, device, stream
+        fn = getattr(lib, f"dogleg_bcsr_matvec_{dt}")
+        fn.argtypes = [ptr, i32, i32, ptr, ptr, ptr, i32, ptr, i32, ptr]
         fn.restype = i32
     return lib
 

@@ -4,7 +4,9 @@ libdogleg_tpu/parallel/batched.py:121-226).
 A batch of independent problem instances goes either to the whole-solve
 kernel K1 (ops/mega.py), when the products function is one the kernel
 computes on the device, or to the masked batched solver of solver.py, with
-the per-element products function batched by torch.func.vmap.
+the per-element products function batched by torch.func.vmap. On the masked
+path a dense mid-size JtJ in a large batch takes BlockedDenseNewtonSolver
+by default (_auto_newton).
 """
 
 from __future__ import annotations
@@ -12,9 +14,16 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+from torch.utils import _pytree as pytree
 
 from libdogleg_tpu_torch.params import DoglegParameters
 from libdogleg_tpu_torch.solver import SolveResult, solve_products_batched
+
+# Auto-selection bounds for BlockedDenseNewtonSolver (the JAX package's,
+# parallel/batched.py:31-38): a real batch and a capped Nstate. Explicit
+# newton_solver=BlockedDenseNewtonSolver() covers the whole 17..256 window.
+AUTO_BLOCKED_MIN_BATCH = 128
+AUTO_BLOCKED_MAX_N = 128
 
 
 def _check_layout(layout: str) -> None:
@@ -54,6 +63,27 @@ def _kernel_takes(products_fn, p0_batch, newton_solver,
     return known and p0_batch.is_cuda and newton_solver is None
 
 
+def _auto_newton(products_fn, p0_batch, problem_data):
+    """The batch-regime strategy default: BlockedDenseNewtonSolver for a
+    dense square JtJ with BLOCKED_MIN_N <= Nstate <= AUTO_BLOCKED_MAX_N and
+    a batch of at least AUTO_BLOCKED_MIN_BATCH; None (the solver default)
+    otherwise, and for structured JtJ representations. The JtJ's shape comes
+    from the products of the first element (the JAX package traces them
+    with eval_shape)."""
+    from libdogleg_tpu_torch.ops.newton import (BLOCKED_MIN_N,
+                                                BlockedDenseNewtonSolver)
+    if p0_batch.shape[0] < AUTO_BLOCKED_MIN_BATCH:
+        return None
+    data0 = (() if problem_data is None
+             else (pytree.tree_map(lambda a: a[0], problem_data),))
+    jtj = products_fn(p0_batch[0], *data0).JtJ
+    shp = getattr(jtj, "shape", None)
+    if (shp is not None and len(shp) == 2 and shp[0] == shp[1]
+            and BLOCKED_MIN_N <= shp[0] <= AUTO_BLOCKED_MAX_N):
+        return BlockedDenseNewtonSolver()
+    return None
+
+
 def batched_optimize(products_fn,
                      p0_batch: torch.Tensor,
                      parameters: Optional[DoglegParameters] = None,
@@ -75,7 +105,9 @@ def batched_optimize(products_fn,
         it must be batchable by torch.func.vmap.
       p0_batch: (B, Nstate) initial states.
       problem_data: a tensor (or tuple of tensors) with a leading batch axis.
-      newton_solver: strategy override for the masked path.
+      newton_solver: strategy override for the masked path; None
+        auto-selects BlockedDenseNewtonSolver for a dense mid-size JtJ in
+        a large batch (see _auto_newton).
       layout, wavefront_unroll: accepted and ignored. In the JAX package they
         tune the XLA program's carry layout and fusion on a TPU; the masked
         solver's decisions do not depend on them.
@@ -101,6 +133,8 @@ def batched_optimize(products_fn,
                              "measurements as problem_data")
         gx, gy = qs.make_grid(p0_batch.dtype, p0_batch.device)
         return megakernel_optimize(p0_batch, problem_data, gx, gy, prm)
+    if newton_solver is None:
+        newton_solver = _auto_newton(products_fn, p0_batch, problem_data)
 
     if problem_data is None:
         batched = torch.func.vmap(products_fn)

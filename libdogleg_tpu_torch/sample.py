@@ -3,12 +3,13 @@ libdogleg_tpu/sample.py).
 
 Usage:
     python -m libdogleg_tpu_torch.sample [--check] [--f32]
-        [--device cpu|cuda] dense|dense-products-packed-upper|
+        [--device cpu|cuda] sparse|dense|dense-products-packed-upper|
         dense-products-unpacked|residual
 
 Solves the 6-parameter quadratic-surface fit in the chosen mode; --check
 asserts convergence within 8 accepted steps and per-parameter recovery
-within 5e-2 (reference sample.c:364-365, 424-457). The two dense-products
+within 5e-2 (reference sample.c:364-365, 424-457). `sparse` goes through
+the block-CSR SparseProblem with every block stored. The two dense-products
 spellings exercise the packed-upper and unpacked JtJ layouts. `residual` is
 the autodiff mode. The measurements and the start point come from
 torch.Generators seeded 0 and 1 on the CPU, so every device solves the same
@@ -24,8 +25,8 @@ GREEN = "\x1b[32m"
 RED = "\x1b[31m"
 RESET = "\x1b[0m"
 
-MODES = ("dense", "dense-products-packed-upper", "dense-products-unpacked",
-         "residual")
+MODES = ("sparse", "dense", "dense-products-packed-upper",
+         "dense-products-unpacked", "residual")
 
 
 def main(argv=None) -> int:
@@ -57,7 +58,9 @@ def main(argv=None) -> int:
     p0 = sp.initial_state(torch.Generator().manual_seed(1), dtype=dtype,
                           device=device)
 
-    if args.mode == "dense":
+    if args.mode == "sparse":
+        problem = sp.make_sparse_problem(meas)
+    elif args.mode == "dense":
         problem = sp.make_dense_problem(meas)
     elif args.mode == "residual":
         problem = sp.make_residual_problem(meas)

@@ -14,6 +14,7 @@ from libdogleg_tpu_torch.models.quadratic_surface import (  # noqa: F401
     make_grid,
     make_products_problem,
     make_residual_problem,
+    make_sparse_problem,
     model,
     products,
     products_minor,

@@ -3,6 +3,7 @@ kernel gate, the package's independence from jax, and the sample CLI."""
 
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -113,15 +114,21 @@ def test_compacted_not_ported():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, libdogleg_tpu_torch, libdogleg_tpu_torch.parallel, "
-            "libdogleg_tpu_torch.sample, libdogleg_tpu_torch.interop, "
-            "libdogleg_tpu_torch.utils.benchtime; "
+    """Importing every module of the port loads no jax, and no source file
+    of the port names jax or the JAX package in an import."""
+    code = ("import importlib, pkgutil, sys, libdogleg_tpu_torch as t; "
+            "[importlib.import_module(m.name) for m in "
+            "pkgutil.walk_packages(t.__path__, 'libdogleg_tpu_torch.')]; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'libdogleg_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|libdogleg_tpu)\b",
+                         re.M)
+    for path in (REPO / "libdogleg_tpu_torch").rglob("*.py"):
+        assert not pattern.search(path.read_text()), path
 
 
 @pytest.mark.parametrize("mode", sample.MODES)
@@ -136,3 +143,71 @@ def test_sample_module_entry_f32():
          "--f32", "dense"], cwd=REPO, capture_output=True, text=True,
         timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_auto_newton_selection():
+    """The masked path auto-selects BlockedDenseNewtonSolver exactly for a
+    dense square JtJ with 17 <= Nstate <= AUTO_BLOCKED_MAX_N and a batch of
+    at least AUTO_BLOCKED_MIN_BATCH (the JAX gate,
+    tests/test_blockchol.py:75-106), and the bounds are the JAX package's."""
+    from libdogleg_tpu.parallel import batched as jbatched
+    from libdogleg_tpu_torch import BlockedDenseNewtonSolver, Products
+    from libdogleg_tpu_torch.parallel import batched as tbatched
+
+    assert tbatched.AUTO_BLOCKED_MIN_BATCH == jbatched.AUTO_BLOCKED_MIN_BATCH
+    assert tbatched.AUTO_BLOCKED_MAX_N == jbatched.AUTO_BLOCKED_MAX_N
+
+    def products(p, J):
+        x = J @ p
+        return Products(norm2_x=x @ x, Jt_x=J.T @ x, JtJ=J.T @ J)
+
+    big = tbatched.AUTO_BLOCKED_MIN_BATCH
+    for nstate, expect in [(8, False), (16, False), (17, True), (64, True),
+                           (128, True), (129, False), (256, False)]:
+        data = torch.zeros((big, nstate, nstate))
+        ns = tbatched._auto_newton(products, torch.zeros((big, nstate)),
+                                   data)
+        assert isinstance(ns, BlockedDenseNewtonSolver) == expect, nstate
+    data = torch.zeros((big - 1, 64, 64))
+    assert tbatched._auto_newton(products, torch.zeros((big - 1, 64)),
+                                 data) is None
+    assert tbatched._auto_newton(lambda p: products(p, data[0]),
+                                 torch.zeros((big, 64)), None) is not None
+
+
+def _mid_size(seed, batch, nstate=20, nmeas=60):
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(nmeas, nstate))
+    B = rng.normal(size=(nstate, nstate)) * 0.5
+    C = rng.normal(size=(nmeas, nstate)) * 0.3
+    p_true = rng.normal(size=(batch, nstate))
+    d = (np.tanh(p_true @ B.T) @ A.T + p_true @ C.T
+         + rng.normal(size=(batch, nmeas)) * 0.05)
+    return A, B, C, d, rng.normal(size=(batch, nstate))
+
+
+def test_auto_blocked_batch_matches_jax_f64():
+    """B = 128 problems with Nstate 20 take the auto-selected blocked
+    strategy in both packages, with identical decisions."""
+    from libdogleg_tpu_torch import Products
+    A, B, C, d, p0 = _mid_size(7, 128)
+
+    def make(xp, prod_cls, a, b, c):
+        def products(p, di):
+            t = xp.tanh(b @ p)
+            J = a @ ((1.0 - t * t)[:, None] * b) + c
+            x = a @ t + c @ p - di
+            return prod_cls(norm2_x=x @ x, Jt_x=J.T @ x, JtJ=J.T @ J)
+        return products
+
+    jf = make(jnp, dl.solver.Products, *(jnp.asarray(m) for m in (A, B, C)))
+    tf = make(torch, Products, *(torch.as_tensor(m) for m in (A, B, C)))
+    r_j = jax_batched(jf, jnp.asarray(p0), dl.DoglegParameters(),
+                      problem_data=jnp.asarray(d), use_megakernel=False)
+    r_t = batched_optimize(tf, torch.as_tensor(p0), DoglegParameters(),
+                           problem_data=torch.as_tensor(d))
+    for field in ("step_count", "n_attempts", "reason"):
+        np.testing.assert_array_equal(getattr(r_t, field).numpy(),
+                                      np.asarray(getattr(r_j, field)))
+    np.testing.assert_allclose(r_t.p.numpy(), np.asarray(r_j.p), rtol=1e-9,
+                               atol=1e-9)

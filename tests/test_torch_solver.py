@@ -24,8 +24,8 @@ from libdogleg_tpu_torch import interop
 from libdogleg_tpu_torch.utils import packed as tpacked
 
 torch.set_num_threads(1)
-MODES = ("dense", "dense-products-packed-upper", "dense-products-unpacked",
-         "residual")
+MODES = ("sparse", "dense", "dense-products-packed-upper",
+         "dense-products-unpacked", "residual")
 
 
 def _instance(seed):
@@ -41,6 +41,8 @@ def _instance(seed):
 
 
 def _jax_problem(mode, meas):
+    if mode == "sparse":
+        return jsp.make_sparse_problem(meas)
     if mode == "dense":
         return jsp.make_dense_problem(meas)
     if mode == "residual":
@@ -57,6 +59,8 @@ def _jax_problem(mode, meas):
 
 
 def _torch_problem(mode, meas):
+    if mode == "sparse":
+        return tsp.make_sparse_problem(meas)
     if mode == "dense":
         return tsp.make_dense_problem(meas)
     if mode == "residual":

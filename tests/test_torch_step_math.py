@@ -206,5 +206,16 @@ def test_dense_newton_solver_matches_jax():
 
 
 def test_dense_newton_solver_refinement_not_ported():
-    with pytest.raises(NotImplementedError, match="compensated"):
-        tnewton.DenseNewtonSolver(refine_iters=1)
+    """refine_iters > 0 was refused before ops/compensated.py was ported;
+    it now runs the JAX package's refinement: same step as JAX, rtol
+    1e-10, on a 16-state system (the unrolled small-Cholesky path)."""
+    rng = np.random.default_rng(11)
+    A = rng.normal(size=(40, 16))
+    JtJ, Jt_x = A.T @ A, rng.normal(size=16)
+    kw = dict(lambda_initial=1e-10, lambda_max_tries=60)
+    t = tnewton.DenseNewtonSolver(refine_iters=1).gauss_newton(
+        _t(JtJ), _t(Jt_x), torch.tensor(0.0, dtype=torch.float64), **kw)
+    j = jnewton.DenseNewtonSolver(refine_iters=1).gauss_newton(
+        jnp.asarray(JtJ), jnp.asarray(Jt_x), jnp.asarray(0.0), **kw)
+    _close(t.step, j.step, rtol=1e-10)
+    _close(t.norm2_step, j.norm2_step, rtol=1e-10)
