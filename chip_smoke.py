@@ -35,7 +35,24 @@ Phases, each printing its own lines:
  10. CUDA-event timing: K2 and its twin at p=256, large_cholesky at n=8192
      with K2, with the twin and torch.linalg.cholesky_ex, the slice's whole
      solve with BlockedDenseNewtonSolver and DenseNewtonSolver (host wall
-     and a profiler's device-time split), K3 and K4 and their twins.
+     and a profiler's device-time split), K3 and K4 and their twins;
+ 11. K6 and K7 (csrc/tilechol.cu) against their twins: tiles n in {8, 16,
+     64, 128, 256}, k in {1, 7, 455}, float64 (1e-10 of the largest entry)
+     and float32 (2e-4), K7 with m = n and m = 3, ok identical, and a
+     non-SPD tile (ok False from both);
+ 12. the block-sparse slice at full width, each problem analyzed once: the
+     model's default optimize(grid.problem(), 0, PRM) (mindeg, simplicial,
+     8x8 tiles) and config 6's SparseProblem(jtj="sparse", ordering="rcm",
+     amalgamate=16) (supernodal, 128x128 tiles) in float32, K6 and K7
+     launched, reason > 0, max|Jt_x| <= 1e-3, p within 1e-3 (abs) of the
+     float64 solve; both in float64 on the card (kernels) against the same
+     code on CPU tensors (twins): identical decisions, p within rtol 1e-9;
+     the dense-coupling grid once, supernodal, in float32;
+ 13. timing: K6 at (21, 128, 128) and (455, 8, 8), K7 at (68, 128, 128)
+     and (1756, 8, 8) against their twins; one factorize and one solve per
+     path; each sparse solve's host wall, profiler split (K6, K7, products,
+     scatter/gather, other, host and idle), its analysis time, and
+     sparse_speedup_vs_dense against phase 10's dense-JtJ walls.
 Then one JSON line about the kernels, the card line again, and a last JSON
 line with "ok": true. Any failure exits non-zero before the last line; so
 does a machine without a CUDA device, or a directory without the package.
@@ -313,9 +330,84 @@ def phase9_bcsr(dev) -> dict:
     return out
 
 
-def device_split(fn, *args) -> str:
+def spd_tiles(n, k, seed, dtype, dev):
+    """(k, n, n) SPD tiles A A^T / n + I (condition number below about 5),
+    A drawn with numpy from `seed`, the product formed on the card."""
+    import torch
+    rng = np.random.default_rng(seed)
+    A = torch.as_tensor(rng.normal(size=(k, n, n)), device=dev)
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+    return (A @ A.mT / n + eye).to(dtype)
+
+
+def phase11_tiles(dev) -> dict:
+    """K6 and K7 against their twins on the card: n in {8, 16, 64, 128,
+    256}, k in {1, 7, 455}, float64 and float32, K7 with m = n and m = 3,
+    and a non-SPD tile (ok False from both)."""
+    import torch
+
+    from libdogleg_tpu_torch.ops import tilechol
+    out = {"K6": {"max_abs_err": 0.0}, "K7": {"max_abs_err": 0.0}}
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 2e-4)):
+        name = str(dtype).split(".")[-1]
+        for n in (8, 16, 64, 128, 256):
+            errs6, errs7 = [], []
+            for k in (1, 7, 455):
+                S = spd_tiles(n, k, 1000 * n + k, dtype, dev)
+                L, ok = tilechol.tile_cholesky(S)
+                Lr, okr = tilechol.tile_cholesky_reference(S)
+                torch.cuda.synchronize()
+                check(bool(ok.all()) and torch.equal(ok, okr),
+                      f"K6 {name} n={n} k={k} ok")
+                check(bool((torch.triu(L, 1) == 0).all()),
+                      f"K6 {name} n={n} zeros above the diagonal")
+                errs6.append(rel_err(L, Lr))
+                check(errs6[-1] < tol, f"K6 {name} n={n} k={k} within "
+                      f"{tol}: {errs6[-1]:.3e}")
+                if dtype == torch.float32 and n in (8, 128):
+                    out["K6"]["max_abs_err"] = max(
+                        out["K6"]["max_abs_err"],
+                        float((L - Lr).abs().max()))
+                for m in (n, 3):
+                    rng = np.random.default_rng(7 * n + k + m)
+                    C = torch.as_tensor(rng.normal(size=(k, m, n)),
+                                        dtype=dtype, device=dev)
+                    X = tilechol.tri_solve_right(Lr, C)
+                    Xr = tilechol.tri_solve_right_reference(Lr, C)
+                    torch.cuda.synchronize()
+                    errs7.append(rel_err(X, Xr))
+                    check(errs7[-1] < tol, f"K7 {name} n={n} k={k} m={m} "
+                          f"within {tol}: {errs7[-1]:.3e}")
+                    if dtype == torch.float32 and n in (8, 128) and m == n:
+                        out["K7"]["max_abs_err"] = max(
+                            out["K7"]["max_abs_err"],
+                            float((X - Xr).abs().max()))
+                del S, L, Lr, C, X, Xr
+            S = spd_tiles(n, 3, n, dtype, dev)
+            S[2, n // 2, n // 2] = -S[2, n // 2, n // 2]
+            _, ok = tilechol.tile_cholesky(S)
+            _, okr = tilechol.tile_cholesky_reference(S)
+            check(ok.tolist() == okr.tolist() == [True, True, False],
+                  f"K6 {name} n={n} non-SPD tile flagged: {ok.tolist()} "
+                  f"{okr.tolist()}")
+            print(f"[11 K6/K7 {name} n={n}] vs twins, k 1/7/455: K6 max "
+                  f"{max(errs6):.3e}, K7 (m = n and 3) max {max(errs7):.3e} "
+                  f"of the largest entry (tol {tol}); non-SPD tile ok "
+                  f"{ok.tolist()} (twin {okr.tolist()})", flush=True)
+    return out
+
+
+# Device-time groups of the profiler splits: a kernel falls in the first
+# group one of whose substrings its name holds, else in "other".
+K2_GROUPS = (("K2", ("panelchol",)), ("gemm", ("gemm", "cutlass", "xmma")))
+SPARSE_GROUPS = (("K6", ("tilechol",)), ("K7", ("trisolve",)),
+                 ("products", ("gemm", "gemv", "cutlass", "xmma")),
+                 ("scatter/gather", ("index", "scatter", "gather")))
+
+
+def device_split(fn, *args, groups=K2_GROUPS) -> str:
     """Device time of one call of fn, summed by kernel group from a
-    torch.profiler trace: K2, cuBLAS/CUTLASS products, and the rest."""
+    torch.profiler trace, beside the call's host wall."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -325,7 +417,9 @@ def device_split(fn, *args) -> str:
         fn(*args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    groups = {"K2": 0.0, "gemm": 0.0, "other": 0.0}
+    sums = {name: 0.0 for name, _ in groups}
+    sums["other"] = 0.0
+    kernels = 0
     for ev in prof.key_averages():
         # device-side events only: a CPU op's device time repeats that of
         # the kernels it launched
@@ -334,23 +428,43 @@ def device_split(fn, *args) -> str:
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
         key = ev.key.lower()
-        if "panelchol" in key:
-            groups["K2"] += us
-        elif "gemm" in key or "cutlass" in key or "xmma" in key:
-            groups["gemm"] += us
-        else:
-            groups["other"] += us
-    total = sum(groups.values())
+        name = next((n for n, subs in groups
+                     if any(sub in key for sub in subs)), "other")
+        sums[name] += us
+        kernels += ev.count
+    total = sum(sums.values())
     if total == 0:
         return f"wall {wall * 1e3:.1f} ms; the profiler saw no device time"
     shares = " ".join(f"{k} {v / 1e3:.2f} ms ({100 * v / total:.1f}%)"
-                      for k, v in groups.items())
+                      for k, v in sums.items())
     return (f"wall {wall * 1e3:.1f} ms (profiled); device {total / 1e3:.2f} "
-            f"ms: {shares}; host and idle {wall * 1e3 - total / 1e3:.1f} ms")
+            f"ms in {kernels} device events: {shares}; host and idle {wall * 1e3 - total / 1e3:.1f} ms "
+            f"({100 - 100 * total / 1e3 / (wall * 1e3):.1f}%)")
 
 
-def phase10_timing(dev, bench, card, k2, k34) -> None:
-    """CUDA-event times at the slice's shapes, with the card line."""
+def kernel_us(fn, args, name: str, reps: int = 20) -> float:
+    """Device time per call of the kernels whose names hold `name`, from a
+    torch.profiler trace of `reps` calls: the kernel alone, without its
+    wrapper's host work."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize()
+    return sum(getattr(ev, "self_device_time_total",
+                       getattr(ev, "self_cuda_time_total", 0.0))
+               for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and name in ev.key.lower()) / reps
+
+
+def phase10_timing(dev, bench, card, k2, k34) -> dict:
+    """CUDA-event times at the slice's shapes, with the card line. Returns
+    the dense-JtJ solves' fastest walls in ms, by strategy."""
     import torch
 
     from libdogleg_tpu_torch import (BlockedDenseNewtonSolver,
@@ -397,6 +511,7 @@ def phase10_timing(dev, bench, card, k2, k34) -> None:
     g = grid_mrf.make_grid_mrf(*GRID, dtype=torch.float32, device=dev)
     prob = g.problem(jtj="dense")
     p0 = torch.zeros(g.nstate, dtype=torch.float32, device=dev)
+    dense_walls = {}
     for label, ns in (("BlockedDenseNewtonSolver", BlockedDenseNewtonSolver()),
                       ("DenseNewtonSolver", DenseNewtonSolver())):
         walls = []
@@ -405,6 +520,7 @@ def phase10_timing(dev, bench, card, k2, k34) -> None:
             optimize(prob, p0, bench, newton_solver=ns)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
+        dense_walls[label] = min(walls)
         split = device_split(
             lambda: optimize(prob, p0, bench, newton_solver=ns))
         print(f"[10 grid {GRID} f32 solve, {label}] wall ms "
@@ -423,6 +539,188 @@ def phase10_timing(dev, bench, card, k2, k34) -> None:
         k34[key].update(ms=ms, plain_ms=plain)
         print(f"[10 {key} grid {GRID} f32] kernel {ms:.4f} ms, twin "
               f"{plain:.4f} ms; card {card}", flush=True)
+    return dense_walls
+
+
+def with_residual(prob, grid):
+    """A copy of the sparse problem `prob` solving `grid`'s instance (same
+    block pattern, another dtype, device or coupling), sharing its symbolic
+    analysis instead of running it again."""
+    import copy
+    out = copy.copy(prob)
+    object.__setattr__(out, "f", grid.problem(jtj="dense").f)
+    return out
+
+
+def phase12_sparse(dev, bench) -> dict:
+    """The slice at full width: the model's default problem (mindeg,
+    simplicial) and config 6's headline leg (rcm, amalgamate=16), each
+    analyzed once."""
+    import torch
+
+    from libdogleg_tpu_torch import SparseProblem, optimize
+    from libdogleg_tpu_torch.models import grid_mrf
+    from libdogleg_tpu_torch.ops import tilechol
+
+    g = grid_mrf.make_grid_mrf(*GRID, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    probs = {"simplicial": g.problem()}
+    t1 = time.perf_counter()
+    probs["supernodal"] = SparseProblem(
+        f=g.problem(jtj="dense").f, structure=g.structure, jtj="sparse",
+        ordering="rcm", amalgamate=16)
+    t2 = time.perf_counter()
+    analysis = {"simplicial": t1 - t0, "supernodal": t2 - t1}
+    for name, prob in probs.items():
+        sym = prob.default_newton_solver().symbolic
+        inner = getattr(sym, "inner", sym)
+        s = inner.sched
+        print(f"[12 analysis {name}] {analysis[name]:.3f} s on the host: "
+              f"block {inner.b}, {inner.nslots} slots, {s.nlevels} levels, "
+              f"{len(s.upd_tgt)} UPDATE, {len(s.fac)} FACTOR, "
+              f"{len(s.sol_tgt)} SOLVE ops (at most "
+              f"{int(np.diff(s.fac_off).max())} FACTOR and "
+              f"{int(np.diff(s.sol_off).max())} SOLVE in a level); "
+              f"{len(inner.fwd.pair_off) - 1} forward and "
+              f"{len(inner.bwd.pair_off) - 1} backward levels", flush=True)
+
+    p0 = torch.zeros(g.nstate, dtype=torch.float32, device=dev)
+    for k in tilechol.launch_counts:
+        tilechol.launch_counts[k] = 0
+    r32, walls = {}, {}
+    for name, prob in probs.items():
+        t0 = time.perf_counter()
+        r32[name] = optimize(prob, p0, bench)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+    launches = dict(tilechol.launch_counts)
+    check(all(v > 0 for v in launches.values()),
+          f"K6 and K7 launched on the main path: {launches}")
+
+    g64 = grid_mrf.make_grid_mrf(*GRID, dtype=torch.float64, device=dev)
+    g64c = grid_mrf.make_grid_mrf(*GRID, dtype=torch.float64)
+    for name, prob in probs.items():
+        r = r32[name]
+        jtx = float(r.Jt_x.abs().max())
+        check(r.p.shape == (g.nstate,) and bool(torch.isfinite(r.p).all()),
+              f"{name}: finite ({g.nstate},) p")
+        check(int(r.reason) > 0, f"{name}: the f32 solve terminated")
+        check(jtx <= 1e-3, f"{name}: f32 max|Jt_x| {jtx:.3e} <= 1e-3")
+        before = dict(tilechol.launch_counts)
+        r64 = optimize(with_residual(prob, g64),
+                       torch.zeros(g.nstate, dtype=torch.float64,
+                                   device=dev))
+        torch.cuda.synchronize()
+        check(all(tilechol.launch_counts[k] > before[k] for k in before),
+              f"{name}: the f64 card solve launched K6 and K7")
+        t0 = time.perf_counter()
+        r64c = optimize(with_residual(prob, g64c),
+                        torch.zeros(g.nstate, dtype=torch.float64))
+        wall_cpu = time.perf_counter() - t0
+        for field in ("step_count", "n_attempts", "reason"):
+            check(int(getattr(r64, field)) == int(getattr(r64c, field)),
+                  f"{name}: f64 card vs CPU {field} identical")
+        dp64 = float((r64.p.cpu() - r64c.p).abs().max())
+        check(torch.allclose(r64.p.cpu(), r64c.p, rtol=1e-9, atol=1e-12),
+              f"{name}: f64 card vs CPU p within rtol 1e-9: {dp64:.3e}")
+        dp = float((r.p.double() - r64.p).abs().max())
+        check(dp <= 1e-3, f"{name}: f32 p within 1e-3 of f64: {dp:.3e}")
+        print(f"[12 grid {GRID} {name} f32 PRM] step_count "
+              f"{int(r.step_count)} n_attempts {int(r.n_attempts)} reason "
+              f"{int(r.reason)}; max|Jt_x| {jtx:.3e} (<= 1e-3); max |p32 - "
+              f"p64| {dp:.3e} (<= 1e-3); wall {walls[name]:.3f} s (first "
+              f"call)", flush=True)
+        print(f"[12 grid {GRID} {name} f64] card (K6, K7) vs CPU (twins): "
+              f"step_count {int(r64.step_count)} n_attempts "
+              f"{int(r64.n_attempts)} reason {int(r64.reason)} identical; "
+              f"max |dp| {dp64:.3e} (rtol 1e-9); CPU wall {wall_cpu:.2f} s",
+              flush=True)
+    print(f"[12 main path] kernel launches over both f32 solves: "
+          f"{launches}", flush=True)
+
+    gd = grid_mrf.make_grid_mrf(*GRID, coupling="dense",
+                                dtype=torch.float32, device=dev)
+    rd = optimize(with_residual(probs["supernodal"], gd), p0, bench)
+    jtxd = float(rd.Jt_x.abs().max())
+    check(int(rd.reason) > 0 and jtxd <= 1e-3,
+          f"dense-coupling supernodal f32 solve: reason {int(rd.reason)}, "
+          f"max|Jt_x| {jtxd:.3e}")
+    print(f"[12 grid {GRID} coupling=dense supernodal f32 PRM] reason "
+          f"{int(rd.reason)} step_count {int(rd.step_count)}; max|Jt_x| "
+          f"{jtxd:.3e}", flush=True)
+    return {"probs": probs, "analysis": analysis, "launches": launches,
+            "p0": p0}
+
+
+def phase13_timing(dev, bench, card, sparse, tiles, dense_walls) -> None:
+    """CUDA-event times of K6 and K7 at the slice's shapes against their
+    twins, of one factorize and one solve per path, and the whole sparse
+    solves' host wall and device split."""
+    import torch
+
+    from libdogleg_tpu_torch import optimize
+    from libdogleg_tpu_torch import sparse_cholesky as sc
+    from libdogleg_tpu_torch import supernodal as sn
+    from libdogleg_tpu_torch.ops import tilechol
+    from libdogleg_tpu_torch.utils.benchtime import measure_ms
+
+    for key, n, k in (("K6", 128, 21), ("K6", 8, 455), ("K7", 128, 68),
+                      ("K7", 8, 1756)):
+        S = spd_tiles(n, k, n + k, torch.float32, dev)
+        if key == "K6":
+            fn, ref, args = (tilechol.tile_cholesky,
+                             tilechol.tile_cholesky_reference, (S,))
+        else:
+            L = tilechol.tile_cholesky_reference(S)[0]
+            C = torch.as_tensor(np.random.default_rng(k).normal(
+                size=(k, n, n)), dtype=torch.float32, device=dev)
+            fn, ref, args = (tilechol.tri_solve_right,
+                             tilechol.tri_solve_right_reference, (L, C))
+        ms = measure_ms(fn, *args, warmup=3, reps=20)
+        plain = measure_ms(ref, *args, warmup=3, reps=20)
+        alone = kernel_us(fn, args, "tilechol" if key == "K6" else
+                          "trisolve")
+        if n == 128:
+            tiles[key].update(ms=ms, plain_ms=plain)
+        print(f"[13 {key} ({k}, {n}, {n}) f32] kernel {ms:.4f} ms, twin "
+              f"{plain:.4f} ms (CUDA events over 20 back-to-back calls); "
+              f"the kernel alone {alone:.2f} us per launch (profiler); card "
+              f"{card}", flush=True)
+
+    probs, p0 = sparse["probs"], sparse["p0"]
+    for name, prob in probs.items():
+        ns = prob.default_newton_solver()
+        blocks = prob.products(p0).JtJ
+        be = sn if name == "supernodal" else sc
+        L, ok = be.factorize(ns.symbolic, blocks, 0.0)
+        rhs = torch.linspace(-1.0, 1.0, p0.shape[0], device=dev)
+        for label, fn, args in (
+                ("factorize", be.factorize, (ns.symbolic, blocks, 0.0)),
+                ("solve", be.solve, (ns.symbolic, L, rhs))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            ms = measure_ms(fn, *args, warmup=1, reps=5)
+            print(f"[13 {name} {label} f32] {ms:.3f} ms per call (CUDA "
+                  f"events over 5 back-to-back calls), host wall of one "
+                  f"call {wall:.3f} ms; card {card}", flush=True)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            optimize(prob, p0, bench)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        split = device_split(lambda: optimize(prob, p0, bench),
+                             groups=SPARSE_GROUPS)
+        speedup = " ".join(
+            f"{dense_walls[k] / min(walls):.2f}x vs {k}"
+            for k in ("DenseNewtonSolver", "BlockedDenseNewtonSolver"))
+        print(f"[13 grid {GRID} f32 solve, {name}] wall ms "
+              f"{', '.join(f'{w:.1f}' for w in walls)}; {split}; analysis "
+              f"{sparse['analysis'][name]:.3f} s; sparse_speedup_vs_dense "
+              f"{speedup} (phase 10 walls); card {card}", flush=True)
 
 
 def main() -> int:
@@ -533,7 +831,12 @@ def main() -> int:
     k2 = phase7_panel(dev)
     k2.update(phase8_slice(dev, bench))
     k34 = phase9_bcsr(dev)
-    phase10_timing(dev, bench, card, k2, k34)
+    dense_walls = phase10_timing(dev, bench, card, k2, k34)
+    tiles = phase11_tiles(dev)
+    sparse = phase12_sparse(dev, bench)
+    tiles["K6"]["launches"] = sparse["launches"]["tile_cholesky"]
+    tiles["K7"]["launches"] = sparse["launches"]["tri_solve_right"]
+    phase13_timing(dev, bench, card, sparse, tiles, dense_walls)
 
     def entry(name, source, replaces, d):
         return {"name": name, "route": "cuda", "source": source,
@@ -550,7 +853,11 @@ def main() -> int:
         entry("bcsr_jtj_blocks_kernel", "libdogleg_tpu_torch/csrc/bcsr.cu",
               "libdogleg_tpu/ops/pallas_bcsr.py:117", k34["K3"]),
         entry("bcsr_matvec_kernel", "libdogleg_tpu_torch/csrc/bcsr.cu",
-              "libdogleg_tpu/ops/pallas_bcsr.py:212", k34["K4"])]}))
+              "libdogleg_tpu/ops/pallas_bcsr.py:212", k34["K4"]),
+        entry("tile_cholesky", "libdogleg_tpu_torch/csrc/tilechol.cu",
+              "libdogleg_tpu/ops/pallas_chol.py:62", tiles["K6"]),
+        entry("tri_solve_right", "libdogleg_tpu_torch/csrc/tilechol.cu",
+              "libdogleg_tpu/ops/pallas_chol.py:113", tiles["K7"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,6 +25,7 @@ from libdogleg_tpu_torch.solver import (
 from libdogleg_tpu_torch.ops.newton import (
     BlockedDenseNewtonSolver,
     DenseNewtonSolver,
+    SparseNewtonSolver,
 )
 from libdogleg_tpu_torch.problems import (
     DenseProblem,
@@ -49,6 +50,7 @@ __all__ = [
     "result_from_state",
     "BlockedDenseNewtonSolver",
     "DenseNewtonSolver",
+    "SparseNewtonSolver",
     "DenseProblem",
     "ProductsProblem",
     "ResidualProblem",

@@ -53,9 +53,13 @@ class GridMRF(NamedTuple):
         return self.n_nodes * self.block_size
 
     def problem(self, jtj: str = "sparse", ordering="mindeg") -> SparseProblem:
-        """The SparseProblem of this instance. The block values do not
-        depend on p: priors sqrt(wp) I; edges [-sqrt(we) I, +sqrt(we) M_e]
-        in (u, v) column order per block row."""
+        """The SparseProblem of this instance. The default, jtj="sparse"
+        with the "mindeg" ordering, keeps JtJ block-sparse and solves
+        through SparseNewtonSolver (the simplicial block-sparse Cholesky,
+        kernels K6 and K7 on a CUDA device); jtj="dense" forms the dense
+        JtJ. The block values do not depend on p: priors sqrt(wp) I; edges
+        [-sqrt(we) I, +sqrt(we) M_e] in (u, v) column order per block
+        row."""
         b = self.block_size
         n_nodes, n_edges = self.n_nodes, self.edges.shape[0]
         dt, dev = self.z_prior.dtype, self.z_prior.device

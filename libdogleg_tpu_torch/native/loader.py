@@ -131,6 +131,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, f"dogleg_bcsr_matvec_{dt}")
         fn.argtypes = [ptr, i32, i32, ptr, ptr, ptr, i32, ptr, i32, ptr]
         fn.restype = i32
+        # A, k, n, L, ok, device, stream
+        fn = getattr(lib, f"dogleg_tilechol_{dt}")
+        fn.argtypes = [ptr, i32, i32, ptr, ptr, i32, ptr]
+        fn.restype = i32
+        # D, C, k, n, m, X, device, stream
+        fn = getattr(lib, f"dogleg_trisolve_right_{dt}")
+        fn.argtypes = [ptr, ptr, i32, i32, i32, ptr, i32, ptr]
+        fn.restype = i32
     return lib
 
 

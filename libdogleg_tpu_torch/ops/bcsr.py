@@ -1,5 +1,5 @@
 """Block-CSR Jacobian storage and products (counterpart of
-libdogleg_tpu/ops/bcsr.py:25-118,165-185).
+libdogleg_tpu/ops/bcsr.py).
 
 The reference stores sparse Jacobians in scalar CSR and loops over nonzeros
 one double at a time (reference dogleg.h:11-20, dogleg.c:249-281). Here the
@@ -70,7 +70,11 @@ class BCSRJacobian(NamedTuple):
     values: torch.Tensor  # (nnzb, block_rows, block_cols)
 
 
-def _index(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+def _index(a, like: torch.Tensor) -> torch.Tensor:
+    """An index array as an int64 tensor on like's device: a numpy array is
+    copied there, a tensor already there is taken as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=like.device, dtype=torch.int64)
     return torch.as_tensor(np.asarray(a, np.int64), device=like.device)
 
 
@@ -114,6 +118,51 @@ def bcsr_matvec(J: BCSRJacobian, vec: torch.Tensor) -> torch.Tensor:
                       device=v.device)
     out.index_add_(0, _index(s.row_of_block(), v), partial)
     return out.reshape(s.nmeas)
+
+
+class JtJLowerSchedule(NamedTuple):
+    """Static schedule for the lower triangle of J^T J as block-sparse
+    values in the input layout of sparse_cholesky.analyze: output block k
+    holds JtJ[rows[k], cols[k]] (block coordinates, rows >= cols). The
+    one-time symbolic artifact of the sparse path (the other half of the
+    reference's cholmod_analyze, dogleg.c:649-654)."""
+    rows: np.ndarray      # (nnzb_jtj,) output block-row (state) coords
+    cols: np.ndarray      # (nnzb_jtj,) output block-col, rows >= cols
+    pair_i: np.ndarray    # (npairs,) index into J.values
+    pair_j: np.ndarray    # (npairs,) index into J.values
+    out_idx: np.ndarray   # (npairs,) output block per pair
+
+
+def jtj_lower_schedule(s: BCSRStructure) -> JtJLowerSchedule:
+    """Lower-triangle JtJ block pattern and pair schedule for `s`: the
+    output-sorted schedule of ops/bcsr_kernels.build_jtj_schedule filtered
+    to rows >= cols (the JAX package's arrays)."""
+    from libdogleg_tpu_torch.ops.bcsr_kernels import build_jtj_schedule
+    sch = build_jtj_schedule(s)
+    keep_block = sch.out_ci >= sch.out_cj
+    new_id = np.cumsum(keep_block) - 1
+    keep_pair = keep_block[sch.out_idx]
+    return JtJLowerSchedule(
+        rows=sch.out_ci[keep_block].astype(np.int64),
+        cols=sch.out_cj[keep_block].astype(np.int64),
+        pair_i=sch.pair_i[keep_pair],
+        pair_j=sch.pair_j[keep_pair],
+        out_idx=new_id[sch.out_idx[keep_pair]].astype(np.int32))
+
+
+def bcsr_jtj_lower_blocks(J: BCSRJacobian,
+                          sched: JtJLowerSchedule) -> torch.Tensor:
+    """The stored lower-triangle blocks of J^T J, (nnzb_jtj, bn, bn) in the
+    schedule's (rows, cols) order: the input of sparse_cholesky.factorize.
+    One batched product and one segment sum (index_add_); JtJ never
+    densifies. The schedule's pair_i, pair_j and out_idx may be numpy
+    arrays or int64 tensors on the values' device."""
+    v = J.values
+    contrib = v[_index(sched.pair_i, v)].mT @ v[_index(sched.pair_j, v)]
+    bn = J.structure.block_cols
+    out = torch.zeros((int(sched.rows.shape[0]), bn, bn), dtype=v.dtype,
+                      device=v.device)
+    return out.index_add_(0, _index(sched.out_idx, v), contrib)
 
 
 def bcsr_jtj_dense(J: BCSRJacobian) -> torch.Tensor:

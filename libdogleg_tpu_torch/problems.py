@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from libdogleg_tpu_torch.ops import bcsr as bops
@@ -49,26 +50,52 @@ class SparseProblem:
     jtj selects the Gauss-Newton system representation:
       "dense" (default): JtJ materializes as (nstate, nstate) and the
         Newton step is a dense Cholesky (right while nstate is moderate);
-      "sparse": the block-sparse JtJ and level-scheduled sparse Cholesky,
-        not ported yet (raises NotImplementedError).
-    `ordering` and `amalgamate` configure the sparse analysis and are kept
-    for the JAX signature. optimize() asks default_newton_solver() when no
-    newton_solver is given."""
+      "sparse": JtJ stays block-sparse on its lower-triangle pattern and
+        the Newton step runs through the level-scheduled block-sparse
+        Cholesky (the CHOLMOD regime, for large nstate), whose symbolic
+        analysis runs here, once, on the host. `ordering` is its
+        fill-reducing ordering (None: "mindeg" simplicial, "rcm"
+        amalgamated) and `amalgamate` its supernode width.
+    optimize() asks default_newton_solver() when no newton_solver is
+    given."""
     f: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
     structure: BCSRStructure
     jtj: str = "dense"
     ordering: object = None
     amalgamate: int = 1
+    _jtj_sched: object = dataclasses.field(init=False, default=None,
+                                           repr=False, compare=False)
+    _newton: object = dataclasses.field(init=False, default=None,
+                                        repr=False, compare=False)
+    # the schedule's index arrays on each device they were used on
+    _sched_on: dict = dataclasses.field(init=False, default_factory=dict,
+                                        repr=False, compare=False)
 
     def __post_init__(self):
         if self.jtj not in ("dense", "sparse"):
             raise ValueError(f"jtj must be 'dense' or 'sparse', "
                              f"got {self.jtj!r}")
         if self.jtj == "sparse":
-            raise NotImplementedError(
-                "jtj='sparse' needs the block-sparse JtJ and the sparse "
-                "Cholesky (sparse_cholesky.py, supernodal.py), which wait "
-                "for the sparse-Cholesky slice of the port")
+            from libdogleg_tpu_torch.ops.newton import SparseNewtonSolver
+            s = self.structure
+            if s.block_rows > 1 and s.nmeas % s.block_rows:
+                raise ValueError("nmeas must divide into block rows")
+            sched = bops.jtj_lower_schedule(s)
+            ns = SparseNewtonSolver.analyze(
+                sched.rows, sched.cols, s.nbcol, s.block_cols,
+                self.ordering, amalgamate=self.amalgamate)
+            object.__setattr__(self, "_jtj_sched", sched)
+            object.__setattr__(self, "_newton", ns)
+
+    def _schedule_on(self, device: torch.device) -> bops.JtJLowerSchedule:
+        sched = self._sched_on.get(device)
+        if sched is None:
+            sched = self._jtj_sched._replace(**{
+                k: torch.as_tensor(np.asarray(getattr(self._jtj_sched, k),
+                                              np.int64), device=device)
+                for k in ("pair_i", "pair_j", "out_idx")})
+            self._sched_on[device] = sched
+        return sched
 
     def jacobian(self, p: torch.Tensor
                  ) -> Tuple[torch.Tensor, BCSRJacobian]:
@@ -77,11 +104,18 @@ class SparseProblem:
 
     def products(self, p: torch.Tensor) -> Products:
         x, J = self.jacobian(p)
+        if self.jtj == "sparse":
+            JtJ = bops.bcsr_jtj_lower_blocks(
+                J, self._schedule_on(J.values.device))
+        else:
+            JtJ = bops.bcsr_jtj_dense(J)
         return Products(norm2_x=dops.norm2(x), Jt_x=bops.bcsr_jt_x(J, x),
-                        JtJ=bops.bcsr_jtj_dense(J))
+                        JtJ=JtJ)
 
     def default_newton_solver(self):
-        return None  # the solver's default for the dense JtJ
+        """The SparseNewtonSolver of jtj="sparse"; None for "dense" (the
+        solver's default)."""
+        return self._newton
 
     def full(self, p: torch.Tensor):
         x, J = self.jacobian(p)

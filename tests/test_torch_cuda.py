@@ -1,4 +1,5 @@
-"""Kernels K1-K4 on a CUDA card against their plain twins on the same card.
+"""Kernels K1-K4, K6 and K7 on a CUDA card against their plain twins on the
+same card.
 
 These tests need an NVIDIA GPU and skip without one. This file imports no
 jax, so it runs on a machine that has only PyTorch:
@@ -162,3 +163,63 @@ def test_grid_solve_launches_panel_kernel(cuda):
     for field in ("step_count", "n_attempts", "reason"):
         assert int(getattr(r_k, field)) == int(getattr(r_t, field)), field
     torch.testing.assert_close(r_k.p, r_t.p, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 2e-4)])
+@pytest.mark.parametrize("n", [8, 40, 128])
+def test_tile_kernels_match_twins(cuda, n, dtype, tol):
+    """K6 and K7 against their twins on the card: L and X within tol of
+    their largest entry, ok identical, and a negative pivot caught."""
+    from libdogleg_tpu_torch.ops import tilechol
+    rng = np.random.default_rng(n)
+    S = _spd(n, rng, batch=(5,))
+    S[4, n // 2, n // 2] = -S[4, n // 2, n // 2]
+    St = torch.as_tensor(S, dtype=dtype, device=cuda)
+    C = torch.as_tensor(rng.normal(size=(5, 3, n)), dtype=dtype, device=cuda)
+    before = dict(tilechol.launch_counts)
+    L, ok = tilechol.tile_cholesky(St)
+    Lr, okr = tilechol.tile_cholesky_reference(St)
+    X = tilechol.tri_solve_right(Lr[:4], C[:4])
+    torch.cuda.synchronize()
+    assert all(tilechol.launch_counts[k] == before[k] + 1 for k in before)
+    assert ok.tolist() == okr.tolist() == [True] * 4 + [False]
+    assert bool((torch.triu(L, 1) == 0).all())
+    err = (L[:4] - Lr[:4]).abs().max() / Lr[:4].abs().max()
+    assert float(err) < tol
+    Xr = tilechol.tri_solve_right_reference(Lr[:4], C[:4])
+    assert float((X - Xr).abs().max() / Xr.abs().max()) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amalgamate", [1, 4])
+def test_sparse_solve_launches_tile_kernels(cuda, amalgamate):
+    """The block-sparse grid solve on the card (simplicial g.problem() and
+    the rcm/amalgamated problem): K6 and K7 launched, and in float64 the
+    decisions of the same code on a CPU tensor, where the twins run."""
+    from libdogleg_tpu_torch import SparseProblem, optimize
+    from libdogleg_tpu_torch.models import grid_mrf
+    from libdogleg_tpu_torch.ops import tilechol
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        g = grid_mrf.make_grid_mrf(10, 8, 4, device=dev)
+        prob = g.problem()
+        if amalgamate > 1:
+            prob = SparseProblem(f=prob.f, structure=prob.structure,
+                                 jtj="sparse", ordering="rcm",
+                                 amalgamate=amalgamate)
+        p0 = torch.zeros(g.nstate, dtype=torch.float64, device=dev)
+        before = dict(tilechol.launch_counts)
+        results.append(optimize(prob, p0))
+        launched = {k: tilechol.launch_counts[k] - before[k] for k in before}
+        if dev.type == "cuda":
+            assert all(v > 0 for v in launched.values()), launched
+        else:
+            assert not any(launched.values()), launched
+    r_k, r_t = results
+    for field in ("step_count", "n_attempts", "reason"):
+        assert int(getattr(r_k, field)) == int(getattr(r_t, field)), field
+    assert int(r_k.reason) > 0
+    np.testing.assert_allclose(r_k.p.cpu().numpy(), r_t.p.numpy(),
+                               rtol=1e-9, atol=1e-12)

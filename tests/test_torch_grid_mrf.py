@@ -93,8 +93,11 @@ def test_slice_matches_jax_f64(coupling):
 
 def test_sparse_problem_options():
     t = tgrid.make_grid_mrf(3, 2, 2)
-    with pytest.raises(NotImplementedError, match="sparse-Cholesky"):
-        t.problem(jtj="sparse")
+    ns = t.problem().default_newton_solver()   # jtj="sparse", "mindeg"
+    assert isinstance(ns, tl.SparseNewtonSolver)
+    assert not hasattr(ns.symbolic, "inner")    # simplicial
+    r = tl.optimize(t.problem(), torch.zeros(t.nstate, dtype=torch.float64))
+    assert int(r.reason) > 0 and float(r.Jt_x.abs().max()) < 1e-9
     with pytest.raises(ValueError, match="jtj"):
         t.problem(jtj="banded")
     with pytest.raises(ValueError, match="coupling"):

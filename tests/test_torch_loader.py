@@ -10,7 +10,7 @@ from libdogleg_tpu_torch.native import loader
 
 def test_every_source_is_built():
     names = [s.name for s in loader._sources()]
-    assert names == ["bcsr.cu", "mega.cu", "panelchol.cu"]
+    assert names == ["bcsr.cu", "mega.cu", "panelchol.cu", "tilechol.cu"]
 
 
 def test_source_edit_renames_the_library(tmp_path, monkeypatch):
@@ -24,4 +24,4 @@ def test_source_edit_renames_the_library(tmp_path, monkeypatch):
     for s in sorted(tmp_path.glob("*.cu")):
         s.write_text(s.read_text() + "\n// edited\n")
         names.add(loader.library_path().name)
-    assert len(names) == 4   # each edit gave a new name
+    assert len(names) == 5   # each edit gave a new name
