@@ -52,8 +52,30 @@ Phases, each printing its own lines:
      and (1756, 8, 8) against their twins; one factorize and one solve per
      path; each sparse solve's host wall, profiler split (K6, K7, products,
      scatter/gather, other, host and idle), its analysis time, and
-     sparse_speedup_vs_dense against phase 10's dense-JtJ walls.
-Then one JSON line about the kernels, the card line again, and a last JSON
+     sparse_speedup_vs_dense against phase 10's dense-JtJ walls;
+ 14. K5 (csrc/batchchol.cu) against its plain version: n in {32, 40, 64,
+     128, 256}, B in {1, 7, 512} (512 up to n = 128), float64 (1e-10 of the
+     largest entry) and float32 (1e-5), ok identical, zeros above the
+     diagonal, and a batch with one matrix that is not SPD (ok False for
+     that one only, from both, the others within tolerance);
+ 15. the mid-size batched slice at full width: the tanh family of the JAX
+     benchmark's config 8 (bench_all.py:515-555), one instance per element,
+     at (Nstate 64, batch 512) and (128, 256) in float32 through
+     batched_optimize with no newton_solver: K5 launched, K1 not, every
+     reason > 0, recovered_frac (all parameters within 0.05 of the truth)
+     >= 0.99; in float64 at (64, 128) the card against the same call on
+     CPU tensors (identical decisions, p within rtol 1e-9);
+     batched_optimize_compacted at (64, 512) float32 (batched_optimize's
+     decisions on every element);
+ 16. timing: K5, its plain version, batched torch.linalg.cholesky_ex and
+     K6 at (512, 64, 64) and (256, 128, 128) float32, on the JtJ of the
+     path's starts, K5 held to its plain version there; the substitutions
+     (torch.cholesky_solve); the public call's
+     host wall with the gate's strategy, with DenseNewtonSolver and
+     compacted, attempts and K5 launches per solve, and a profiler split.
+Then one JSON line about the kernels (time, plain version's time, the
+library call's where one exists, and the bound from this run's shapes), the
+card line again, and a last JSON
 line with "ok": true. Any failure exits non-zero before the last line; so
 does a machine without a CUDA device, or a directory without the package.
 """
@@ -74,11 +96,31 @@ BATCH = 8192
 BENCH = dict(max_iterations=10, Jt_x_threshold=1e-3, update_threshold=1e-5,
              trustregion_threshold=1e-5)
 GRID = (32, 32, 8)   # config 6 of bench_all.py:330-374: Nstate 8192
+# config 8 of bench_all.py:577-578: (Nstate, batch), nmeas = 4 Nstate
+MIDSIZE = ((64, 512), (128, 256))
+# NVIDIA's data sheet for the H100 SXM: device memory rate, and the float32
+# rate outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
 
 
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: every input byte read once and
+    every output byte written once at the memory rate, or the operations at
+    the float32 rate, whichever is larger."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes_of(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def card_line() -> str:
@@ -96,7 +138,7 @@ def instances(seed, batch, dtype, device):
 
     from libdogleg_tpu_torch.models import quadratic_surface as qs
     rng = np.random.default_rng(seed)
-    gx, gy = (t.numpy() for t in qs.make_grid(torch.float64))
+    gx, gy = (t.numpy() for t in qs.make_grid(torch.float64, "cpu"))
     truth = qs.model(qs.P_TRUE, gx, gy)
     meas = truth + rng.uniform(size=(batch, qs.NMEAS)) - 0.5
     p0 = rng.uniform(size=(batch, qs.NSTATE)) - 0.1
@@ -196,8 +238,9 @@ def phase8_slice(dev, bench) -> dict:
     from libdogleg_tpu_torch.ops import panelchol
 
     def solve(coupling, dtype, prm, panel_impl="auto"):
-        g = grid_mrf.make_grid_mrf(*GRID, coupling=coupling, dtype=dtype,
-                                   device=dev)
+        # no device given: the constructors' default is the card
+        g = grid_mrf.make_grid_mrf(*GRID, coupling=coupling, dtype=dtype)
+        check(g.z_prior.device.type == "cuda", "the default device is cuda")
         p0 = torch.zeros(g.nstate, dtype=dtype, device=dev)
         t0 = time.perf_counter()
         r = optimize(g.problem(jtj="dense"), p0, prm,
@@ -407,7 +450,8 @@ SPARSE_GROUPS = (("K6", ("tilechol",)), ("K7", ("trisolve",)),
 
 def device_split(fn, *args, groups=K2_GROUPS) -> str:
     """Device time of one call of fn, summed by kernel group from a
-    torch.profiler trace, beside the call's host wall."""
+    torch.profiler trace, beside the call's host wall, and the six device
+    kernels with the most time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -420,6 +464,7 @@ def device_split(fn, *args, groups=K2_GROUPS) -> str:
     sums = {name: 0.0 for name, _ in groups}
     sums["other"] = 0.0
     kernels = 0
+    by_name = []
     for ev in prof.key_averages():
         # device-side events only: a CPU op's device time repeats that of
         # the kernels it launched
@@ -432,14 +477,20 @@ def device_split(fn, *args, groups=K2_GROUPS) -> str:
                      if any(sub in key for sub in subs)), "other")
         sums[name] += us
         kernels += ev.count
+        by_name.append((us, ev.count, ev.key))
     total = sum(sums.values())
     if total == 0:
         return f"wall {wall * 1e3:.1f} ms; the profiler saw no device time"
     shares = " ".join(f"{k} {v / 1e3:.2f} ms ({100 * v / total:.1f}%)"
                       for k, v in sums.items())
+    largest = "; ".join(
+        f"{key[:60]} {us / 1e3:.2f} ms in {count}"
+        for us, count, key in sorted(by_name, reverse=True)[:6])
     return (f"wall {wall * 1e3:.1f} ms (profiled); device {total / 1e3:.2f} "
-            f"ms in {kernels} device events: {shares}; host and idle {wall * 1e3 - total / 1e3:.1f} ms "
-            f"({100 - 100 * total / 1e3 / (wall * 1e3):.1f}%)")
+            f"ms in {kernels} device events: {shares}; host and idle "
+            f"{wall * 1e3 - total / 1e3:.1f} ms "
+            f"({100 - 100 * total / 1e3 / (wall * 1e3):.1f}%); largest "
+            f"kernels: {largest}")
 
 
 def kernel_us(fn, args, name: str, reps: int = 20) -> float:
@@ -462,6 +513,33 @@ def kernel_us(fn, args, name: str, reps: int = 20) -> float:
                and name in ev.key.lower()) / reps
 
 
+def bsr_matvec_ms(J, v):
+    """The time of the one PyTorch call that computes K4's function, a
+    torch.sparse_bsr_tensor (built once, outside the timing) times v, held
+    to K4's plain version first. None, with the error printed, where this
+    PyTorch has no BSR matrix-vector product on the card."""
+    import torch
+
+    from libdogleg_tpu_torch.ops import bcsr_kernels as tk
+    from libdogleg_tpu_torch.utils.benchtime import measure_ms
+    st = J.structure
+    dev = J.values.device
+    bsr = torch.sparse_bsr_tensor(
+        torch.as_tensor(st.indptr, dtype=torch.int32, device=dev),
+        torch.as_tensor(st.indices, dtype=torch.int32, device=dev),
+        J.values, size=(st.nmeas, st.nstate))
+    try:
+        got = torch.mv(bsr, v)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"[10 K4 library call] torch.mv on a BSR tensor raised: "
+              f"{str(e).splitlines()[0][:200]}", flush=True)
+        return None
+    err = rel_err(got, tk.bcsr_matvec_reference(J, v))
+    check(err < 1e-4, f"the BSR product computes K4's function: {err:.3e}")
+    return measure_ms(torch.mv, bsr, v, warmup=3, reps=20)
+
+
 def phase10_timing(dev, bench, card, k2, k34) -> dict:
     """CUDA-event times at the slice's shapes, with the card line. Returns
     the dense-JtJ solves' fastest walls in ms, by strategy."""
@@ -480,7 +558,10 @@ def phase10_timing(dev, bench, card, k2, k34) -> dict:
         plain = measure_ms(panelchol.panel_factor_reference, W, warmup=1,
                            reps=3)
         if dtype == torch.float32:
-            k2.update(ms=ms, plain_ms=plain)
+            # in: W; out: L, inv(L), ok. p^3/3 for the factor and p^3/3 for
+            # the triangular inverse. No single PyTorch call gives both.
+            k2.update(ms=ms, plain_ms=plain, library_ms=None,
+                      **bound(3 * nbytes_of(W) + 4, 2 * 256 ** 3 / 3))
         print(f"[10 K2 p=256 B=1 {str(dtype).split('.')[-1]}] K2 {ms:.4f} "
               f"ms, twin {plain:.4f} ms; card {card}", flush=True)
     # how K2's time scales: with p (work per block) and with the batch
@@ -530,15 +611,35 @@ def phase10_timing(dev, bench, card, k2, k34) -> dict:
     J = grid_jacobian(torch.float32, dev)[0]
     sched = tk.build_jtj_schedule(J.structure)
     v = torch.linspace(-1.0, 1.0, J.structure.nstate, device=dev)
+    st = J.structure
+    bm, bn = st.block_rows, st.block_cols
+    # K3: the stored blocks, the int32 schedule (two indices per pair, one
+    # run pointer per output block) and the float32 output blocks; one
+    # (bn, bm) x (bm, bn) product per scheduled pair
+    npairs, nout = len(sched.pair_i), len(sched.out_ci)
+    k34["K3"].update(bound(
+        nbytes_of(J.values) + 4 * (2 * npairs + nout + 1)
+        + 4 * nout * bn * bn, 2.0 * npairs * bm * bn * bn))
+    # K4: the stored blocks, indptr, indices, v and the output vector; one
+    # (bm, bn) matrix-vector product per stored block
+    k34["K4"].update(bound(
+        nbytes_of(J.values, v) + 4 * (len(st.indptr) + len(st.indices))
+        + 4 * st.nmeas, 2.0 * st.nnzb * bm * bn))
     for key, fn, ref, args in (
             ("K3", tk.bcsr_jtj_blocks_kernel, tk.bcsr_jtj_blocks_reference,
              (J, sched)),
             ("K4", tk.bcsr_matvec_kernel, tk.bcsr_matvec_reference, (J, v))):
         ms = measure_ms(fn, *args, warmup=3, reps=20)
         plain = measure_ms(ref, *args, warmup=3, reps=20)
-        k34[key].update(ms=ms, plain_ms=plain)
+        # K3: no one PyTorch call gives the stored blocks of JtJ from
+        # block-CSR values (a sparse-sparse product of BSR tensors is not
+        # implemented). K4: a BSR tensor times v.
+        library = bsr_matvec_ms(J, v) if key == "K4" else None
+        k34[key].update(ms=ms, plain_ms=plain, library_ms=library)
         print(f"[10 {key} grid {GRID} f32] kernel {ms:.4f} ms, twin "
-              f"{plain:.4f} ms; card {card}", flush=True)
+              f"{plain:.4f} ms, library call "
+              f"{'none' if library is None else f'{library:.4f} ms'}; card "
+              f"{card}", flush=True)
     return dense_walls
 
 
@@ -587,18 +688,21 @@ def phase12_sparse(dev, bench) -> dict:
     p0 = torch.zeros(g.nstate, dtype=torch.float32, device=dev)
     for k in tilechol.launch_counts:
         tilechol.launch_counts[k] = 0
-    r32, walls = {}, {}
+    r32, walls, per_leg = {}, {}, {}
     for name, prob in probs.items():
+        before = dict(tilechol.launch_counts)
         t0 = time.perf_counter()
         r32[name] = optimize(prob, p0, bench)
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
+        per_leg[name] = {k: v - before[k]
+                         for k, v in tilechol.launch_counts.items()}
     launches = dict(tilechol.launch_counts)
     check(all(v > 0 for v in launches.values()),
           f"K6 and K7 launched on the main path: {launches}")
 
     g64 = grid_mrf.make_grid_mrf(*GRID, dtype=torch.float64, device=dev)
-    g64c = grid_mrf.make_grid_mrf(*GRID, dtype=torch.float64)
+    g64c = grid_mrf.make_grid_mrf(*GRID, dtype=torch.float64, device="cpu")
     for name, prob in probs.items():
         r = r32[name]
         jtx = float(r.Jt_x.abs().max())
@@ -636,7 +740,7 @@ def phase12_sparse(dev, bench) -> dict:
               f"max |dp| {dp64:.3e} (rtol 1e-9); CPU wall {wall_cpu:.2f} s",
               flush=True)
     print(f"[12 main path] kernel launches over both f32 solves: "
-          f"{launches}", flush=True)
+          f"{launches}; per solve: {per_leg}", flush=True)
 
     gd = grid_mrf.make_grid_mrf(*GRID, coupling="dense",
                                 dtype=torch.float32, device=dev)
@@ -676,16 +780,29 @@ def phase13_timing(dev, bench, card, sparse, tiles, dense_walls) -> None:
                 size=(k, n, n)), dtype=torch.float32, device=dev)
             fn, ref, args = (tilechol.tri_solve_right,
                              tilechol.tri_solve_right_reference, (L, C))
+        # the one PyTorch call that computes the same function
+        if key == "K6":
+            lib, lib_args = torch.linalg.cholesky_ex, (S,)
+            # in: the tiles; out: L and ok. n^3/3 operations a tile
+            limit = bound(2 * nbytes_of(S) + 4 * k, k * n ** 3 / 3)
+        else:
+            lib, lib_args = (lambda D, Cm: torch.linalg.solve_triangular(
+                D.mT, Cm, upper=True, left=False)), (L, C)
+            # in: D and C; out: X. m n^2 operations a tile (m = n here)
+            limit = bound(nbytes_of(L, C, C), float(k) * n * n * n)
         ms = measure_ms(fn, *args, warmup=3, reps=20)
         plain = measure_ms(ref, *args, warmup=3, reps=20)
+        library = measure_ms(lib, *lib_args, warmup=3, reps=20)
         alone = kernel_us(fn, args, "tilechol" if key == "K6" else
                           "trisolve")
         if n == 128:
-            tiles[key].update(ms=ms, plain_ms=plain)
+            tiles[key].update(ms=ms, plain_ms=plain, library_ms=library,
+                              **limit)
         print(f"[13 {key} ({k}, {n}, {n}) f32] kernel {ms:.4f} ms, twin "
-              f"{plain:.4f} ms (CUDA events over 20 back-to-back calls); "
-              f"the kernel alone {alone:.2f} us per launch (profiler); card "
-              f"{card}", flush=True)
+              f"{plain:.4f} ms, library call {library:.4f} ms (CUDA events "
+              f"over 20 back-to-back calls); the kernel alone {alone:.2f} us "
+              f"per launch (profiler); bound {limit['bound_ms'] * 1e3:.2f} "
+              f"us by {limit['bound_by']}; card {card}", flush=True)
 
     probs, p0 = sparse["probs"], sparse["p0"]
     for name, prob in probs.items():
@@ -721,6 +838,294 @@ def phase13_timing(dev, bench, card, sparse, tiles, dense_walls) -> None:
               f"{', '.join(f'{w:.1f}' for w in walls)}; {split}; analysis "
               f"{sparse['analysis'][name]:.3f} s; sparse_speedup_vs_dense "
               f"{speedup} (phase 10 walls); card {card}", flush=True)
+
+
+def midsize_family(nstate, batch, dtype, dev, meas_factor=4):
+    """Config 8's problem family (bench_all.py:522-536), letter for letter:
+    r = A tanh(B p) + C p - d, one (A, B, C, d) per element, drawn from
+    np.random.default_rng(8) in that order and with those scales, A, B and C
+    rounded to `dtype` before d is formed from them. Returns the problem
+    data and the starts on `dev`, and the true states."""
+    import torch
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    nmeas = meas_factor * nstate
+    rng = np.random.default_rng(8)
+    A = rng.normal(size=(batch, nmeas, nstate)).astype(np_dtype)
+    Bm = (rng.normal(size=(batch, nstate, nstate)) * 0.5
+          / np.sqrt(nstate)).astype(np_dtype)
+    C = (rng.normal(size=(batch, nmeas, nstate)) * 0.3).astype(np_dtype)
+    p_true = rng.normal(size=(batch, nstate))
+    d = (np.einsum('bms,bs->bm', A,
+                   np.tanh(np.einsum('bst,bt->bs', Bm, p_true)))
+         + np.einsum('bms,bs->bm', C, p_true)
+         + rng.normal(size=(batch, nmeas)) * 0.01)
+    p0 = p_true + rng.normal(size=(batch, nstate)) * 0.1
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+    return (t(A), t(Bm), t(C), t(d)), t(p0), p_true
+
+
+def midsize_products(p, data):
+    """Config 8's per-element products with the analytic Jacobian
+    (bench_all.py:538-546)."""
+    import torch
+
+    from libdogleg_tpu_torch import Products
+    Ab, Bb, Cb, db = data
+    t = torch.tanh(Bb @ p)
+    x = Ab @ t + Cb @ p - db
+    J = Ab @ ((1.0 - t * t)[:, None] * Bb) + Cb
+    return Products(norm2_x=x @ x, Jt_x=J.T @ x, JtJ=J.T @ J)
+
+
+def midsize_recovered(p, p_true) -> float:
+    """Share of problems with every parameter within 0.05 of the truth
+    (bench_all.py:552-555)."""
+    err = np.abs(p.double().cpu().numpy() - p_true)
+    return float(np.mean(np.all(err < 0.05, axis=-1)))
+
+
+def phase14_batchchol(dev) -> None:
+    """K5 against its plain version on the card."""
+    import torch
+
+    from libdogleg_tpu_torch.ops import batchchol
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-5)):
+        name = str(dtype).split(".")[-1]
+        first = True
+        for n in (32, 40, 64, 128, 256):
+            errs = []
+            for B in (1, 7, 512):
+                if B == 512 and n > 128:
+                    continue
+                S = spd_tiles(n, B, 100 * n + B, dtype, dev) * n
+                L, ok = batchchol.batched_blocked_cholesky(S)
+                if first:
+                    torch.cuda.synchronize()
+                    first = False
+                Lr, okr = batchchol.batched_blocked_cholesky_reference(S)
+                torch.cuda.synchronize()
+                check(L.shape == S.shape and ok.shape == (B,),
+                      f"K5 {name} n={n} B={B} shapes")
+                check(bool(ok.all()) and torch.equal(ok, okr),
+                      f"K5 {name} n={n} B={B} ok")
+                check(bool((torch.triu(L, 1) == 0).all()),
+                      f"K5 {name} n={n} zeros above the diagonal")
+                errs.append(rel_err(L, Lr))
+                check(errs[-1] < tol, f"K5 {name} n={n} B={B} within {tol}: "
+                      f"{errs[-1]:.3e}")
+                del S, L, Lr
+            S = spd_tiles(n, 5, n, dtype, dev) * n
+            h = S.shape[-1] // 2
+            S[3, h, h] = -S[3, h, h]
+            L, ok = batchchol.batched_blocked_cholesky(S)
+            Lr, okr = batchchol.batched_blocked_cholesky_reference(S)
+            torch.cuda.synchronize()
+            want = [True, True, True, False, True]
+            check(ok.tolist() == okr.tolist() == want,
+                  f"K5 {name} n={n} flags exactly the matrix that is not "
+                  f"SPD: {ok.tolist()} {okr.tolist()}")
+            good = [0, 1, 2, 4]
+            e_good = rel_err(L[good], Lr[good])
+            check(e_good < tol, f"K5 {name} n={n} the neighbours of a failed "
+                  f"matrix within {tol}: {e_good:.3e}")
+            print(f"[14 K5 {name} n={n}] vs its plain version, B 1/7/512: "
+                  f"max {max(errs):.3e} of the largest entry (tol {tol}); "
+                  f"one matrix not SPD: ok {ok.tolist()} from both, the "
+                  f"others within {e_good:.3e}", flush=True)
+
+
+def phase15_midsize(dev, bench) -> dict:
+    """The mid-size batched slice at config 8's full width."""
+    import torch
+
+    from libdogleg_tpu_torch import BlockedDenseNewtonSolver
+    from libdogleg_tpu_torch.ops import batchchol, mega
+    from libdogleg_tpu_torch.parallel import (batched_optimize,
+                                              batched_optimize_compacted)
+    from libdogleg_tpu_torch.parallel.batched import _auto_newton
+
+    decisions = ("step_count", "n_attempts", "reason")
+    families = {}
+    batchchol.launch_count = 0
+    k1_before = mega.launch_count
+    for nstate, batch in MIDSIZE:
+        data, p0, p_true = midsize_family(nstate, batch, torch.float32, dev)
+        families[nstate] = (data, p0, p_true)
+        check(isinstance(_auto_newton(midsize_products, p0, data),
+                         BlockedDenseNewtonSolver),
+              f"the gate picks BlockedDenseNewtonSolver at Nstate {nstate}")
+        before = batchchol.launch_count
+        t0 = time.perf_counter()
+        r = batched_optimize(midsize_products, p0, bench, problem_data=data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k5 = batchchol.launch_count - before
+        rec = midsize_recovered(r.p, p_true)
+        check(k5 >= 1, f"batched_optimize launched K5 at Nstate {nstate}")
+        check(r.p.shape == (batch, nstate)
+              and bool(torch.isfinite(r.p).all())
+              and bool(torch.isfinite(r.norm2_x).all()),
+              f"finite ({batch}, {nstate}) result")
+        check(bool((r.reason > 0).all()), "every problem terminated")
+        check(rec >= 0.99, f"Nstate {nstate} recovered_frac {rec} >= 0.99")
+        print(f"[15 batched_optimize Nstate {nstate} B={batch} f32 PRM] K5 "
+              f"launches {k5}; attempts {int(r.n_attempts.min())}.."
+              f"{int(r.n_attempts.max())}; reasons "
+              f"{torch.bincount(r.reason, minlength=7).tolist()}; "
+              f"recovered_frac {rec:.4f} (>= 0.99); wall {wall:.3f} s (first "
+              f"call)", flush=True)
+    launches = batchchol.launch_count
+    check(mega.launch_count == k1_before, "the mid-size path launched no K1")
+
+    # the compacted entry point, after the launches of the main path are read
+    nstate, batch = MIDSIZE[0]
+    data, p0, _ = families[nstate]
+    r = batched_optimize(midsize_products, p0, bench, problem_data=data)
+    rc = batched_optimize_compacted(midsize_products, p0, bench,
+                                    problem_data=data)
+    torch.cuda.synchronize()
+    for field in decisions:
+        check(torch.equal(getattr(rc, field), getattr(r, field)),
+              f"compacted: {field} of batched_optimize")
+    dpc = float((rc.p - r.p).abs().max())
+    check(dpc <= 1e-4, f"compacted: p within 1e-4: {dpc:.3e}")
+    print(f"[15 batched_optimize_compacted Nstate {nstate} B={batch} "
+          f"f32] decisions of batched_optimize on every element; "
+          f"max |dp| {dpc:.3e}", flush=True)
+
+    nstate, batch = MIDSIZE[0][0], 128
+    before = batchchol.launch_count
+    data, p0, p_true = midsize_family(nstate, batch, torch.float64, dev)
+    r64 = batched_optimize(midsize_products, p0, problem_data=data)
+    torch.cuda.synchronize()
+    check(batchchol.launch_count > before, "the f64 card solve launched K5")
+    data_c, p0_c, _ = midsize_family(nstate, batch, torch.float64, "cpu")
+    r64c = batched_optimize(midsize_products, p0_c, problem_data=data_c)
+    for field in decisions:
+        check(torch.equal(getattr(r64, field).cpu(), getattr(r64c, field)),
+              f"f64 card vs CPU {field} identical")
+    dp = float((r64.p.cpu() - r64c.p).abs().max())
+    check(torch.allclose(r64.p.cpu(), r64c.p, rtol=1e-9, atol=1e-12),
+          f"f64 card vs CPU p within rtol 1e-9: {dp:.3e}")
+    print(f"[15 Nstate {nstate} B={batch} f64] card (K5) vs CPU (plain "
+          f"version): decisions identical on every element, attempts "
+          f"{int(r64.n_attempts.min())}..{int(r64.n_attempts.max())}; max "
+          f"|dp| {dp:.3e} (rtol 1e-9); recovered_frac "
+          f"{midsize_recovered(r64.p, p_true):.4f}", flush=True)
+    return {"launches": launches, "families": families}
+
+
+MIDSIZE_GROUPS = (("K5", ("batchchol",)),
+                  ("cholesky_solve", ("trsm", "trsv", "potrs", "triang")),
+                  ("products", ("gemm", "gemv", "cutlass", "xmma", "bmm")))
+
+
+def phase16_timing(dev, bench, card, mid, k5) -> None:
+    """CUDA-event times of K5 at config 8's shapes against its plain
+    version, the library call and K6; the substitutions; the public call's
+    wall by strategy, with a profiler split."""
+    import torch
+
+    from libdogleg_tpu_torch import DenseNewtonSolver
+    from libdogleg_tpu_torch.ops import batchchol, tilechol
+    from libdogleg_tpu_torch.ops import cholesky as chol
+    from libdogleg_tpu_torch.parallel import (batched_optimize,
+                                              batched_optimize_compacted)
+    from libdogleg_tpu_torch.utils.benchtime import measure_ms
+
+    for nstate, batch in MIDSIZE:
+        data, p0, _ = mid["families"][nstate]
+        pr = torch.func.vmap(midsize_products)(p0, data)
+        S, rhs = pr.JtJ.contiguous(), pr.Jt_x
+        shape = f"({batch}, {nstate}, {nstate}) f32"
+        # in: the matrices; out: L and ok. n^3/3 operations a matrix
+        limit = bound(2 * nbytes_of(S) + 4 * batch, batch * nstate ** 3 / 3)
+        turns = []
+        for _ in range(2):  # in turns, so that a drift shows
+            turns.append((
+                measure_ms(batchchol.batched_blocked_cholesky, S, warmup=3,
+                           reps=20),
+                measure_ms(torch.linalg.cholesky_ex, S, warmup=3, reps=20),
+                measure_ms(tilechol.tile_cholesky, S, warmup=3, reps=20)))
+        plain = measure_ms(batchchol.batched_blocked_cholesky_reference, S,
+                           warmup=1, reps=3)
+        # the kernel against its plain version on the path's own JtJ
+        L, ok = batchchol.batched_blocked_cholesky(S)
+        Lr, okr = batchchol.batched_blocked_cholesky_reference(S)
+        torch.cuda.synchronize()
+        err = rel_err(L, Lr)
+        check(bool(ok.all()) and torch.equal(ok, okr),
+              f"K5 {shape} on the path's JtJ: ok")
+        check(err < 1e-5, f"K5 {shape} on the path's JtJ within 1e-5 of the "
+              f"largest entry: {err:.3e}")
+        k5["max_abs_err"] = max(k5["max_abs_err"],
+                                float((L - Lr).abs().max()))
+        alone = kernel_us(batchchol.batched_blocked_cholesky, (S,),
+                          "batchchol")
+        if nstate == MIDSIZE[-1][0]:
+            k5.update(ms=turns[0][0], plain_ms=plain,
+                      library_ms=turns[0][1], **limit)
+        print(f"[16 K5 {shape}] K5 {turns[0][0]:.4f} / {turns[1][0]:.4f} ms, "
+              f"torch.linalg.cholesky_ex {turns[0][1]:.4f} / "
+              f"{turns[1][1]:.4f} ms, K6 {turns[0][2]:.4f} / "
+              f"{turns[1][2]:.4f} ms (two turns, CUDA events over 20 "
+              f"back-to-back calls), plain version {plain:.3f} ms; the "
+              f"kernel alone {alone:.2f} us per launch (profiler); bound "
+              f"{limit['bound_ms'] * 1e3:.2f} us by {limit['bound_by']}; on "
+              f"the path's JtJ K5 within {err:.3e} of its plain version's "
+              f"largest entry (tol 1e-5), ok identical; card {card}",
+              flush=True)
+        t_sub = measure_ms(chol.cholesky_solve, L, rhs, warmup=3, reps=20)
+        print(f"[16 substitutions {shape}] ops/cholesky.cholesky_solve "
+              f"(torch.cholesky_solve, PyTorch around the kernel) "
+              f"{t_sub:.4f} ms; card {card}", flush=True)
+
+        def gate():
+            return batched_optimize(midsize_products, p0, bench,
+                                    problem_data=data)
+
+        def dense():
+            return batched_optimize(midsize_products, p0, bench,
+                                    problem_data=data,
+                                    newton_solver=DenseNewtonSolver())
+
+        def compacted():
+            return batched_optimize_compacted(midsize_products, p0, bench,
+                                              problem_data=data)
+
+        # in turns: the wall is host time, which drifts by several ms
+        # within a run on a shared host
+        variants = (("gate (BlockedDenseNewtonSolver, K5)", gate),
+                    ("DenseNewtonSolver", dense),
+                    ("compacted, gate's strategy", compacted))
+        walls = {label: [] for label, _ in variants}
+        per_solve, wavefronts = {}, {}
+        for turn in range(7):
+            for label, fn in variants:
+                before = batchchol.launch_count
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = fn()
+                torch.cuda.synchronize()
+                if turn:  # the first turn warms up
+                    walls[label].append((time.perf_counter() - t0) * 1e3)
+                per_solve[label] = batchchol.launch_count - before
+                wavefronts[label] = int(r.n_attempts.max())
+        for label, _ in variants:
+            w = sorted(walls[label])
+            median = (w[2] + w[3]) / 2
+            print(f"[16 Nstate {nstate} B={batch} f32 solve, {label}] wall "
+                  f"ms {', '.join(f'{x:.1f}' for x in walls[label])} (six "
+                  f"turns after one to warm up, the variants alternating): "
+                  f"median {median:.2f} ms, {batch / median * 1e3:.0f} "
+                  f"solves/s; fastest {w[0]:.2f} ms; wavefronts "
+                  f"{wavefronts[label]}, K5 launches {per_solve[label]} per "
+                  f"solve; card {card}", flush=True)
+        print(f"[16 Nstate {nstate} B={batch} f32 solve, gate] "
+              f"{device_split(gate, groups=MIDSIZE_GROUPS)}",
+              flush=True)
 
 
 def main() -> int:
@@ -823,10 +1228,26 @@ def main() -> int:
                     reps=20)
     plain_ms = measure_ms(mega.megakernel_optimize_reference, *args32,
                           bench, warmup=1, reps=5)
+    # K1's bound, from what this run's data needed: p0, meas and the grid
+    # in, the nine result fields out; one products evaluation at the start
+    # and one per attempt (16 operations a measurement for the residual, 11
+    # for the Jacobian, 2 for norm2, 12 for Jt_x, 42 for the 21 entries of
+    # the symmetric JtJ's lower triangle: 83), and per attempt the step math
+    # (Cholesky n^3/3, two substitutions and two quadratic forms 6 n^2,
+    # about 10 n besides)
+    r_b = mega.megakernel_optimize(*args32, bench)
+    n = qs.NSTATE
+    evals = float((r_b.n_attempts + 1).sum())
+    k1_bound = bound(
+        nbytes_of(*args32) + nbytes_of(*(t for t in r_b if t is not None)),
+        evals * qs.NMEAS * 83
+        + float(r_b.n_attempts.sum()) * (n ** 3 / 3 + 6 * n * n + 10 * n))
     print(f"[6 timing B={BATCH} f32] K1 {ms:.4f} ms "
           f"({BATCH / ms * 1e3:.0f} solves/s); twin {plain_ms:.4f} ms "
-          f"({BATCH / plain_ms * 1e3:.0f} solves/s); card {card}",
-          flush=True)
+          f"({BATCH / plain_ms * 1e3:.0f} solves/s); bound "
+          f"{k1_bound['bound_ms'] * 1e3:.2f} us by {k1_bound['bound_by']} "
+          f"({evals / BATCH:.2f} products evaluations a problem); card "
+          f"{card}", flush=True)
 
     k2 = phase7_panel(dev)
     k2.update(phase8_slice(dev, bench))
@@ -837,23 +1258,33 @@ def main() -> int:
     tiles["K6"]["launches"] = sparse["launches"]["tile_cholesky"]
     tiles["K7"]["launches"] = sparse["launches"]["tri_solve_right"]
     phase13_timing(dev, bench, card, sparse, tiles, dense_walls)
+    del sparse
+    phase14_batchchol(dev)
+    mid = phase15_midsize(dev, bench)
+    # K5's error is taken in phase 16, on the JtJ the main path gives it
+    k5 = {"launches": mid["launches"], "max_abs_err": 0.0}
+    phase16_timing(dev, bench, card, mid, k5)
 
     def entry(name, source, replaces, d):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": d["launches"],
                 "max_abs_err": d["max_abs_err"], "ms": d["ms"],
-                "plain_ms": d["plain_ms"]}
+                "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+                "bound_by": d["bound_by"], "library_ms": d["library_ms"]}
     print(json.dumps({"kernels": [
         entry("megakernel_optimize", "libdogleg_tpu_torch/csrc/mega.cu",
               "libdogleg_tpu/ops/pallas_mega.py:522",
               dict(launches=launches, max_abs_err=max_abs_err, ms=ms,
-                   plain_ms=plain_ms)),
+                   plain_ms=plain_ms, library_ms=None, **k1_bound)),
         entry("panel_factor", "libdogleg_tpu_torch/csrc/panelchol.cu",
               "libdogleg_tpu/ops/pallas_panelchol.py:157", k2),
         entry("bcsr_jtj_blocks_kernel", "libdogleg_tpu_torch/csrc/bcsr.cu",
               "libdogleg_tpu/ops/pallas_bcsr.py:117", k34["K3"]),
         entry("bcsr_matvec_kernel", "libdogleg_tpu_torch/csrc/bcsr.cu",
               "libdogleg_tpu/ops/pallas_bcsr.py:212", k34["K4"]),
+        entry("batched_blocked_cholesky",
+              "libdogleg_tpu_torch/csrc/batchchol.cu",
+              "libdogleg_tpu/ops/pallas_blockchol.py:150", k5),
         entry("tile_cholesky", "libdogleg_tpu_torch/csrc/tilechol.cu",
               "libdogleg_tpu/ops/pallas_chol.py:62", tiles["K6"]),
         entry("tri_solve_right", "libdogleg_tpu_torch/csrc/tilechol.cu",

@@ -12,12 +12,16 @@ from libdogleg_tpu_torch.params import (
     get_default_parameters,
 )
 from libdogleg_tpu_torch.solver import (
+    BatchedSolverState,
     Products,
     SolveResult,
     StopReason,
     StepType,
+    init_batched_state,
     init_solver_state,
+    result_from_batched_state,
     result_from_state,
+    run_batched_solver,
     run_solver,
     solve_products,
     solve_products_batched,
@@ -48,6 +52,10 @@ __all__ = [
     "init_solver_state",
     "run_solver",
     "result_from_state",
+    "BatchedSolverState",
+    "init_batched_state",
+    "run_batched_solver",
+    "result_from_batched_state",
     "BlockedDenseNewtonSolver",
     "DenseNewtonSolver",
     "SparseNewtonSolver",

@@ -40,35 +40,11 @@
 // into FMA), never TF32. Built without --use_fast_math, so division and
 // isfinite are IEEE.
 
-#include <cstddef>
-#include <cuda_runtime.h>
+#include "group.cuh"
 
 namespace {
 
 constexpr int MAX_N = 256;
-constexpr int THREADS = 256;
-
-// A group of G threads works on one tile, GX of them along a row and
-// G / GX along the column.
-template <int G>
-struct Group;
-
-template <>
-struct Group<32> {
-  static constexpr int GX = 8;
-  __device__ static void sync() { __syncwarp(); }
-  __device__ static bool all(bool v) { return __all_sync(0xffffffffu, v); }
-};
-
-template <>
-struct Group<THREADS> {
-  static constexpr int GX = 32;
-  __device__ static void sync() { __syncthreads(); }
-  __device__ static bool all(bool v) { return __syncthreads_and(v) != 0; }
-};
-
-__device__ __forceinline__ float rsqrt_(float x) { return rsqrtf(x); }
-__device__ __forceinline__ double rsqrt_(double x) { return rsqrt(x); }
 
 template <typename T, int G>
 __global__ void __launch_bounds__(THREADS)
@@ -176,25 +152,6 @@ trisolve_kernel(const T* __restrict__ D, const T* __restrict__ C, int k,
     for (int r = ty; r < m; r += GY)
       for (int c = tx; c < n; c += GX)
         x[static_cast<size_t>(r) * n + c] = W[r * ld + c];
-}
-
-// Dynamic shared memory: `per_tile` bytes for each of a block's tiles when
-// they fit in what a block may hold (in_smem = 1), else `fallback` bytes each.
-template <typename Kernel>
-cudaError_t shared_bytes(Kernel kernel, int device, int tiles_per_block,
-                         size_t per_tile, size_t fallback, size_t* bytes,
-                         int* in_smem) {
-  int optin = 0;
-  cudaError_t err = cudaDeviceGetAttribute(
-      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return err;
-  *in_smem = tiles_per_block * per_tile <= static_cast<size_t>(optin);
-  *bytes = tiles_per_block * (*in_smem ? per_tile : fallback);
-  if (*bytes > 48 * 1024)
-    return cudaFuncSetAttribute(kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(*bytes));
-  return cudaSuccess;
 }
 
 template <typename T, int G>

@@ -14,6 +14,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from libdogleg_tpu_torch.device import resolve_device
 from libdogleg_tpu_torch.params import DoglegParameters
 from libdogleg_tpu_torch.solver import History, SolveResult
 
@@ -36,8 +37,10 @@ def parameters_from_reference(obj_or_dict: Any) -> DoglegParameters:
 
 
 def from_numpy(array, device=None, dtype=None) -> torch.Tensor:
-    """A tensor holding a copy of `array` on `device` (default: the CPU)."""
-    return torch.as_tensor(np.array(array), dtype=dtype, device=device)
+    """A tensor holding a copy of `array` on `device` (None: the CUDA
+    device, see device.resolve_device)."""
+    return torch.as_tensor(np.array(array), dtype=dtype,
+                           device=resolve_device(device))
 
 
 def result_to_numpy(result: SolveResult) -> SolveResult:
@@ -55,8 +58,8 @@ def result_to_numpy(result: SolveResult) -> SolveResult:
 def grid_mrf_from_reference(jax_grid: Any, device=None,
                             dtype=torch.float64):
     """The port's GridMRF holding the arrays of a JAX GridMRF
-    (libdogleg_tpu.models.grid_mrf), on `device` in `dtype`, so both
-    packages solve the same instance."""
+    (libdogleg_tpu.models.grid_mrf), on `device` (None: the CUDA device)
+    in `dtype`, so both packages solve the same instance."""
     from libdogleg_tpu_torch.models import grid_mrf
     g = jax_grid
     return grid_mrf.from_arrays(

@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from libdogleg_tpu_torch.device import resolve_device
 from libdogleg_tpu_torch.ops.bcsr import BCSRStructure
 from libdogleg_tpu_torch.problems import SparseProblem
 
@@ -110,6 +111,7 @@ def make_grid_mrf(width: int = 32, height: int = 32, block_size: int = 4,
     if coupling not in ("diag", "dense"):
         raise ValueError(f"coupling must be 'diag' or 'dense', "
                          f"got {coupling!r}")
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     n_nodes = width * height
     b = block_size
@@ -138,7 +140,9 @@ def from_arrays(width: int, height: int, block_size: int, edges, z_prior,
                 dtype=torch.float64, device=None) -> GridMRF:
     """A GridMRF from numpy arrays; builds the block-CSR structure. Block
     rows: priors, then edges; a prior touches its node's block, an edge its
-    u then v block (u < v keeps the indices sorted per row)."""
+    u then v block (u < v keeps the indices sorted per row). The tensors
+    go to `device` (None: the CUDA device, see device.resolve_device)."""
+    device = resolve_device(device)
     b = block_size
     edges = np.asarray(edges, np.int64)
     n_nodes, n_edges = width * height, edges.shape[0]

@@ -22,6 +22,7 @@ import torch
 
 from libdogleg_tpu_torch.problems import (DenseProblem, ProductsProblem,
                                           ResidualProblem, SparseProblem)
+from libdogleg_tpu_torch.device import resolve_device
 from libdogleg_tpu_torch.solver import Products
 from libdogleg_tpu_torch.sparsity import dense_structure
 
@@ -35,7 +36,9 @@ P_TRUE = np.array([1.0, 2.0, 3.0, 4.0, 5.0, 6.0])
 
 def make_grid(dtype=torch.float64, device=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The 10x10 sampling grid (reference sample.c:64-80; x-major order)."""
+    """The 10x10 sampling grid (reference sample.c:64-80; x-major order),
+    on `device` (None: the CUDA device, see device.resolve_device)."""
+    device = resolve_device(device)
     coords = GRID_MIN + GRID_DELTA * np.arange(GRID_WIDTH)
     gx, gy = np.meshgrid(coords, coords, indexing="ij")
     return (torch.as_tensor(gx.ravel(), dtype=dtype, device=device),
@@ -109,7 +112,9 @@ def products_minor(p: torch.Tensor, meas: torch.Tensor,
 def simulate(generator: torch.Generator, dtype=torch.float64, device=None,
              noise: float = 1.0, batch: Tuple[int, ...] = ()) -> torch.Tensor:
     """Noisy measurements (batch..., NMEAS): truth +- 0.5*noise units uniform
-    (reference sample.c:46-62). Drawn on the generator's device."""
+    (reference sample.c:46-62). Drawn on the generator's device, returned
+    on `device` (None: the CUDA device)."""
+    device = resolve_device(device)
     gx, gy = make_grid(dtype, generator.device)
     truth = model(torch.as_tensor(P_TRUE, dtype=dtype,
                                   device=generator.device), gx, gy)
@@ -121,7 +126,9 @@ def simulate(generator: torch.Generator, dtype=torch.float64, device=None,
 def initial_state(generator: torch.Generator, dtype=torch.float64,
                   device=None, batch: Tuple[int, ...] = ()) -> torch.Tensor:
     """Initial guess (batch..., NSTATE) uniform in [-0.1, 0.9] (reference
-    sample.c:371). Drawn on the generator's device."""
+    sample.c:371). Drawn on the generator's device, returned on `device`
+    (None: the CUDA device)."""
+    device = resolve_device(device)
     u = torch.rand(tuple(batch) + (NSTATE,), generator=generator,
                    dtype=dtype, device=generator.device)
     return (u - 0.1).to(device)

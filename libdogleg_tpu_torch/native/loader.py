@@ -3,9 +3,9 @@
 The sources are compiled at first use with nvcc, one process per source, all
 started together, and linked into one shared library with a plain C
 interface, under _build/ beside this file, and loaded with ctypes. The
-library's file name carries a hash of the sources and flags, so an edit
-rebuilds it and a stale build is never loaded. Nothing is compiled or loaded
-at import time.
+library's file name carries a hash of the sources, their shared headers
+(csrc/*.cuh) and the flags, so an edit rebuilds it and a stale build is never
+loaded. Nothing is compiled or loaded at import time.
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ def _sources():
 
 def library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in _sources():
+    for s in _sources() + sorted(_SRC.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return _BUILD_DIR / f"libdogleg_tpu_torch_{h.hexdigest()[:16]}.so"
@@ -132,9 +132,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [ptr, i32, i32, ptr, ptr, ptr, i32, ptr, i32, ptr]
         fn.restype = i32
         # A, k, n, L, ok, device, stream
-        fn = getattr(lib, f"dogleg_tilechol_{dt}")
-        fn.argtypes = [ptr, i32, i32, ptr, ptr, i32, ptr]
-        fn.restype = i32
+        for entry in ("tilechol", "batchchol"):
+            fn = getattr(lib, f"dogleg_{entry}_{dt}")
+            fn.argtypes = [ptr, i32, i32, ptr, ptr, i32, ptr]
+            fn.restype = i32
         # D, C, k, n, m, X, device, stream
         fn = getattr(lib, f"dogleg_trisolve_right_{dt}")
         fn.argtypes = [ptr, ptr, i32, i32, i32, ptr, i32, ptr]

@@ -27,9 +27,10 @@ from __future__ import annotations
 
 import torch
 
-from libdogleg_tpu_torch.ops.blockchol import _pad_to_block, _trsm_right_lt
+from libdogleg_tpu_torch.ops.batchchol import (BLOCK, _trsm_right_lt,
+                                                pad_to_block)
 
-SUB = 16      # sub-panel width inside a panel
+SUB = BLOCK   # sub-panel width inside a panel: pad_to_block's 16
 PANEL = 256   # outer panel width
 PANEL_IMPLS = ("auto", "cuda", "torch")
 
@@ -132,7 +133,8 @@ def large_cholesky(A: torch.Tensor, panel: int = PANEL,
     factor = (panelchol.panel_factor if panel_impl == "cuda"
               else panelchol.panel_factor_reference)
     n = A.shape[-1]
-    W, npad = _pad_to_block(A, n, SUB)
+    W = pad_to_block(A)
+    npad = W.shape[-1]
     L = torch.zeros_like(W)
     ok = None
     for j0 in range(0, npad, panel):

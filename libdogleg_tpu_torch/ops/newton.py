@@ -8,12 +8,12 @@ The trust-region iteration needs two operations on Products.JtJ:
 
 DenseNewtonSolver serves a dense (..., n, n) JtJ through cholesky_ex (the
 reference's LAPACK path); BlockedDenseNewtonSolver through the blocked
-Cholesky of ops/blockchol.py for 17 <= n <= 256 and the panel Cholesky of
-ops/largechol.py (kernel K2) above; SparseNewtonSolver serves the stored
-lower blocks of a block-sparse JtJ through the level-scheduled sparse
-Cholesky (sparse_cholesky.py, supernodal.py; kernels K6 and K7). All keep
-the reference's permanent escalating lambda (dogleg.c:137-138, 670-676);
-the dense ones take the `active` mask of the masked batched solver.
+Cholesky of ops/blockchol.py (kernel K5) for 17 <= n <= 256 and the panel
+Cholesky of ops/largechol.py (kernel K2) above; SparseNewtonSolver serves
+the stored lower blocks of a block-sparse JtJ through the level-scheduled
+sparse Cholesky (sparse_cholesky.py, supernodal.py; kernels K6 and K7). All
+keep the reference's permanent escalating lambda (dogleg.c:137-138,
+670-676); the dense ones take the `active` mask of the masked batched solver.
 refine_iters > 0 adds iterative-refinement passes whose residual is
 accumulated in compensated arithmetic (ops/compensated.py).
 """
@@ -93,9 +93,10 @@ BLOCKED_MAX_N = 256
 @dataclasses.dataclass(frozen=True)
 class BlockedDenseNewtonSolver:
     """Dense JtJ through the 16-block-panel Cholesky (ops/blockchol.py) for
-    n <= 256, and through ops/largechol.large_cholesky above, whose 256-wide
-    diagonal panels go to kernel K2 on a CUDA tensor. The triangular solves
-    of the large path are torch.cholesky_solve.
+    n <= 256, kernel K5 on a CUDA tensor, and through
+    ops/largechol.large_cholesky above, whose 256-wide diagonal panels go to
+    kernel K2 on a CUDA tensor. The triangular solves are
+    ops/cholesky.cholesky_solve on either path and either device.
 
     panel_impl is large_cholesky's ("auto", "cuda" or "torch"): "auto" takes
     K2 for CUDA tensors and its plain twin for CPU tensors."""
@@ -127,15 +128,10 @@ class BlockedDenseNewtonSolver:
             lambda_initial=lambda_initial, lambda_max_tries=lambda_max_tries,
             active=active)
 
-        def solve(r):
-            if large:
-                return chol.cholesky_solve(L, r)
-            return blockchol.blocked_cho_solve(L, r)
-
-        u = solve(Jt_x)
+        u = chol.cholesky_solve(L, Jt_x)
         if self.refine_iters:
-            u = _refine(u, solve, _damped_residual(JtJ, lam, Jt_x),
-                        self.refine_iters)
+            u = _refine(u, lambda r: chol.cholesky_solve(L, r),
+                        _damped_residual(JtJ, lam, Jt_x), self.refine_iters)
         step = -u
         return GNResult(step=step, norm2_step=dops.norm2(step), lam=lam,
                         ok=ok)

@@ -1,12 +1,13 @@
 """Batched independent solves (counterpart of
-libdogleg_tpu/parallel/batched.py:121-226).
+libdogleg_tpu/parallel/batched.py:121-406).
 
 A batch of independent problem instances goes either to the whole-solve
 kernel K1 (ops/mega.py), when the products function is one the kernel
 computes on the device, or to the masked batched solver of solver.py, with
 the per-element products function batched by torch.func.vmap. On the masked
 path a dense mid-size JtJ in a large batch takes BlockedDenseNewtonSolver
-by default (_auto_newton).
+by default (_auto_newton), whose factorization is kernel K5 on CUDA tensors.
+batched_optimize_compacted is the same solve with straggler compaction.
 """
 
 from __future__ import annotations
@@ -17,7 +18,11 @@ import torch
 from torch.utils import _pytree as pytree
 
 from libdogleg_tpu_torch.params import DoglegParameters
-from libdogleg_tpu_torch.solver import SolveResult, solve_products_batched
+from libdogleg_tpu_torch.solver import (BatchedSolverState, SolveResult,
+                                        init_batched_state,
+                                        result_from_batched_state,
+                                        run_batched_solver,
+                                        solve_products_batched)
 
 # Auto-selection bounds for BlockedDenseNewtonSolver (the JAX package's,
 # parallel/batched.py:31-38): a real batch and a capped Nstate. Explicit
@@ -84,6 +89,46 @@ def _auto_newton(products_fn, p0_batch, problem_data):
     return None
 
 
+def _prepare(products_fn, p0_batch, parameters, mesh, problem_data,
+             newton_solver, layout, record_history, use_megakernel):
+    """What both entry points do first: refuse what is not ported, resolve
+    the parameters, and pick the path. Returns (parameters, newton_solver,
+    batched_of): batched_of is None when kernel K1 takes the batch;
+    otherwise batched_of() is the batch-leading products function of the
+    whole batch for the masked solver and batched_of(idx) that of the
+    elements idx (their problem_data gathered), and newton_solver is the
+    given or auto-selected strategy."""
+    _check_layout(layout)
+    if mesh is not None:
+        raise NotImplementedError("mesh= is not ported yet")
+    if record_history:
+        raise NotImplementedError("record_history=True is not ported yet")
+    prm = parameters if parameters is not None else DoglegParameters()
+    if _kernel_takes(products_fn, p0_batch, newton_solver, use_megakernel):
+        return prm, None, None
+    if newton_solver is None:
+        newton_solver = _auto_newton(products_fn, p0_batch, problem_data)
+    vf = torch.func.vmap(products_fn)
+
+    def batched_of(idx=None):
+        if problem_data is None:
+            return vf
+        data = (problem_data if idx is None else
+                pytree.tree_map(lambda a: a[idx], problem_data))
+        return lambda p: vf(p, data)
+    return prm, newton_solver, batched_of
+
+
+def _run_megakernel(p0_batch, problem_data, prm) -> SolveResult:
+    from libdogleg_tpu_torch.models import quadratic_surface as qs
+    from libdogleg_tpu_torch.ops.mega import megakernel_optimize
+    if not isinstance(problem_data, torch.Tensor):
+        raise ValueError("the kernel's products take the (B, 100) "
+                         "measurements as problem_data")
+    gx, gy = qs.make_grid(p0_batch.dtype, p0_batch.device)
+    return megakernel_optimize(p0_batch, problem_data, gx, gy, prm)
+
+
 def batched_optimize(products_fn,
                      p0_batch: torch.Tensor,
                      parameters: Optional[DoglegParameters] = None,
@@ -119,35 +164,78 @@ def batched_optimize(products_fn,
 
     Returns a SolveResult whose leaves carry the leading batch axis.
     """
-    _check_layout(layout)
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet")
-    if record_history:
-        raise NotImplementedError("record_history=True is not ported yet")
-    prm = parameters if parameters is not None else DoglegParameters()
-    if _kernel_takes(products_fn, p0_batch, newton_solver, use_megakernel):
-        from libdogleg_tpu_torch.models import quadratic_surface as qs
-        from libdogleg_tpu_torch.ops.mega import megakernel_optimize
-        if not isinstance(problem_data, torch.Tensor):
-            raise ValueError("the kernel's products take the (B, 100) "
-                             "measurements as problem_data")
-        gx, gy = qs.make_grid(p0_batch.dtype, p0_batch.device)
-        return megakernel_optimize(p0_batch, problem_data, gx, gy, prm)
-    if newton_solver is None:
-        newton_solver = _auto_newton(products_fn, p0_batch, problem_data)
-
-    if problem_data is None:
-        batched = torch.func.vmap(products_fn)
-    else:
-        vf = torch.func.vmap(products_fn)
-
-        def batched(p):
-            return vf(p, problem_data)
-    return solve_products_batched(batched, p0_batch, prm,
+    prm, newton_solver, batched_of = _prepare(
+        products_fn, p0_batch, parameters, mesh, problem_data, newton_solver,
+        layout, record_history, use_megakernel)
+    if batched_of is None:
+        return _run_megakernel(p0_batch, problem_data, prm)
+    return solve_products_batched(batched_of(), p0_batch, prm,
                                   newton_solver=newton_solver)
 
 
-def batched_optimize_compacted(*args, **kwargs):
-    """Straggler compaction (JAX parallel/batched.py:229) is not ported
-    yet."""
-    raise NotImplementedError("batched_optimize_compacted is not ported yet")
+def batched_optimize_compacted(products_fn,
+                               p0_batch: torch.Tensor,
+                               parameters: Optional[DoglegParameters] = None,
+                               *,
+                               mesh=None,
+                               axis_name: str = "dp",
+                               problem_data: Any = None,
+                               phase1_attempts: Optional[int] = None,
+                               compact_capacity: Optional[int] = None,
+                               newton_solver=None,
+                               layout: str = "leading",
+                               record_history: bool = False,
+                               history_capacity: Optional[int] = None,
+                               wavefront_unroll: int = 1,
+                               use_megakernel: Optional[bool] = None
+                               ) -> SolveResult:
+    """Batched solves with straggler compaction (counterpart of the JAX
+    package's parallel/batched.py:229-406).
+
+    The masked batched solver runs every attempt at full width until the
+    slowest element terminates. This variant runs a full-width phase 1,
+    gathers the unfinished minority (state and problem_data), finishes only
+    those, scatters them back, and runs a last full-width pass as the safety
+    net: a no-op when the capacity held, a full finish when it did not.
+    Every element takes the decisions batched_optimize gives it.
+
+      phase1_attempts: None runs phase 1 adaptively, one attempt at a time
+        until the live count fits compact_capacity; an integer pins its
+        length.
+      compact_capacity: how many stragglers the compact pass takes; None
+        means max(batch // 16, 1). Any value gives the same results; it
+        only moves work between the phases.
+
+    The JAX package gathers into a buffer of exactly compact_capacity
+    elements, padded with duplicates of element 0, because a jitted program
+    needs static shapes; eager PyTorch gathers exactly the live elements (at
+    most compact_capacity of them) and needs no fill. When kernel K1 takes
+    the batch, compaction is moot and the kernel runs it, as in
+    batched_optimize. The other arguments are batched_optimize's.
+    """
+    prm, newton_solver, batched_of = _prepare(
+        products_fn, p0_batch, parameters, mesh, problem_data, newton_solver,
+        layout, record_history, use_megakernel)
+    if batched_of is None:
+        return _run_megakernel(p0_batch, problem_data, prm)
+    cap = compact_capacity or max(p0_batch.shape[0] // 16, 1)
+    full = batched_of()
+
+    def advance(st, k):
+        return run_batched_solver(full, st, prm, newton_solver=newton_solver,
+                                  max_new_attempts=k)
+
+    st = init_batched_state(full, p0_batch, prm)
+    if phase1_attempts is not None:
+        st = advance(st, phase1_attempts)
+    else:
+        while int((~st.done).sum()) > cap:
+            st = advance(st, 1)
+    idx = torch.nonzero(~st.done)[:cap, 0]
+    if idx.numel():
+        sub = run_batched_solver(
+            batched_of(idx), BatchedSolverState(*(a[idx] for a in st)), prm,
+            newton_solver=newton_solver)
+        st = BatchedSolverState(*(a.index_copy(0, idx, part)
+                                  for a, part in zip(st, sub)))
+    return result_from_batched_state(advance(st, None))

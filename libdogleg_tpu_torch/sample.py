@@ -3,7 +3,7 @@ libdogleg_tpu/sample.py).
 
 Usage:
     python -m libdogleg_tpu_torch.sample [--check] [--f32]
-        [--device cpu|cuda] sparse|dense|dense-products-packed-upper|
+        [--device cuda|cpu] sparse|dense|dense-products-packed-upper|
         dense-products-unpacked|residual
 
 Solves the 6-parameter quadratic-surface fit in the chosen mode; --check
@@ -13,7 +13,8 @@ the block-CSR SparseProblem with every block stored. The two dense-products
 spellings exercise the packed-upper and unpacked JtJ layouts. `residual` is
 the autodiff mode. The measurements and the start point come from
 torch.Generators seeded 0 and 1 on the CPU, so every device solves the same
-instance.
+instance. The solve runs on the CUDA device unless --device cpu is given;
+with no CUDA device and no --device cpu it prints a message and returns 1.
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ def main(argv=None) -> int:
                     help="self-check mode: assert convergence + recovery")
     ap.add_argument("--f32", action="store_true",
                     help="solve in float32 instead of float64")
-    ap.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
+    ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
+                    help="where to solve (default: the CUDA device)")
     ap.add_argument("mode", choices=MODES)
     args = ap.parse_args(argv)
 
@@ -49,7 +51,8 @@ def main(argv=None) -> int:
     from libdogleg_tpu_torch.utils.packed import full_to_packed, packed_to_full
 
     if args.device == "cuda" and not torch.cuda.is_available():
-        print("--device cuda: no CUDA device", file=sys.stderr)
+        print("--device cuda: no CUDA device (pass --device cpu to solve "
+              "on the CPU)", file=sys.stderr)
         return 1
     dtype = torch.float32 if args.f32 else torch.float64
     device = torch.device(args.device)

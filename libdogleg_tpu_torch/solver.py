@@ -12,7 +12,10 @@ Two solve loops carry the same decision rules (reference dogleg.c:1172-1476):
   masked tensor program over a leading batch axis: every attempt runs for
   the whole batch, each element's update is selected by its own masks, and
   an element freezes once it is done. A data-dependent loop cannot be
-  batched with torch.func.vmap, hence the masks.
+  batched with torch.func.vmap, hence the masks. It is the composition of
+  `init_batched_state`, `run_batched_solver` (which can stop after a given
+  number of attempts, for straggler compaction) and
+  `result_from_batched_state`.
 
 Termination criteria and their placement match the reference:
   1. inf-norm(Jt_x) <= Jt_x_threshold on the initial point and on accepted
@@ -377,7 +380,9 @@ def solve_products(products_fn: ProductsFn,
 # ---------------------------------------------------------------------------
 
 
-class _BatchCarry(NamedTuple):
+class BatchedSolverState(NamedTuple):
+    """The masked batched solve's state between attempts, every field with
+    a leading batch axis: SolverState's fields as tensors."""
     p: torch.Tensor             # (B, n)
     norm2_x: torch.Tensor       # (B,)
     Jt_x: torch.Tensor          # (B, n)
@@ -402,10 +407,11 @@ def _sel(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                        a, b)
 
 
-def _batched_attempt(products_fn: ProductsFn, c: _BatchCarry,
-                     prm: DoglegParameters, ns,
-                     max_attempts: int) -> _BatchCarry:
-    """One attempt for every element; the caller freezes done elements."""
+def _batched_attempt(products_fn: ProductsFn, c: BatchedSolverState,
+                     prm: DoglegParameters, ns, max_attempts: int,
+                     frozen: torch.Tensor) -> BatchedSolverState:
+    """One attempt for every element; the caller keeps the old state of the
+    `frozen` elements (done, or out of this segment's attempts)."""
     R = StopReason
     tr = c.trustregion
     tr_sq = tr * tr
@@ -418,7 +424,7 @@ def _batched_attempt(products_fn: ProductsFn, c: _BatchCarry,
 
     # Gauss-Newton under the masked escalating lambda: only elements that
     # need a fresh GN step escalate.
-    need_gn = ~use_cauchy & ~c.have_gn & ~c.done
+    need_gn = ~use_cauchy & ~c.have_gn & ~frozen
     gn, norm2_gn, lam = c.gn, c.norm2_gn, c.lam
     fac_ok = torch.ones_like(c.done)
     if bool(need_gn.any()):
@@ -479,7 +485,7 @@ def _batched_attempt(products_fn: ProductsFn, c: _BatchCarry,
     m_small = fac_ok & small_step
     m_acc = fac_ok & ~small_step & accept
     m_end = m_fail | m_small
-    return _BatchCarry(
+    return BatchedSolverState(
         p=_sel(m_acc, p_new, c.p),
         norm2_x=torch.where(m_acc, t_norm2, c.norm2_x),
         Jt_x=_sel(m_acc, t_jtx, c.Jt_x),
@@ -497,6 +503,65 @@ def _batched_attempt(products_fn: ProductsFn, c: _BatchCarry,
                         torch.where(m_acc, acc_reason, rej_reason))))
 
 
+def init_batched_state(products_fn: ProductsFn, p0: torch.Tensor,
+                       parameters: Optional[DoglegParameters] = None
+                       ) -> BatchedSolverState:
+    """Evaluate the initial operating points of a batch and build the
+    masked solver's state, including the initial convergence test.
+
+    products_fn: p (B, Nstate) -> Products with leading batch axes
+    ((B,), (B, n), (B, n, n))."""
+    prm = parameters if parameters is not None else DoglegParameters()
+    B = p0.shape[0]
+    init = products_fn(p0)
+    zeros = torch.zeros(B, dtype=p0.dtype, device=p0.device)
+    no = torch.zeros(B, dtype=torch.bool, device=p0.device)
+    i0 = torch.zeros(B, dtype=torch.int32, device=p0.device)
+    done = ~_any_exceeds(init.Jt_x, prm.Jt_x_threshold)
+    return BatchedSolverState(
+        p=p0, norm2_x=init.norm2_x, Jt_x=init.Jt_x, JtJ=init.JtJ,
+        cauchy=torch.zeros_like(p0), norm2_cauchy=zeros, have_cauchy=no,
+        gn=torch.zeros_like(p0), norm2_gn=zeros, have_gn=no,
+        lam=zeros, trustregion=torch.full_like(zeros, prm.trustregion0),
+        step_count=i0, n_attempts=i0, done=done,
+        reason=torch.where(done, int(StopReason.GRADIENT_CONVERGED), i0))
+
+
+def run_batched_solver(products_fn: ProductsFn, state: BatchedSolverState,
+                       parameters: Optional[DoglegParameters] = None,
+                       *,
+                       newton_solver=None,
+                       max_new_attempts: Optional[int] = None
+                       ) -> BatchedSolverState:
+    """Advance every element of a batched solve until it terminates
+    (default) or for at most max_new_attempts further attempts of its own,
+    the segmented form: resuming from the returned state continues each
+    element's iteration exactly, since the caches, lambda and the trust
+    region live in the state."""
+    prm = parameters if parameters is not None else DoglegParameters()
+    ns = newton_solver if newton_solver is not None else DenseNewtonSolver()
+    max_attempts = prm.resolved_max_attempts()
+    c = state
+    limit = (None if max_new_attempts is None
+             else state.n_attempts + max_new_attempts)
+    while True:
+        frozen = c.done if limit is None else c.done | (c.n_attempts >= limit)
+        if bool(frozen.all()):
+            return c
+        out = _batched_attempt(products_fn, c, prm, ns, max_attempts, frozen)
+        c = BatchedSolverState(*(_sel(frozen, old, new)
+                                 for old, new in zip(c, out)))
+
+
+def result_from_batched_state(state: BatchedSolverState) -> SolveResult:
+    """Package a batched solve state as a batch-leading SolveResult (no
+    history)."""
+    c = state
+    return SolveResult(p=c.p, norm2_x=c.norm2_x, Jt_x=c.Jt_x, JtJ=c.JtJ,
+                       step_count=c.step_count, n_attempts=c.n_attempts,
+                       reason=c.reason, trustregion=c.trustregion, lam=c.lam)
+
+
 def solve_products_batched(products_fn: ProductsFn,
                            p0: torch.Tensor,
                            parameters: Optional[DoglegParameters] = None,
@@ -508,25 +573,6 @@ def solve_products_batched(products_fn: ProductsFn,
     ((B,), (B, n), (B, n, n)). Each element takes exactly the decisions of
     its own single solve. Returns a batch-leading SolveResult (no history).
     """
-    prm = parameters if parameters is not None else DoglegParameters()
-    ns = newton_solver if newton_solver is not None else DenseNewtonSolver()
-    max_attempts = prm.resolved_max_attempts()
-    B = p0.shape[0]
-    init = products_fn(p0)
-    zeros = torch.zeros(B, dtype=p0.dtype, device=p0.device)
-    no = torch.zeros(B, dtype=torch.bool, device=p0.device)
-    i0 = torch.zeros(B, dtype=torch.int32, device=p0.device)
-    done = ~_any_exceeds(init.Jt_x, prm.Jt_x_threshold)
-    c = _BatchCarry(
-        p=p0, norm2_x=init.norm2_x, Jt_x=init.Jt_x, JtJ=init.JtJ,
-        cauchy=torch.zeros_like(p0), norm2_cauchy=zeros, have_cauchy=no,
-        gn=torch.zeros_like(p0), norm2_gn=zeros, have_gn=no,
-        lam=zeros, trustregion=torch.full_like(zeros, prm.trustregion0),
-        step_count=i0, n_attempts=i0, done=done,
-        reason=torch.where(done, int(StopReason.GRADIENT_CONVERGED), i0))
-    while not bool(c.done.all()):
-        out = _batched_attempt(products_fn, c, prm, ns, max_attempts)
-        c = _BatchCarry(*(_sel(c.done, old, new) for old, new in zip(c, out)))
-    return SolveResult(p=c.p, norm2_x=c.norm2_x, Jt_x=c.Jt_x, JtJ=c.JtJ,
-                       step_count=c.step_count, n_attempts=c.n_attempts,
-                       reason=c.reason, trustregion=c.trustregion, lam=c.lam)
+    state = init_batched_state(products_fn, p0, parameters)
+    return result_from_batched_state(run_batched_solver(
+        products_fn, state, parameters, newton_solver=newton_solver))

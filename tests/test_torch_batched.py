@@ -15,7 +15,10 @@ import torch
 import libdogleg_tpu as dl
 import libdogleg_tpu.models.quadratic_surface as jsp
 from libdogleg_tpu.parallel.batched import batched_optimize as jax_batched
-from libdogleg_tpu_torch import DenseNewtonSolver, DoglegParameters, sample
+from libdogleg_tpu_torch import (DenseNewtonSolver, DoglegParameters, interop,
+                                 sample)
+from libdogleg_tpu_torch.device import resolve_device
+from libdogleg_tpu_torch.models import grid_mrf as tgrid
 from libdogleg_tpu_torch.models import quadratic_surface as tsp
 from libdogleg_tpu_torch.ops import mega
 from libdogleg_tpu_torch.parallel import (batched_optimize,
@@ -108,9 +111,108 @@ def test_gate_raises(kw, exc):
         batched_optimize(products, p0, problem_data=meas, **kw)
 
 
-def test_compacted_not_ported():
-    with pytest.raises(NotImplementedError):
-        batched_optimize_compacted(tsp.products, torch.zeros(4, 6))
+_DECISIONS = ("step_count", "n_attempts", "reason")
+_VALUES = ("p", "norm2_x", "Jt_x", "JtJ", "trustregion", "lam")
+
+
+def _assert_same_result(r, ref, tol):
+    for field in _DECISIONS:
+        assert torch.equal(getattr(r, field), getattr(ref, field)), field
+    for field in _VALUES:
+        np.testing.assert_allclose(getattr(r, field).numpy(),
+                                   getattr(ref, field).numpy(), rtol=tol,
+                                   atol=tol, err_msg=field)
+
+
+@pytest.fixture(scope="module")
+def straggling_batch():
+    """48 sample-problem instances whose attempt counts differ, so a
+    compact pass has stragglers to take, with batched_optimize's result."""
+    meas, p0 = (torch.as_tensor(a) for a in _instances(4, 48))
+    prm = DoglegParameters()
+    ref = batched_optimize(tsp.products, p0, prm, problem_data=meas)
+    assert int(ref.n_attempts.max()) > int(ref.n_attempts.min()) + 2
+    return meas, p0, prm, ref
+
+
+@pytest.mark.parametrize("compact_capacity", [None, 1, 48])
+@pytest.mark.parametrize("phase1_attempts", [None, 1, 3])
+def test_compacted_matches_batched_optimize(straggling_batch,
+                                            phase1_attempts,
+                                            compact_capacity):
+    """Every element takes batched_optimize's decisions whatever the phase
+    lengths: the default capacity (48 // 16 = 3), a capacity the stragglers
+    overflow (the safety net finishes them) and one that takes them all."""
+    meas, p0, prm, ref = straggling_batch
+    r = batched_optimize_compacted(
+        tsp.products, p0, prm, problem_data=meas,
+        phase1_attempts=phase1_attempts, compact_capacity=compact_capacity,
+        layout="minor", wavefront_unroll=2)
+    assert r.history is None
+    _assert_same_result(r, ref, 1e-12)
+
+
+def test_compacted_shared_data_and_all_done_in_phase_one():
+    """products_fn(p) without problem_data; a phase 1 long enough that no
+    element is left for the compact pass."""
+    meas, p0 = (torch.as_tensor(a) for a in _instances(2, 6))
+    products = lambda p: tsp.products(p, meas[0])  # noqa: E731
+    ref = batched_optimize(products, p0)
+    for phase1 in (None, 1000):
+        r = batched_optimize_compacted(products, p0, phase1_attempts=phase1,
+                                       compact_capacity=2)
+        _assert_same_result(r, ref, 1e-12)
+
+
+def test_compacted_matches_jax_f64():
+    from libdogleg_tpu.parallel.batched import (
+        batched_optimize_compacted as jax_compacted)
+    meas, p0 = _instances(5, 32)
+    r_j = jax_compacted(_jax_products, jnp.asarray(p0), dl.DoglegParameters(),
+                        problem_data=jnp.asarray(meas), phase1_attempts=3,
+                        compact_capacity=4, use_megakernel=False)
+    r_t = batched_optimize_compacted(
+        tsp.products, torch.as_tensor(p0), DoglegParameters(),
+        problem_data=torch.as_tensor(meas), phase1_attempts=3,
+        compact_capacity=4)
+    for field in _DECISIONS:
+        np.testing.assert_array_equal(getattr(r_t, field).numpy(),
+                                      np.asarray(getattr(r_j, field)))
+    np.testing.assert_allclose(r_t.p.numpy(), np.asarray(r_j.p), rtol=1e-10,
+                               atol=1e-12)
+    np.testing.assert_allclose(r_t.trustregion.numpy(),
+                               np.asarray(r_j.trustregion), rtol=1e-10)
+
+
+def test_compacted_kernel_gate_on_cpu_runs_the_twin():
+    """When the whole-solve kernel takes the batch, compaction is moot:
+    use_megakernel=True goes to the kernel's wrapper, on the CPU its plain
+    twin, and gives batched_optimize's result for the same arguments."""
+    meas, p0 = (torch.as_tensor(a) for a in _instances(1, 16))
+    prm = DoglegParameters(max_iterations=10)
+    before = mega.launch_count
+    r_c = batched_optimize_compacted(tsp.products, p0, prm,
+                                     problem_data=meas, use_megakernel=True,
+                                     compact_capacity=2)
+    r_k = batched_optimize(tsp.products, p0, prm, problem_data=meas,
+                           use_megakernel=True)
+    assert mega.launch_count == before
+    for field in _DECISIONS + _VALUES:
+        assert torch.equal(getattr(r_c, field), getattr(r_k, field)), field
+    with pytest.raises(ValueError):
+        batched_optimize_compacted(lambda p, m: tsp.products(p, m), p0, prm,
+                                   problem_data=meas, use_megakernel=True)
+
+
+@pytest.mark.parametrize("kw,exc", [
+    (dict(mesh=object()), NotImplementedError),
+    (dict(record_history=True), NotImplementedError),
+    (dict(layout="diagonal"), ValueError),
+])
+def test_compacted_raises(kw, exc):
+    meas, p0 = (torch.as_tensor(a) for a in _instances(3, 4))
+    with pytest.raises(exc):
+        batched_optimize_compacted(tsp.products, p0, problem_data=meas, **kw)
 
 
 def test_import_leaves_jax_out():
@@ -133,16 +235,59 @@ def test_import_leaves_jax_out():
 
 @pytest.mark.parametrize("mode", sample.MODES)
 def test_sample_check_passes_on_cpu(mode, capsys):
-    assert sample.main(["--check", mode]) == 0
+    assert sample.main(["--check", "--device", "cpu", mode]) == 0
     assert "NOT recovered" not in capsys.readouterr().out
 
 
 def test_sample_module_entry_f32():
     proc = subprocess.run(
         [sys.executable, "-m", "libdogleg_tpu_torch.sample", "--check",
-         "--f32", "dense"], cwd=REPO, capture_output=True, text=True,
-        timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"})
+         "--f32", "--device", "cpu", "dense"], cwd=REPO, capture_output=True,
+        text=True, timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _from_arrays_default_device():
+    g = tgrid.make_grid_mrf(3, 2, 2, device="cpu")
+    return tgrid.from_arrays(
+        g.width, g.height, g.block_size, g.edges, g.z_prior.numpy(),
+        g.z_edge.numpy(), g.w_prior, g.w_edge, g.p_true.numpy())
+
+
+def _reference_grid_default_device():
+    import libdogleg_tpu.models.grid_mrf as jgrid
+    return interop.grid_mrf_from_reference(jgrid.make_grid_mrf(3, 2, 2))
+
+
+_DEFAULT_DEVICE_CALLS = {
+    "resolve_device": lambda: resolve_device(None),
+    "make_grid": lambda: tsp.make_grid(),
+    "simulate": lambda: tsp.simulate(torch.Generator().manual_seed(0)),
+    "initial_state": lambda: tsp.initial_state(
+        torch.Generator().manual_seed(0)),
+    "make_grid_mrf": lambda: tgrid.make_grid_mrf(3, 2, 2),
+    "from_arrays": _from_arrays_default_device,
+    "from_numpy": lambda: interop.from_numpy(np.zeros(3)),
+    "grid_mrf_from_reference": _reference_grid_default_device,
+}
+
+
+@pytest.mark.skipif(torch.cuda.is_available(),
+                    reason="checks the default device where there is no card")
+@pytest.mark.parametrize("name", sorted(_DEFAULT_DEVICE_CALLS))
+def test_default_device_is_the_card_and_says_so_without_one(name):
+    """A constructor given no device does not fall back to the CPU: it
+    raises, and the message names the remedy."""
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        _DEFAULT_DEVICE_CALLS[name]()
+
+
+@pytest.mark.skipif(torch.cuda.is_available(),
+                    reason="checks the default device where there is no card")
+def test_sample_defaults_to_the_card_and_says_so_without_one(capsys):
+    assert sample.main(["--check", "dense"]) == 1
+    captured = capsys.readouterr()
+    assert "--device cpu" in captured.out + captured.err
 
 
 def test_auto_newton_selection():

@@ -1,5 +1,5 @@
-"""Kernels K1-K4, K6 and K7 on a CUDA card against their plain twins on the
-same card.
+"""Kernels K1-K7 on a CUDA card against their plain twins on the same
+card.
 
 These tests need an NVIDIA GPU and skip without one. This file imports no
 jax, so it runs on a machine that has only PyTorch:
@@ -31,7 +31,7 @@ def _instances(seed, batch, dtype, device):
     g = torch.Generator().manual_seed(seed)
     meas = qs.simulate(g, dtype, device, batch=(batch,))
     p0 = qs.initial_state(g, dtype, device, batch=(batch,))
-    gx, gy = qs.make_grid(dtype, device)
+    gx, gy = qs.make_grid(dtype)  # no device given: the card
     return p0, meas, gx, gy
 
 
@@ -222,4 +222,94 @@ def test_sparse_solve_launches_tile_kernels(cuda, amalgamate):
         assert int(getattr(r_k, field)) == int(getattr(r_t, field)), field
     assert int(r_k.reason) > 0
     np.testing.assert_allclose(r_k.p.cpu().numpy(), r_t.p.numpy(),
+                               rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_default_device_is_the_card(cuda):
+    from libdogleg_tpu_torch import interop
+    from libdogleg_tpu_torch.device import resolve_device
+    assert resolve_device(None).type == "cuda"
+    assert resolve_device("cpu").type == "cpu"
+    assert interop.from_numpy(np.zeros(3)).is_cuda
+    assert qs.make_grid()[0].is_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("n", [32, 64, 128])
+def test_batched_blocked_cholesky_matches_plain_version(cuda, n, dtype, tol):
+    """K5 against its plain version on the card: the factors within tol of
+    the largest entry, identical ok flags with one matrix not SPD, zeros
+    above the diagonal, one launch."""
+    from libdogleg_tpu_torch.ops import batchchol
+    rng = np.random.default_rng(n)
+    A = torch.as_tensor(rng.normal(size=(9, n, n)), device=cuda)
+    S = (A @ A.mT + n * torch.eye(n, dtype=A.dtype, device=cuda)).to(dtype)
+    S[4, n // 2, n // 2] = -S[4, n // 2, n // 2]
+    before = batchchol.launch_count
+    L, ok = batchchol.batched_blocked_cholesky(S)
+    torch.cuda.synchronize()
+    assert batchchol.launch_count == before + 1
+    Lr, okr = batchchol.batched_blocked_cholesky_reference(S)
+    assert ok.tolist() == okr.tolist() == [True] * 4 + [False] + [True] * 4
+    assert bool((torch.triu(L, 1) == 0).all())
+    good = ok.nonzero()[:, 0]
+    err = float((L[good] - Lr[good]).abs().max() / Lr[good].abs().max())
+    assert err < tol, err
+
+
+def _midsize(nstate, batch, dtype, device):
+    """The tanh residual family r = A tanh(B p) + C p - d, one instance per
+    element."""
+    rng = np.random.default_rng(8)
+    A = rng.normal(size=(batch, 4 * nstate, nstate))
+    Bm = rng.normal(size=(batch, nstate, nstate)) * 0.5 / np.sqrt(nstate)
+    C = rng.normal(size=(batch, 4 * nstate, nstate)) * 0.3
+    p_true = rng.normal(size=(batch, nstate))
+    d = (np.einsum('bms,bs->bm', A,
+                   np.tanh(np.einsum('bst,bt->bs', Bm, p_true)))
+         + np.einsum('bms,bs->bm', C, p_true)
+         + rng.normal(size=(batch, 4 * nstate)) * 0.01)
+    p0 = p_true + rng.normal(size=(batch, nstate)) * 0.1
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    return (t(A), t(Bm), t(C), t(d)), t(p0), p_true
+
+
+def _midsize_products(p, data):
+    from libdogleg_tpu_torch import Products
+    Ab, Bb, Cb, db = data
+    t = torch.tanh(Bb @ p)
+    x = Ab @ t + Cb @ p - db
+    J = Ab @ ((1.0 - t * t)[:, None] * Bb) + Cb
+    return Products(norm2_x=x @ x, Jt_x=J.T @ x, JtJ=J.T @ J)
+
+
+@pytest.mark.cuda
+def test_midsize_batched_optimize_launches_k5(cuda):
+    """Nstate 64, batch 128: the gate's strategy factors with K5 on the
+    card and takes the CPU's decisions in float64; the compacted entry
+    point gives the same."""
+    from libdogleg_tpu_torch.ops import batchchol
+    from libdogleg_tpu_torch.parallel import batched_optimize_compacted
+    data, p0, p_true = _midsize(64, 128, torch.float64, cuda)
+    before, k1 = batchchol.launch_count, mega.launch_count
+    r = batched_optimize(_midsize_products, p0, problem_data=data)
+    torch.cuda.synchronize()
+    assert batchchol.launch_count > before and mega.launch_count == k1
+    assert bool((r.reason > 0).all())
+    assert np.all(np.abs(r.p.cpu().numpy() - p_true) < 0.05)
+    data_c, p0_c, _ = _midsize(64, 128, torch.float64, "cpu")
+    r_c = batched_optimize(_midsize_products, p0_c, problem_data=data_c)
+    r_k = batched_optimize_compacted(_midsize_products, p0,
+                                     problem_data=data, compact_capacity=4)
+    for field in ("step_count", "n_attempts", "reason"):
+        assert torch.equal(getattr(r, field).cpu(), getattr(r_c, field))
+        assert torch.equal(getattr(r_k, field), getattr(r, field))
+    np.testing.assert_allclose(r.p.cpu().numpy(), r_c.p.numpy(), rtol=1e-9,
+                               atol=1e-12)
+    np.testing.assert_allclose(r_k.p.cpu().numpy(), r.p.cpu().numpy(),
                                rtol=1e-9, atol=1e-12)

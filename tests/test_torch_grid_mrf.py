@@ -42,8 +42,8 @@ def _jax_solve(coupling):
 @pytest.mark.parametrize("coupling", ["diag", "dense"])
 def test_instance_equals_jax(coupling):
     m, _ = _jax_solve(coupling)
-    t = tgrid.make_grid_mrf(*SHAPE, coupling=coupling)
-    t2 = interop.grid_mrf_from_reference(m)
+    t = tgrid.make_grid_mrf(*SHAPE, coupling=coupling, device="cpu")
+    t2 = interop.grid_mrf_from_reference(m, device="cpu")
     for g in (t, t2):
         assert g.structure.nmeas == m.structure.nmeas
         np.testing.assert_array_equal(g.structure.indptr, m.structure.indptr)
@@ -70,7 +70,7 @@ def test_instance_equals_jax(coupling):
 @pytest.mark.parametrize("coupling", ["diag", "dense"])
 def test_slice_matches_jax_f64(coupling):
     m, r_j = _jax_solve(coupling)
-    t = interop.grid_mrf_from_reference(m)
+    t = interop.grid_mrf_from_reference(m, device="cpu")
     prob = t.problem(jtj="dense")
     p0 = torch.zeros(t.nstate, dtype=torch.float64)
     before = panelchol.launch_count
@@ -92,7 +92,7 @@ def test_slice_matches_jax_f64(coupling):
 
 
 def test_sparse_problem_options():
-    t = tgrid.make_grid_mrf(3, 2, 2)
+    t = tgrid.make_grid_mrf(3, 2, 2, device="cpu")
     ns = t.problem().default_newton_solver()   # jtj="sparse", "mindeg"
     assert isinstance(ns, tl.SparseNewtonSolver)
     assert not hasattr(ns.symbolic, "inner")    # simplicial
@@ -101,7 +101,7 @@ def test_sparse_problem_options():
     with pytest.raises(ValueError, match="jtj"):
         t.problem(jtj="banded")
     with pytest.raises(ValueError, match="coupling"):
-        tgrid.make_grid_mrf(3, 2, 2, coupling="full")
+        tgrid.make_grid_mrf(3, 2, 2, coupling="full", device="cpu")
     prob = t.problem(jtj="dense")
     assert prob.default_newton_solver() is None
 
@@ -109,7 +109,7 @@ def test_sparse_problem_options():
 def test_optimize_takes_the_problems_default_strategy():
     """optimize() without newton_solver asks default_newton_solver(), as the
     JAX package's does (problems.py:262-265)."""
-    t = tgrid.make_grid_mrf(4, 4, 2)
+    t = tgrid.make_grid_mrf(4, 4, 2, device="cpu")
     base = t.problem(jtj="dense")
     calls = []
 

@@ -30,6 +30,7 @@ from libdogleg_tpu.ops import largechol as jlarge
 from libdogleg_tpu.ops import newton as jnewton
 from libdogleg_tpu.ops.pallas_panelchol import panel_factor as jpanel
 from libdogleg_tpu_torch.ops import blockchol as tblock
+from libdogleg_tpu_torch.ops import cholesky as tchol
 from libdogleg_tpu_torch.ops import largechol as tlarge
 from libdogleg_tpu_torch.ops import newton as tnewton
 from libdogleg_tpu_torch.ops import panelchol
@@ -152,7 +153,8 @@ def test_blocked_cholesky_matches_jax():
     np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
     np.testing.assert_allclose(L.numpy(), np.asarray(jL), rtol=1e-10,
                                atol=1e-10)
-    z = tblock.blocked_cho_solve(L, torch.as_tensor(b)).numpy()
+    # the port's substitutions are cholesky_solve; JAX unrolls them
+    z = tchol.cholesky_solve(L, torch.as_tensor(b)).numpy()
     np.testing.assert_allclose(
         z, np.asarray(jblock.blocked_cho_solve(jL, jnp.asarray(b))),
         rtol=1e-9, atol=1e-12)

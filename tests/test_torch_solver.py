@@ -228,6 +228,37 @@ def test_batched_solver_matches_single_solves():
     assert int(tl.StopReason.MAX_ITERATIONS) in reasons
 
 
+@pytest.mark.parametrize("k", [0, 1, 3, 100])
+def test_batched_segments_compose_to_one_run(k):
+    """k attempts and then the rest equal one run, field for field: the
+    state between segments carries the caches, lambda and the trust region.
+    After the first segment no element has made more than k attempts, and
+    one that is not done has made exactly k."""
+    insts = [_instance(s) for s in range(8)]
+    meas = torch.as_tensor(np.stack([m for m, _ in insts]))
+    p0 = torch.as_tensor(np.stack([p for _, p in insts]))
+    prm = tl.DoglegParameters(max_iterations=6)
+    vf = torch.func.vmap(tsp.products)
+
+    def products(p):
+        return vf(p, meas)
+
+    ref = tl.solve_products_batched(products, p0, prm)
+    st = tl.init_batched_state(products, p0, prm)
+    assert isinstance(st, tl.BatchedSolverState)
+    assert int(st.n_attempts.max()) == 0
+    st = tl.run_batched_solver(products, st, prm, max_new_attempts=k)
+    assert int(st.n_attempts.max()) <= k
+    assert bool((st.n_attempts[~st.done] == k).all())
+    if k == 100:
+        assert bool(st.done.all())
+    r = tl.result_from_batched_state(
+        tl.run_batched_solver(products, st, prm))
+    for field in ("p", "norm2_x", "Jt_x", "JtJ", "step_count", "n_attempts",
+                  "reason", "trustregion", "lam"):
+        assert torch.equal(getattr(r, field), getattr(ref, field)), field
+
+
 def test_history_capacity_overwrites_last_row():
     meas, p0 = _instance(4)
     r = tl.optimize(tsp.make_dense_problem(torch.as_tensor(meas)),

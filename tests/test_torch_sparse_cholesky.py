@@ -320,7 +320,8 @@ def test_optimize_matches_jax(name):
     compensated refinement."""
     coupling, S, prm, refine = SOLVES[name]
     r_j = _jax_optimize(name)
-    t = interop.grid_mrf_from_reference(_grid(6, 5, 3, coupling))
+    t = interop.grid_mrf_from_reference(_grid(6, 5, 3, coupling),
+                                        device="cpu")
     prob = (_problem(tl.SparseProblem, t.problem(jtj="dense"), S)
             or t.problem())
     ns = prob.default_newton_solver()
@@ -348,7 +349,7 @@ def test_quad_form_and_refinement_match_jax():
     rng = np.random.default_rng(8)
     p, v = rng.normal(size=m.nstate), rng.normal(size=m.nstate)
     jpr = jprob.products(jnp.asarray(p))
-    t = interop.grid_mrf_from_reference(m)
+    t = interop.grid_mrf_from_reference(m, device="cpu")
     tprob = t.problem()
     tpr = tprob.products(torch.as_tensor(p))
     ns = tprob.default_newton_solver()
@@ -370,7 +371,7 @@ def test_quad_form_and_refinement_match_jax():
 
 def test_batched_blocks_raise():
     ns = interop.grid_mrf_from_reference(
-        _grid(6, 5, 3)).problem().default_newton_solver()
+        _grid(6, 5, 3), device="cpu").problem().default_newton_solver()
     blocks = torch.zeros((2, len(ns.symbolic.in_rows), 3, 3),
                          dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="batched"):
