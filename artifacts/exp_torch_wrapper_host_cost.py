@@ -1,0 +1,82 @@
+#!/usr/bin/env python3
+"""What a kernel wrapper's call costs the host, piece by piece, beside the
+PyTorch calls the kernels are measured against.
+
+Run from the repository root on a machine with a CUDA card and nvcc:
+
+    PYTHONPATH=. python3 artifacts/exp_torch_wrapper_host_cost.py
+
+Each line is the host's time per call (time.perf_counter over 3000 calls
+issued back to back, the card synchronized before and after), on the
+32x32x8 grid model's block-CSR Jacobian for K4's wrapper and on (1756, 8, 8)
+tiles for K6's and K7's: the argument checks, the library handle, the cached
+index tensors, the output's allocation, the stream handle (through a
+torch.cuda.Stream object and through the runtime binding), the ctypes call
+that launches the kernel, the whole wrappers, and torch.mv of a BSR tensor,
+solve_triangular and an elementwise add for scale.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+import chip_smoke as c
+from libdogleg_tpu_torch.native.loader import launch_target, load_library
+from libdogleg_tpu_torch.ops import bcsr_kernels as tk
+from libdogleg_tpu_torch.ops import tilechol
+
+
+def host_us(label, fn, reps=3000):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    print(f"[host cost] {label}: {us:.2f} us per call", flush=True)
+
+
+def main() -> None:
+    dev = torch.device("cuda", 0)
+    print(f"[host cost] card {c.card_line()}", flush=True)
+    J = c.grid_jacobian(torch.float32, dev)[0]
+    s = J.structure
+    v = torch.linspace(-1, 1, s.nstate, device=dev)
+    lib = load_library()
+    host_us("K4 argument checks", lambda: tk._check(J))
+    host_us("library handle", load_library)
+    host_us("two cached index tensors",
+            lambda: (tk.device_indices(s.indptr, dev),
+                     tk.device_indices(s.indices, dev)))
+    host_us("torch.empty of the output",
+            lambda: torch.empty(s.nmeas, dtype=v.dtype, device=dev))
+    host_us("stream handle through torch.cuda.current_stream",
+            lambda: torch.cuda.current_stream(dev).cuda_stream)
+    host_us("stream handle through launch_target", lambda: launch_target(dev))
+    out = torch.empty(s.nmeas, dtype=v.dtype, device=dev)
+    args = (J.values.data_ptr(), s.block_rows, s.block_cols,
+            tk.device_indices(s.indptr, dev).data_ptr(),
+            tk.device_indices(s.indices, dev).data_ptr(), v.data_ptr(),
+            s.nmeas, out.data_ptr(), *launch_target(dev))
+    host_us("K4 ctypes call (the launch)",
+            lambda: lib.dogleg_bcsr_matvec_f32(*args))
+    host_us("K4 wrapper", lambda: tk.bcsr_matvec_kernel(J, v))
+    bsr = c.bsr_tensor(J, v)
+    if bsr is not None:
+        host_us("torch.mv of the BSR tensor", lambda: torch.mv(bsr, v))
+    L = c.spd_tiles(8, 1756, 1, torch.float32, dev)
+    C = torch.randn(1756, 8, 8, device=dev)
+    host_us("K7 wrapper (1756, 8, 8)",
+            lambda: tilechol.tri_solve_right(L, C))
+    host_us("K6 wrapper (1756, 8, 8)", lambda: tilechol.tile_cholesky(L))
+    host_us("solve_triangular (1756, 8, 8)",
+            lambda: torch.linalg.solve_triangular(L.mT, C, upper=True,
+                                                  left=False))
+    host_us("elementwise add of 8192 floats", lambda: v + v)
+
+
+if __name__ == "__main__":
+    main()

@@ -30,16 +30,23 @@ Phases, each printing its own lines:
      once in float32;
   9. K3 and K4 (csrc/bcsr.cu): the opt-in entry points driven once on the
      full-width dense-coupling grid Jacobian (8 x 8 blocks), then held
-     against their twins there and on a 512 x 16 pattern of (32, 128)
-     blocks, in float32 (1e-4 of the largest entry) and float64 (1e-12);
+     against their twins there, on a 512 x 16 pattern of (32, 128) blocks
+     and on patterns with empty block rows of (8, 8), (4, 8) and (3, 5)
+     blocks, so that both of K4's kernels run (the 16-byte-word one and the
+     generic one), in float32 (1e-4 of the largest entry) and float64
+     (1e-12);
  10. CUDA-event timing: K2 and its twin at p=256, large_cholesky at n=8192
      with K2, with the twin and torch.linalg.cholesky_ex, the slice's whole
      solve with BlockedDenseNewtonSolver and DenseNewtonSolver (host wall
-     and a profiler's device-time split), K3 and K4 and their twins;
+     and a profiler's device-time split), K3 and K4 and their twins, K4 and
+     torch.mv of the BSR tensor in alternating turns, each kernel alone
+     (profiler), and a later call on one structure traced: no
+     host-to-device copy, one launch;
  11. K6 and K7 (csrc/tilechol.cu) against their twins: tiles n in {8, 16,
-     64, 128, 256}, k in {1, 7, 455}, float64 (1e-10 of the largest entry)
-     and float32 (2e-4), K7 with m = n and m = 3, ok identical, and a
-     non-SPD tile (ok False from both);
+     24, 40, 64, 100, 128, 256}, k in {1, 7, 455}, float64 (1e-10 of the
+     largest entry) and float32 (2e-4), K7 with m = n and m = 3 and, at
+     k = 7, m in {1, 37, 130} and a row of NaN in C (it stays in its row),
+     ok identical, and a non-SPD tile (ok False from both);
  12. the block-sparse slice at full width, each problem analyzed once: the
      model's default optimize(grid.problem(), 0, PRM) (mindeg, simplicial,
      8x8 tiles) and config 6's SparseProblem(jtj="sparse", ordering="rcm",
@@ -49,8 +56,10 @@ Phases, each printing its own lines:
      code on CPU tensors (twins): identical decisions, p within rtol 1e-9;
      the dense-coupling grid once, supernodal, in float32;
  13. timing: K6 at (21, 128, 128) and (455, 8, 8), K7 at (68, 128, 128)
-     and (1756, 8, 8) against their twins; one factorize and one solve per
-     path; each sparse solve's host wall, profiler split (K6, K7, products,
+     and (1756, 8, 8), each in alternating turns with the one PyTorch call
+     that computes the same (cholesky_ex, solve_triangular), against their
+     twins, and alone (profiler); one factorize and one solve per path;
+     each sparse solve's host wall, profiler split (K6, K7, products,
      scatter/gather, other, host and idle), its analysis time, and
      sparse_speedup_vs_dense against phase 10's dense-JtJ walls;
  14. K5 (csrc/batchchol.cu) against its plain version: n in {32, 40, 64,
@@ -288,15 +297,18 @@ def phase8_slice(dev, bench) -> dict:
     return {"launches": launches}
 
 
-def random_bcsr(nbrow, nbcol, bm, bn, density, seed, dtype, device):
+def random_bcsr(nbrow, nbcol, bm, bn, density, seed, dtype, device,
+                empty_rows=()):
     """A block-CSR Jacobian on a random pattern (every row stores column
-    0), values drawn on the card."""
+    0, except `empty_rows`, which store nothing), values drawn on the
+    card."""
     import torch
 
     from libdogleg_tpu_torch.ops.bcsr import BCSRJacobian, BCSRStructure
     rng = np.random.default_rng(seed)
     mask = rng.uniform(size=(nbrow, nbcol)) < density
     mask[:, 0] = True
+    mask[list(empty_rows)] = False
     indptr = np.concatenate([[0], np.cumsum(mask.sum(1))]).astype(np.int32)
     indices = np.nonzero(mask)[1].astype(np.int32)
     s = BCSRStructure(nmeas=nbrow * bm, nstate=nbcol * bn, block_rows=bm,
@@ -347,10 +359,25 @@ def phase9_bcsr(dev) -> dict:
            "K4": {"launches": launches["bcsr_matvec_kernel"]}}
     for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-12)):
         name = str(dtype).split(".")[-1]
-        cases = (("grid 8x8", grid_jacobian(dtype, dev)[0]),
+        # K4's two kernels: the 16-byte-word one on (8, 8), the generic one
+        # on (4, 8), (3, 5) and (32, 128); patterns with empty rows
+        cases = (("grid 8x8", grid_jacobian(dtype, dev)[0], "words"),
                  ("512x16 of 32x128",
-                  random_bcsr(512, 16, 32, 128, 0.25, 9, dtype, dev)))
-        for label, Jc in cases:
+                  random_bcsr(512, 16, 32, 128, 0.25, 9, dtype, dev), "rows"),
+                 ("300x40 of 8x8, empty rows",
+                  random_bcsr(300, 40, 8, 8, 0.2, 10, dtype, dev,
+                              empty_rows=(0, 7, 299)), "words"),
+                 ("301x40 of 4x8, empty rows",
+                  random_bcsr(301, 40, 4, 8, 0.2, 11, dtype, dev,
+                              empty_rows=(0, 150, 300)), "rows"),
+                 ("97x24 of 3x5, empty rows",
+                  random_bcsr(97, 24, 3, 5, 0.3, 12, dtype, dev,
+                              empty_rows=(1, 96)), "rows"))
+        for label, Jc, instance in cases:
+            st = Jc.structure
+            check(tk.matvec_instance(st.block_rows, st.block_cols, dtype)
+                  == instance, f"K4 {name} {label} takes the {instance} "
+                  f"kernel")
             sched = tk.build_jtj_schedule(Jc.structure)
             v = torch.linspace(-1.0, 1.0, Jc.structure.nstate, dtype=dtype,
                                device=dev)
@@ -366,9 +393,10 @@ def phase9_bcsr(dev) -> dict:
                 out["K3"]["max_abs_err"] = float(
                     (blocks - blocks_r).abs().max())
                 out["K4"]["max_abs_err"] = float((Jv - Jv_r).abs().max())
-            print(f"[9 {label} {name}] vs twins: K3 {e3:.3e} K4 {e4:.3e} "
-                  f"of max (tol {tol}); {len(sched.pair_i)} pairs, "
-                  f"{Jc.structure.nnzb} blocks", flush=True)
+            print(f"[9 {label} {name}] vs twins: K3 {e3:.3e} K4 ({instance} "
+                  f"kernel) {e4:.3e} of max (tol {tol}); "
+                  f"{len(sched.pair_i)} pairs, {Jc.structure.nnzb} blocks",
+                  flush=True)
             del Jc, blocks, blocks_r
     return out
 
@@ -384,16 +412,17 @@ def spd_tiles(n, k, seed, dtype, dev):
 
 
 def phase11_tiles(dev) -> dict:
-    """K6 and K7 against their twins on the card: n in {8, 16, 64, 128,
-    256}, k in {1, 7, 455}, float64 and float32, K7 with m = n and m = 3,
-    and a non-SPD tile (ok False from both)."""
+    """K6 and K7 against their twins on the card: n in {8, 16, 24, 40, 64,
+    100, 128, 256}, k in {1, 7, 455}, float64 and float32, K7 with m = n
+    and m = 3 and, at k = 7, m in {1, 37, 130} and a row of NaN in C (it
+    stays in its row), and a non-SPD tile (ok False from both)."""
     import torch
 
     from libdogleg_tpu_torch.ops import tilechol
     out = {"K6": {"max_abs_err": 0.0}, "K7": {"max_abs_err": 0.0}}
     for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 2e-4)):
         name = str(dtype).split(".")[-1]
-        for n in (8, 16, 64, 128, 256):
+        for n in (8, 16, 24, 40, 64, 100, 128, 256):
             errs6, errs7 = [], []
             for k in (1, 7, 455):
                 S = spd_tiles(n, k, 1000 * n + k, dtype, dev)
@@ -411,7 +440,7 @@ def phase11_tiles(dev) -> dict:
                     out["K6"]["max_abs_err"] = max(
                         out["K6"]["max_abs_err"],
                         float((L - Lr).abs().max()))
-                for m in (n, 3):
+                for m in (n, 3) + ((1, 37, 130) if k == 7 else ()):
                     rng = np.random.default_rng(7 * n + k + m)
                     C = torch.as_tensor(rng.normal(size=(k, m, n)),
                                         dtype=dtype, device=dev)
@@ -425,6 +454,19 @@ def phase11_tiles(dev) -> dict:
                         out["K7"]["max_abs_err"] = max(
                             out["K7"]["max_abs_err"],
                             float((X - Xr).abs().max()))
+                if k == 7:
+                    # a row of NaN in C: its row of X is NaN, no other is
+                    C[2, 1] = float("nan")
+                    Xn = tilechol.tri_solve_right(Lr, C)
+                    bad = torch.isnan(Xn)
+                    check(bool(bad[2, 1].all())
+                          and int(bad.sum()) == C.shape[-1],
+                          f"K7 {name} n={n} a row of NaN in C stays in "
+                          f"its row")
+                    keep = ~bad
+                    check(rel_err(Xn[keep], Xr[keep]) < tol,
+                          f"K7 {name} n={n} the rows beside a NaN row "
+                          f"within {tol}")
                 del S, L, Lr, C, X, Xr
             S = spd_tiles(n, 3, n, dtype, dev)
             S[2, n // 2, n // 2] = -S[2, n // 2, n // 2]
@@ -434,8 +476,10 @@ def phase11_tiles(dev) -> dict:
                   f"K6 {name} n={n} non-SPD tile flagged: {ok.tolist()} "
                   f"{okr.tolist()}")
             print(f"[11 K6/K7 {name} n={n}] vs twins, k 1/7/455: K6 max "
-                  f"{max(errs6):.3e}, K7 (m = n and 3) max {max(errs7):.3e} "
-                  f"of the largest entry (tol {tol}); non-SPD tile ok "
+                  f"{max(errs6):.3e}, K7 (m = n, 3 and, at k = 7, 1, 37, "
+                  f"130) max {max(errs7):.3e} of the largest entry (tol "
+                  f"{tol}); a row of NaN in C stays in its row; non-SPD "
+                  f"tile ok "
                   f"{ok.tolist()} (twin {okr.tolist()})", flush=True)
     return out
 
@@ -493,35 +537,58 @@ def device_split(fn, *args, groups=K2_GROUPS) -> str:
             f"kernels: {largest}")
 
 
-def kernel_us(fn, args, name: str, reps: int = 20) -> float:
-    """Device time per call of the kernels whose names hold `name`, from a
-    torch.profiler trace of `reps` calls: the kernel alone, without its
-    wrapper's host work."""
+def device_events(fn, args, reps: int):
+    """The device-side events of `reps` calls of fn, from a torch.profiler
+    trace. Now and then a trace comes back empty (the activity buffers of
+    two traces taken in quick succession get lost): it is taken again after
+    a growing pause, up to six times; then the list is empty."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn(*args)
-        torch.cuda.synchronize()
-    return sum(getattr(ev, "self_device_time_total",
-                       getattr(ev, "self_cuda_time_total", 0.0))
-               for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA
-               and name in ev.key.lower()) / reps
+    for attempt in range(6):
+        time.sleep(0.5 * attempt)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn(*args)
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA]
+        if events:
+            return events
+    return []
 
 
-def bsr_matvec_ms(J, v):
-    """The time of the one PyTorch call that computes K4's function, a
-    torch.sparse_bsr_tensor (built once, outside the timing) times v, held
+def kernel_us(fn, args, name: str, reps: int = 20):
+    """Device time in microseconds per launch of the kernels whose names
+    hold `name`, over `reps` calls of fn: the kernel alone, without its
+    wrapper's host work. None where the profiler gave no such event."""
+    events = [ev for ev in device_events(fn, args, reps)
+              if name in ev.key.lower()]
+    count = sum(ev.count for ev in events)
+    if not count:
+        return None
+    total = sum(getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0.0))
+                for ev in events)
+    return total / count
+
+
+def us_text(us) -> str:
+    """A kernel_us reading for a printed line."""
+    return ("not measured (the profiler returned no events)" if us is None
+            else f"{us:.2f} us per launch (profiler)")
+
+
+def bsr_tensor(J, v):
+    """J as a torch.sparse_bsr_tensor, the operand of the one PyTorch call
+    that computes K4's function (torch.mv), its indices on the card, held
     to K4's plain version first. None, with the error printed, where this
     PyTorch has no BSR matrix-vector product on the card."""
     import torch
 
     from libdogleg_tpu_torch.ops import bcsr_kernels as tk
-    from libdogleg_tpu_torch.utils.benchtime import measure_ms
     st = J.structure
     dev = J.values.device
     bsr = torch.sparse_bsr_tensor(
@@ -537,7 +604,35 @@ def bsr_matvec_ms(J, v):
         return None
     err = rel_err(got, tk.bcsr_matvec_reference(J, v))
     check(err < 1e-4, f"the BSR product computes K4's function: {err:.3e}")
-    return measure_ms(torch.mv, bsr, v, warmup=3, reps=20)
+    return bsr
+
+
+def later_call_copies_nothing(fn, args, name: str) -> str:
+    """A call of fn on a structure it has seen must find the index arrays
+    on the card: the cache of device tensors holds the same tensors after
+    the call as before it, and a profiler trace of one call shows no
+    host-to-device copy and one launch of the kernel whose name holds
+    `name`. Fails where the profiler gives no trace to show it."""
+    from libdogleg_tpu_torch.ops import bcsr_kernels as tk
+
+    def held():
+        return {id(t) for per_array in tk._DEVICE_INDICES.values()
+                for t in per_array.values()}
+    fn(*args)
+    before = held()
+    fn(*args)
+    check(held() == before, f"a later {name} call puts no new index tensor "
+          f"on the card")
+    events = device_events(fn, args, 1)
+    check(bool(events), f"the profiler traced a later {name} call")
+    copies = sum(ev.count for ev in events
+                 if "memcpy" in ev.key.lower() and "htod" in ev.key.lower())
+    launches = sum(ev.count for ev in events if name in ev.key.lower())
+    check(copies == 0 and launches == 1,
+          f"a later {name} call copies nothing to the card and launches "
+          f"once: {copies} copies, {launches} launches")
+    return (f"same cached index tensors, {copies} host-to-device copies, "
+            f"{launches} launch (profiler)")
 
 
 def phase10_timing(dev, bench, card, k2, k34) -> dict:
@@ -625,21 +720,37 @@ def phase10_timing(dev, bench, card, k2, k34) -> dict:
     k34["K4"].update(bound(
         nbytes_of(J.values, v) + 4 * (len(st.indptr) + len(st.indices))
         + 4 * st.nmeas, 2.0 * st.nnzb * bm * bn))
-    for key, fn, ref, args in (
+    # K3: no one PyTorch call gives the stored blocks of JtJ from block-CSR
+    # values (a sparse-sparse product of BSR tensors is not implemented).
+    # K4: a BSR tensor times v, timed in turns with K4.
+    bsr = bsr_tensor(J, v)
+    for key, fn, ref, args, kname in (
             ("K3", tk.bcsr_jtj_blocks_kernel, tk.bcsr_jtj_blocks_reference,
-             (J, sched)),
-            ("K4", tk.bcsr_matvec_kernel, tk.bcsr_matvec_reference, (J, v))):
-        ms = measure_ms(fn, *args, warmup=3, reps=20)
+             (J, sched), "jtj_blocks"),
+            ("K4", tk.bcsr_matvec_kernel, tk.bcsr_matvec_reference, (J, v),
+             "matvec")):
+        turns = []
+        for _ in range(2):  # in turns, so that a drift shows
+            turns.append((
+                measure_ms(fn, *args, warmup=3, reps=20),
+                measure_ms(torch.mv, bsr, v, warmup=3, reps=20)
+                if key == "K4" and bsr is not None else None))
         plain = measure_ms(ref, *args, warmup=3, reps=20)
-        # K3: no one PyTorch call gives the stored blocks of JtJ from
-        # block-CSR values (a sparse-sparse product of BSR tensors is not
-        # implemented). K4: a BSR tensor times v.
-        library = bsr_matvec_ms(J, v) if key == "K4" else None
-        k34[key].update(ms=ms, plain_ms=plain, library_ms=library)
-        print(f"[10 {key} grid {GRID} f32] kernel {ms:.4f} ms, twin "
-              f"{plain:.4f} ms, library call "
-              f"{'none' if library is None else f'{library:.4f} ms'}; card "
-              f"{card}", flush=True)
+        alone = us_text(kernel_us(fn, args, kname))
+        # the structure's index arrays went to the card at the first call
+        later = later_call_copies_nothing(fn, args, kname)
+        k34[key].update(ms=turns[0][0], plain_ms=plain,
+                        library_ms=turns[0][1])
+        library = ("none" if turns[0][1] is None else
+                   f"torch.mv of the BSR tensor {turns[0][1]:.4f} / "
+                   f"{turns[1][1]:.4f} ms")
+        print(f"[10 {key} grid {GRID} f32] kernel with its wrapper "
+              f"{turns[0][0]:.4f} / {turns[1][0]:.4f} ms, library call "
+              f"{library} (two turns, CUDA events over 20 back-to-back "
+              f"calls), twin {plain:.4f} ms; the kernel alone {alone}; bound "
+              f"{k34[key]['bound_ms'] * 1e3:.2f} us by "
+              f"{k34[key]['bound_by']}; a later call: {later}; card {card}",
+              flush=True)
     return dense_walls
 
 
@@ -788,21 +899,27 @@ def phase13_timing(dev, bench, card, sparse, tiles, dense_walls) -> None:
         else:
             lib, lib_args = (lambda D, Cm: torch.linalg.solve_triangular(
                 D.mT, Cm, upper=True, left=False)), (L, C)
-            # in: D and C; out: X. m n^2 operations a tile (m = n here)
-            limit = bound(nbytes_of(L, C, C), float(k) * n * n * n)
-        ms = measure_ms(fn, *args, warmup=3, reps=20)
+            # in: D's lower triangle (the function reads nothing above the
+            # diagonal) and C; out: X. m n^2 operations a tile (m = n here)
+            limit = bound(k * n * (n + 1) // 2 * L.element_size()
+                          + 2 * nbytes_of(C), float(k) * n * n * n)
+        turns = []
+        for _ in range(2):  # in turns, so that a drift shows
+            turns.append((measure_ms(fn, *args, warmup=3, reps=20),
+                          measure_ms(lib, *lib_args, warmup=3, reps=20)))
         plain = measure_ms(ref, *args, warmup=3, reps=20)
-        library = measure_ms(lib, *lib_args, warmup=3, reps=20)
-        alone = kernel_us(fn, args, "tilechol" if key == "K6" else
-                          "trisolve")
+        alone = us_text(kernel_us(fn, args, "tilechol" if key == "K6" else
+                                  "trisolve"))
         if n == 128:
-            tiles[key].update(ms=ms, plain_ms=plain, library_ms=library,
-                              **limit)
-        print(f"[13 {key} ({k}, {n}, {n}) f32] kernel {ms:.4f} ms, twin "
-              f"{plain:.4f} ms, library call {library:.4f} ms (CUDA events "
-              f"over 20 back-to-back calls); the kernel alone {alone:.2f} us "
-              f"per launch (profiler); bound {limit['bound_ms'] * 1e3:.2f} "
-              f"us by {limit['bound_by']}; card {card}", flush=True)
+            tiles[key].update(ms=turns[0][0], plain_ms=plain,
+                              library_ms=turns[0][1], **limit)
+        print(f"[13 {key} ({k}, {n}, {n}) f32] kernel with its wrapper "
+              f"{turns[0][0]:.4f} / {turns[1][0]:.4f} ms, library call "
+              f"{turns[0][1]:.4f} / {turns[1][1]:.4f} ms (two turns, CUDA "
+              f"events over 20 back-to-back calls), twin {plain:.4f} ms; "
+              f"the kernel alone {alone}; "
+              f"bound {limit['bound_ms'] * 1e3:.2f} us by "
+              f"{limit['bound_by']}; card {card}", flush=True)
 
     probs, p0 = sparse["probs"], sparse["p0"]
     for name, prob in probs.items():
@@ -1062,8 +1179,8 @@ def phase16_timing(dev, bench, card, mid, k5) -> None:
               f"largest entry: {err:.3e}")
         k5["max_abs_err"] = max(k5["max_abs_err"],
                                 float((L - Lr).abs().max()))
-        alone = kernel_us(batchchol.batched_blocked_cholesky, (S,),
-                          "batchchol")
+        alone = us_text(kernel_us(batchchol.batched_blocked_cholesky, (S,),
+                                  "batchchol"))
         if nstate == MIDSIZE[-1][0]:
             k5.update(ms=turns[0][0], plain_ms=plain,
                       library_ms=turns[0][1], **limit)
@@ -1072,7 +1189,7 @@ def phase16_timing(dev, bench, card, mid, k5) -> None:
               f"{turns[1][1]:.4f} ms, K6 {turns[0][2]:.4f} / "
               f"{turns[1][2]:.4f} ms (two turns, CUDA events over 20 "
               f"back-to-back calls), plain version {plain:.3f} ms; the "
-              f"kernel alone {alone:.2f} us per launch (profiler); bound "
+              f"kernel alone {alone}; bound "
               f"{limit['bound_ms'] * 1e3:.2f} us by {limit['bound_by']}; on "
               f"the path's JtJ K5 within {err:.3e} of its plain version's "
               f"largest entry (tol 1e-5), ok identical; card {card}",

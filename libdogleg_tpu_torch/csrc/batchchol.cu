@@ -252,7 +252,7 @@ int batchchol(const void* A, int k, int n, void* L, void* ok, int device,
   if (k <= 0) return 0;
   if (n < PANEL || n > MAX_N || n % PANEL)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   return n <= 32 ? launch<T, 32>(A, k, n, L, ok, device, stream)
                  : launch<T, THREADS>(A, k, n, L, ok, device, stream);

@@ -8,25 +8,42 @@
 // libdogleg_tpu/ops/pallas_bcsr.py::bcsr_matvec_pallas (pallas_call at :212,
 // kernel _matvec_kernel at :171-187): J v.
 //
-// Design. K3: one thread block per output block, walking that block's
+// K3's design: one thread block per output block, walking that block's
 // contiguous run of the schedule (pairs sorted by output block, run offsets
 // derived on the host from out_idx); each thread owns output entries (i, j)
 // and sums over the run's pairs and the bm rows, so there are no atomics and
-// the sum order is fixed. K4: one thread per output row; the bm threads of a
-// block row walk that row's contiguous blocks in CSR order, so again there
-// are no atomics. The TPU kernels kept each output tile in VMEM across the
-// grid; here every output is a register sum written once.
+// the sum order is fixed. The TPU kernels kept each output tile in VMEM
+// across the grid; here every output is a register sum written once. What
+// bounds it: memory, it reads every scheduled pair's two blocks (2 bm bn
+// values a pair) for bm bn^2 multiply-adds; the blocks are read straight
+// from device memory (L1/L2), not staged. A simple kernel, not tuned.
 //
-// What bounds them on this card: memory. K3 reads every scheduled pair's two
-// blocks (2 * bm * bn values per pair) and does bm * bn^2 multiply-adds per
-// pair; K4 reads each stored block once. At the grid model's 8 x 8 blocks
-// both are a few MB per call and launch-latency sized. Simple kernels, not
-// tuned: the blocks are read straight from device memory (L1/L2), not staged.
+// What bounds K4 on this card. It reads each stored block once and v and
+// writes J v: 1.4 MB on the 32x32x8 grid model's 8x8 float32 blocks, under
+// half a microsecond at 3.35 TB/s, so it is the size of a launch: what
+// counts is one launch, no copy before it (the wrapper keeps the structure's
+// index arrays on the card) and enough wide loads in flight. One thread per
+// measurement row with scalar loads puts neighbouring lanes a block row
+// apart: 32 sectors an instruction for 128 useful bytes, and every thread of
+// a block row reads the row's indices again.
+//
+// K4's design. For the grid model's (8, 8) blocks, float32 and float64, a
+// group of lanes works on one block row, one lane per 16-byte word of a
+// block: 16 lanes for an 8x8 float32 block, so a warp reads two whole
+// blocks, 512 contiguous bytes, per load instruction, through the read-only
+// path. Each lane multiplies its word by the matching word of v, sums over
+// the row's blocks in CSR order, and the lanes of one row of the block are
+// summed with xor shuffles: a fixed order, no atomics; one lane writes each
+// output entry once. Every other block shape, and operands that are not
+// 16-byte aligned, take the generic kernel: one thread per measurement row,
+// walking that row's blocks with scalar loads. Both are kernels of this
+// file; launch_matvec alone chooses between them.
 
-#include <cstddef>
-#include <cuda_runtime.h>
+#include "group.cuh"
 
 namespace {
+
+constexpr int MV_THREADS = 128;  // K4: threads of a block
 
 template <typename T>
 __global__ void jtj_blocks_kernel(const T* __restrict__ vals, int bm, int bn,
@@ -74,7 +91,7 @@ static int launch_jtj(const void* vals, int bm, int bn, const void* pair_i,
                       const void* pair_j, const void* run_ptr, int nout,
                       void* out, int device, void* stream) {
   if (nout <= 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   int threads = ((bn * bn + 31) / 32) * 32;
   if (threads > 256) threads = 256;
@@ -85,19 +102,67 @@ static int launch_jtj(const void* vals, int bm, int bn, const void* pair_i,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K4 for blocks of BM rows of BN / V 16-byte words: lane w of a group of
+// BM * BN / V lanes holds word w of each block of the group's block row.
+template <typename T, int BM, int BN>
+__global__ void __launch_bounds__(MV_THREADS)
+matvec_words_kernel(const T* __restrict__ vals, const int* __restrict__ indptr,
+                    const int* __restrict__ indices, const T* __restrict__ v,
+                    int nbrow, T* __restrict__ out) {
+  constexpr int V = Word<T>::N;
+  constexpr int CL = BN / V;    // lanes along a row of the block
+  constexpr int LPB = BM * CL;  // lanes per block row
+  static_assert(BN % V == 0 && LPB <= 32 && (LPB & (LPB - 1)) == 0 &&
+                MV_THREADS % LPB == 0, "block shape");
+  const int row = (blockIdx.x * MV_THREADS + threadIdx.x) / LPB;
+  const int lane = threadIdx.x % LPB;
+  const int c = lane % CL;
+  T s = T(0);
+  if (row < nbrow) {
+    const int b1 = __ldg(indptr + row + 1);
+    for (int b = __ldg(indptr + row); b < b1; ++b) {
+      const Word<T> a = load_word_readonly(
+          vals + static_cast<size_t>(b) * (BM * BN) + lane * V);
+      const Word<T> x = load_word_readonly(
+          v + static_cast<size_t>(__ldg(indices + b)) * BN + c * V);
+#pragma unroll
+      for (int u = 0; u < V; ++u) s += a.v[u] * x.v[u];
+    }
+  }
+  // every lane of the warp takes part; rows beyond the last hold zero
+#pragma unroll
+  for (int o = CL / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (row < nbrow && c == 0) out[row * BM + lane / CL] = s;
+}
+
+// The 16-byte-word kernel for (8, 8) blocks whose operands are 16-byte
+// aligned, the generic one for everything else.
 template <typename T>
-static int launch_matvec(const void* vals, int bm, int bn, const void* indptr,
-                         const void* indices, const void* v, int nmeas,
-                         void* out, int device, void* stream) {
+static int launch_matvec(const void* vals_, int bm, int bn,
+                         const void* indptr_, const void* indices_,
+                         const void* v_, int nmeas, void* out_, int device,
+                         void* stream_) {
   if (nmeas <= 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int THREADS = 128;
-  matvec_kernel<T><<<(nmeas + THREADS - 1) / THREADS, THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(vals), bm, bn, static_cast<const int*>(indptr),
-      static_cast<const int*>(indices), static_cast<const T*>(v), nmeas,
-      static_cast<T*>(out));
+  const T* vals = static_cast<const T*>(vals_);
+  const int* indptr = static_cast<const int*>(indptr_);
+  const int* indices = static_cast<const int*>(indices_);
+  const T* v = static_cast<const T*>(v_);
+  T* out = static_cast<T*>(out_);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (bm == 8 && bn == 8 && aligned16(vals) && aligned16(v)) {
+    constexpr int LPB = 8 * 8 / Word<T>::N;  // lanes per block row
+    const int nbrow = nmeas / 8;
+    const long long threads = static_cast<long long>(nbrow) * LPB;
+    matvec_words_kernel<T, 8, 8>
+        <<<static_cast<unsigned>((threads + MV_THREADS - 1) / MV_THREADS),
+           MV_THREADS, 0, stream>>>(vals, indptr, indices, v, nbrow, out);
+  } else {
+    matvec_kernel<T><<<(nmeas + MV_THREADS - 1) / MV_THREADS, MV_THREADS, 0,
+                       stream>>>(vals, bm, bn, indptr, indices, v, nmeas,
+                                 out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

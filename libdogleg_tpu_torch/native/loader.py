@@ -143,6 +143,20 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def launch_target(device) -> tuple:
+    """(device index, handle of PyTorch's current stream on it), the last
+    two arguments of every entry point. The handle comes straight from the
+    runtime binding where this PyTorch has it: building a torch.cuda.Stream
+    object for the same handle costs the host as much as a small kernel's
+    launch."""
+    import torch
+    index = device.index or 0
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return index, torch.cuda.current_stream(index).cuda_stream
+    return index, raw(index)
+
+
 def load_library() -> ctypes.CDLL:
     """The kernel library, built on first use and cached in the process."""
     global _LIB

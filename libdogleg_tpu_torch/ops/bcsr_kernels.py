@@ -8,11 +8,18 @@ uses the plain ops of ops/bcsr.py. Each kernel's wrapper launches the
 hand-written kernel in csrc/bcsr.cu for CUDA tensors and runs its plain twin
 (`*_reference`) for CPU tensors; a CUDA tensor launches the kernel or
 raises.
+
+A structure's and a schedule's index arrays are numpy arrays on the host.
+The wrappers copy each to the card once (`device_indices`) and keep the
+tensor for as long as the array lives, so a second product on one structure
+copies nothing. The arrays are static by contract: one changed in place
+after its first product would leave a stale copy behind.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import weakref
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -72,12 +79,49 @@ def _check(J: BCSRJacobian) -> None:
                          "(see supports_kernels)")
 
 
-def _i32(a: np.ndarray, device) -> torch.Tensor:
-    return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
+# id(owner array) -> {(name, device): int32 tensor}; an entry goes when its
+# owner is collected.
+_DEVICE_INDICES: dict = {}
 
 
-def _stream(device):
-    return device.index or 0, torch.cuda.current_stream(device).cuda_stream
+def device_indices(owner: np.ndarray, device, name: str = "",
+                   make: Optional[Callable[[], np.ndarray]] = None
+                   ) -> torch.Tensor:
+    """The index array `owner` (or, with `make`, an array derived from it,
+    told apart by `name`) as an int32 tensor on `device`: copied there once
+    and kept for as long as `owner` lives."""
+    device = torch.device(device)
+    held = _DEVICE_INDICES.get(id(owner))
+    if held is None:
+        held = _DEVICE_INDICES[id(owner)] = {}
+        weakref.finalize(owner, _DEVICE_INDICES.pop, id(owner), None)
+    t = held.get((name, device))
+    if t is None:
+        a = owner if make is None else make()
+        # a copy on every device: a tensor sharing the array's memory would
+        # keep the owner alive
+        t = held[(name, device)] = torch.tensor(
+            np.ascontiguousarray(a, np.int32), device=device)
+    return t
+
+
+def _run_ptr(schedule: JtJSchedule) -> np.ndarray:
+    """Offsets of each output block's run in the output-sorted schedule."""
+    counts = np.bincount(schedule.out_idx,
+                         minlength=int(schedule.out_ci.shape[0]))
+    return np.concatenate([[0], np.cumsum(counts)])
+
+
+def matvec_instance(bm: int, bn: int, dtype) -> str:
+    """Which of K4's kernels csrc/bcsr.cu launches for 16-byte-aligned
+    (bm, bn) blocks of `dtype`: "words" (a group of lanes per block row, one
+    16-byte word of a block per lane) for the grid model's (8, 8) blocks,
+    "rows" (one thread per measurement row, any block shape) otherwise, as
+    for operands that are not aligned. The launcher decides; this names its
+    rule."""
+    if (bm, bn) == (8, 8) and dtype in (torch.float32, torch.float64):
+        return "words"
+    return "rows"
 
 
 def bcsr_jtj_blocks_reference(J: BCSRJacobian,
@@ -107,22 +151,22 @@ def bcsr_jtj_blocks_kernel(J: BCSRJacobian,
         return bcsr_jtj_blocks_reference(J, schedule), schedule
     if v.device.type != "cuda":
         raise ValueError(f"no kernel for device {v.device}")
-    from libdogleg_tpu_torch.native.loader import load_library
+    from libdogleg_tpu_torch.native.loader import launch_target, load_library
     lib = load_library()
     entry = (lib.dogleg_bcsr_jtj_f32 if v.dtype == torch.float32
              else lib.dogleg_bcsr_jtj_f64)
     s = J.structure
     nout = int(schedule.out_ci.shape[0])
-    counts = np.bincount(schedule.out_idx, minlength=nout)
-    run_ptr = np.concatenate([[0], np.cumsum(counts)])
     vals = v.contiguous()
-    pi, pj = _i32(schedule.pair_i, v.device), _i32(schedule.pair_j, v.device)
-    rp = _i32(run_ptr, v.device)
+    pi = device_indices(schedule.pair_i, v.device)
+    pj = device_indices(schedule.pair_j, v.device)
+    rp = device_indices(schedule.out_idx, v.device, "run_ptr",
+                        lambda: _run_ptr(schedule))
     out = torch.empty((nout, s.block_cols, s.block_cols), dtype=v.dtype,
                       device=v.device)
     err = entry(vals.data_ptr(), s.block_rows, s.block_cols, pi.data_ptr(),
                 pj.data_ptr(), rp.data_ptr(), nout, out.data_ptr(),
-                *_stream(v.device))
+                *launch_target(v.device))
     if err:
         raise RuntimeError(f"bcsr_jtj_blocks_kernel launch failed: "
                            f"cudaError_t {err}")
@@ -156,8 +200,9 @@ def bcsr_matvec_reference(J: BCSRJacobian, vec: torch.Tensor) -> torch.Tensor:
 
 
 def bcsr_matvec_kernel(J: BCSRJacobian, vec: torch.Tensor) -> torch.Tensor:
-    """J v for a (nstate,) vector. CUDA values go to kernel K4, CPU values
-    to bcsr_matvec_reference."""
+    """J v for a (nstate,) vector. CUDA values go to kernel K4 (of its two
+    kernels the one `matvec_instance` names), CPU values to
+    bcsr_matvec_reference."""
     _check(J)
     s, v = J.structure, J.values
     if (tuple(vec.shape) != (s.nstate,) or vec.dtype != v.dtype
@@ -168,17 +213,17 @@ def bcsr_matvec_kernel(J: BCSRJacobian, vec: torch.Tensor) -> torch.Tensor:
         return bcsr_matvec_reference(J, vec)
     if v.device.type != "cuda":
         raise ValueError(f"no kernel for device {v.device}")
-    from libdogleg_tpu_torch.native.loader import load_library
+    from libdogleg_tpu_torch.native.loader import launch_target, load_library
     lib = load_library()
     entry = (lib.dogleg_bcsr_matvec_f32 if v.dtype == torch.float32
              else lib.dogleg_bcsr_matvec_f64)
     vals, x = v.contiguous(), vec.contiguous()
-    indptr = _i32(s.indptr, v.device)
-    indices = _i32(s.indices, v.device)
+    indptr = device_indices(s.indptr, v.device)
+    indices = device_indices(s.indices, v.device)
     out = torch.empty(s.nmeas, dtype=v.dtype, device=v.device)
     err = entry(vals.data_ptr(), s.block_rows, s.block_cols,
                 indptr.data_ptr(), indices.data_ptr(), x.data_ptr(), s.nmeas,
-                out.data_ptr(), *_stream(v.device))
+                out.data_ptr(), *launch_target(v.device))
     if err:
         raise RuntimeError(f"bcsr_matvec_kernel launch failed: "
                            f"cudaError_t {err}")

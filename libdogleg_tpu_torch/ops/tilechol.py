@@ -42,9 +42,8 @@ def _check_square(name: str, t: torch.Tensor) -> None:
 
 
 def _launch(entry: str, device: torch.device, *args) -> None:
-    from libdogleg_tpu_torch.native.loader import load_library
-    err = getattr(load_library(), entry)(
-        *args, device.index or 0, torch.cuda.current_stream(device).cuda_stream)
+    from libdogleg_tpu_torch.native.loader import launch_target, load_library
+    err = getattr(load_library(), entry)(*args, *launch_target(device))
     if err:
         raise RuntimeError(f"{entry} launch failed: cudaError_t {err}")
 
@@ -92,9 +91,27 @@ def tri_solve_right_reference(D: torch.Tensor, C: torch.Tensor):
     return torch.linalg.solve_triangular(D.mT, C, upper=True, left=False)
 
 
+def tri_solve_right_blocked_reference(D: torch.Tensor, C: torch.Tensor,
+                                      block: int = 16) -> torch.Tensor:
+    """K7's algorithm in plain PyTorch, for the tests: left-looking over
+    `block`-wide column blocks J, X[:, J] = C[:, J] - X[:, <J] D[J, <J]^T as
+    one product, then the solve inside the block column by column,
+    x_j = (x_j - sum_{l in J, l < j} x_l D_jl) / D_jj, a true division."""
+    n = D.shape[-1]
+    X = C.clone()
+    for j0 in range(0, n, block):
+        j1 = min(j0 + block, n)
+        if j0:
+            X[..., j0:j1] -= X[..., :j0] @ D[..., j0:j1, :j0].mT
+        for j in range(j0, j1):
+            s = X[..., j] - (X[..., j0:j] * D[..., j:j + 1, j0:j]).sum(-1)
+            X[..., j] = s / D[..., j, j, None]
+    return X
+
+
 def tri_solve_right(D: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     """X with X D^T = C, for D (k, n, n) lower-triangular (its strict upper
-    part is not read) and C (k, m, n), 1 <= n <= 256, m >= 1. The quotient
+    part is not used) and C (k, m, n), 1 <= n <= 256, m >= 1. The quotient
     by D_jj is a true division. CUDA tensors go to kernel K7, CPU tensors
     to tri_solve_right_reference."""
     _check_square("D", D)

@@ -144,3 +144,87 @@ def test_supports_kernels_takes_any_block_shape():
     assert not tk.supports_kernels(Jt.structure, torch.float16)
     with pytest.raises(ValueError):
         tk.bcsr_matvec_kernel(Jt, torch.zeros(3))
+
+
+@pytest.mark.parametrize("np_dtype,rtol", [(np.float64, 1e-12),
+                                           (np.float32, 1e-5)])
+@pytest.mark.parametrize("bm,bn", [(8, 8), (4, 8), (3, 5)])
+def test_matvec_wrapper_matches_jax_matvec(bm, bn, np_dtype, rtol):
+    """bcsr_matvec_kernel on CPU tensors (K4's plain version) against the
+    JAX package's bcsr_matvec, on the block shapes of K4's two kernels, with
+    an empty block row (row 2 of _pattern)."""
+    Jj, Jt, rng = _both(5, bm, bn, np_dtype, nbrow=7, nbcol=6)
+    s = Jt.structure
+    assert s.indptr[2] == s.indptr[3]
+    v = rng.normal(size=s.nstate).astype(np_dtype)
+    got = tk.bcsr_matvec_kernel(Jt, torch.as_tensor(v))
+    want = np.asarray(jbcsr.bcsr_matvec(Jj, jnp.asarray(v)))
+    assert got.dtype == torch.as_tensor(v).dtype and want.dtype == np_dtype
+    np.testing.assert_allclose(got.numpy(), want, rtol=rtol,
+                               atol=rtol * np.abs(want).max())
+    assert not got[2 * bm:3 * bm].any()
+
+
+@pytest.mark.parametrize("bm,bn,dtype,want", [
+    (8, 8, torch.float32, "words"), (8, 8, torch.float64, "words"),
+    (4, 8, torch.float32, "rows"), (4, 4, torch.float64, "rows"),
+    (3, 5, torch.float32, "rows"), (3, 5, torch.float64, "rows"),
+    (32, 128, torch.float32, "rows"), (4, 6, torch.float64, "rows"),
+    (8, 8, torch.float16, "rows")])
+def test_matvec_instance(bm, bn, dtype, want):
+    """The 16-byte-word kernel for the grid model's (8, 8) blocks, the
+    generic one for every other shape."""
+    assert tk.matvec_instance(bm, bn, dtype) == want
+
+
+def test_device_indices_are_cached_per_array():
+    """A structure's index arrays go to the device once: a second call
+    returns the same tensors, another structure gets its own, a derived
+    array is told apart by its name, and the tensors hold int32 copies."""
+    _, Jt, _ = _both(6, 4, 8, np.float32)
+    _, Jo, _ = _both(6, 4, 8, np.float32)
+    s, o = Jt.structure, Jo.structure
+    a = tk.device_indices(s.indptr, "cpu")
+    b = tk.device_indices(s.indices, "cpu")
+    assert tk.device_indices(s.indptr, "cpu") is a
+    assert tk.device_indices(s.indices, torch.device("cpu")) is b
+    assert a.dtype == b.dtype == torch.int32
+    np.testing.assert_array_equal(a.numpy(), s.indptr)
+    np.testing.assert_array_equal(b.numpy(), s.indices)
+    assert not np.shares_memory(a.numpy(), s.indptr)
+    c = tk.device_indices(o.indptr, "cpu")
+    assert c is not a and torch.equal(c, a)
+    made = []
+    d = tk.device_indices(s.indptr, "cpu", "doubled",
+                          lambda: made.append(1) or 2 * s.indptr)
+    assert d is not a and torch.equal(d, 2 * a)
+    assert tk.device_indices(s.indptr, "cpu", "doubled", None) is d
+    assert made == [1]
+
+
+def test_device_indices_go_with_their_array():
+    """The cache holds no reference to the array: when the structure is
+    collected, its tensors are dropped."""
+    import gc
+    indptr, indices, _ = _pattern(7)
+    before = len(tk._DEVICE_INDICES)
+    tk.device_indices(indptr, "cpu")
+    tk.device_indices(indices, "cpu")
+    assert len(tk._DEVICE_INDICES) == before + 2
+    del indptr, indices
+    gc.collect()
+    assert len(tk._DEVICE_INDICES) == before
+
+
+def test_jtj_wrapper_caches_its_schedule_on_the_device():
+    """K3's wrapper takes its pair lists and run pointers from the same
+    cache; the run pointers are the offsets of each output block's run."""
+    _, Jt, _ = _both(8, 3, 2, np.float64)
+    sched = tk.build_jtj_schedule(Jt.structure)
+    rp = tk.device_indices(sched.out_idx, "cpu", "run_ptr",
+                           lambda: tk._run_ptr(sched))
+    assert tk.device_indices(sched.out_idx, "cpu", "run_ptr") is rp
+    assert rp[0] == 0 and rp[-1] == len(sched.pair_i)
+    assert len(rp) == len(sched.out_ci) + 1
+    for o in range(len(sched.out_ci)):
+        assert (sched.out_idx[rp[o]:rp[o + 1]] == o).all()

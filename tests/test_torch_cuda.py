@@ -313,3 +313,108 @@ def test_midsize_batched_optimize_launches_k5(cuda):
                                atol=1e-12)
     np.testing.assert_allclose(r_k.p.cpu().numpy(), r.p.cpu().numpy(),
                                rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 2e-4)])
+@pytest.mark.parametrize("k", [1, 7])
+@pytest.mark.parametrize("n", [8, 24, 40, 100, 128, 256])
+def test_tri_solve_right_shapes(cuda, n, k, dtype, tol):
+    """K7 against its plain version on the card: both of its kernels (one
+    thread per row of X up to n = 32, the blocked one above), n that is and
+    is not a multiple of a column block or of a 16-byte word, m below and
+    above a block's rows, one launch per call, and a view whose rows do not
+    start on 16 bytes."""
+    from libdogleg_tpu_torch.ops import tilechol
+    rng = np.random.default_rng(100 * n + k)
+    D = torch.linalg.cholesky(
+        torch.as_tensor(_spd(n, rng, batch=(k,)), device=cuda)).to(dtype)
+    for m in (1, 3, 37, n, 130):
+        C = torch.as_tensor(rng.normal(size=(k, m, n)), dtype=dtype,
+                            device=cuda)
+        before = tilechol.launch_counts["tri_solve_right"]
+        X = tilechol.tri_solve_right(D, C)
+        torch.cuda.synchronize()
+        assert tilechol.launch_counts["tri_solve_right"] == before + 1
+        Xr = tilechol.tri_solve_right_reference(D, C)
+        assert X.shape == C.shape
+        assert float((X - Xr).abs().max() / Xr.abs().max()) < tol, m
+    # a row of NaN in C stays in its row
+    C[k - 1, 2] = float("nan")
+    bad = torch.isnan(tilechol.tri_solve_right(D, C))
+    assert bool(bad[k - 1, 2].all()) and int(bad.sum()) == n
+    # operands one element into a larger buffer: not 16-byte aligned
+    buf = torch.zeros(k * n * n + 1, dtype=dtype, device=cuda)
+    Dv = buf[1:].view(k, n, n).copy_(D)
+    X = tilechol.tri_solve_right(Dv, C[:, :5].contiguous())
+    Xr = tilechol.tri_solve_right_reference(D, C[:, :5].contiguous())
+    keep = ~torch.isnan(Xr)
+    assert float((X[keep] - Xr[keep]).abs().max() / Xr[keep].abs().max()) < tol
+
+
+def _random_bcsr(nbrow, nbcol, bm, bn, seed, dtype, device):
+    """A block-CSR Jacobian on a random pattern whose first, middle and
+    last block rows are empty."""
+    from libdogleg_tpu_torch.ops.bcsr import BCSRJacobian, BCSRStructure
+    rng = np.random.default_rng(seed)
+    mask = rng.uniform(size=(nbrow, nbcol)) < 0.3
+    mask[:, 0] = True
+    mask[[0, nbrow // 2, nbrow - 1]] = False
+    indptr = np.concatenate([[0], np.cumsum(mask.sum(1))]).astype(np.int32)
+    indices = np.nonzero(mask)[1].astype(np.int32)
+    s = BCSRStructure(nmeas=nbrow * bm, nstate=nbcol * bn, block_rows=bm,
+                      block_cols=bn, indptr=indptr, indices=indices)
+    values = torch.as_tensor(rng.normal(size=(s.nnzb, bm, bn)), dtype=dtype,
+                             device=device)
+    return BCSRJacobian(s, values)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
+                                        (torch.float32, 1e-5)])
+@pytest.mark.parametrize("case", ["grid", (8, 8), (4, 8), (4, 4), (3, 5),
+                                  (32, 128)])
+def test_matvec_kernel_shapes(cuda, case, dtype, rtol):
+    """K4 against its plain version on the card: the grid model's J and
+    random patterns with empty block rows, the block shapes of both of its
+    kernels; the second call on a structure finds its indices on the card;
+    a v that is not 16-byte aligned takes the generic kernel."""
+    from libdogleg_tpu_torch.models import grid_mrf
+    from libdogleg_tpu_torch.ops import bcsr_kernels as tk
+    from libdogleg_tpu_torch.ops.bcsr import BCSRJacobian
+    if case == "grid":
+        g = grid_mrf.make_grid_mrf(9, 7, 8, coupling="dense", dtype=dtype,
+                                   device=cuda)
+        J = BCSRJacobian(g.structure, g.problem(jtj="dense").f(g.p_true)[1])
+    else:
+        J = _random_bcsr(61, 13, *case, seed=sum(case), dtype=dtype,
+                         device=cuda)
+    s = J.structure
+    rng = np.random.default_rng(3)
+    buf = torch.as_tensor(rng.normal(size=s.nstate + 1), dtype=dtype,
+                          device=cuda)
+    for v in (buf[:-1], buf[1:]):
+        want = tk.bcsr_matvec_reference(J, v)
+        before = tk.launch_counts["bcsr_matvec_kernel"]
+        got = tk.bcsr_matvec_kernel(J, v)
+        torch.cuda.synchronize()
+        assert tk.launch_counts["bcsr_matvec_kernel"] == before + 1
+        torch.testing.assert_close(got, want, rtol=rtol,
+                                   atol=rtol * float(want.abs().max()))
+    held = tk._DEVICE_INDICES[id(s.indptr)]
+    assert list(held) == [("", J.values.device)]
+    assert tk.device_indices(s.indptr, J.values.device) is held[
+        ("", J.values.device)]
+
+
+@pytest.mark.cuda
+def test_launch_target_is_the_current_stream(cuda):
+    """The handle the kernels launch on is PyTorch's current stream, on the
+    default stream and inside a stream context."""
+    from libdogleg_tpu_torch.native.loader import launch_target
+    assert launch_target(cuda) == (
+        cuda.index or 0, torch.cuda.current_stream(cuda).cuda_stream)
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        assert launch_target(cuda)[1] == side.cuda_stream
