@@ -7,9 +7,12 @@ Run from the repository root on a machine with a CUDA card and nvcc:
     PYTHONPATH=. python3 artifacts/exp_torch_wrapper_host_cost.py
 
 Each line is the host's time per call (time.perf_counter over 3000 calls
-issued back to back, the card synchronized before and after), on the
-32x32x8 grid model's block-CSR Jacobian for K4's wrapper and on (1756, 8, 8)
-tiles for K6's and K7's: the argument checks, the library handle, the cached
+issued back to back, the card synchronized before and after; 300 or 100
+calls where the kernel takes longer than its wrapper, so that the launch
+queue never fills and the host never waits for the card), on the
+32x32x8 grid model's block-CSR Jacobian for K4's wrapper, on (1756, 8, 8)
+tiles for K6's and K7's, and on (21, 128, 128) tiles for K6's and a 256-wide
+panel for K2's: the argument checks, the library handle, the cached
 index tensors, the output's allocation, the stream handle (through a
 torch.cuda.Stream object and through the runtime binding), the ctypes call
 that launches the kernel, the whole wrappers, and torch.mv of a BSR tensor,
@@ -25,7 +28,7 @@ import torch
 import chip_smoke as c
 from libdogleg_tpu_torch.native.loader import launch_target, load_library
 from libdogleg_tpu_torch.ops import bcsr_kernels as tk
-from libdogleg_tpu_torch.ops import tilechol
+from libdogleg_tpu_torch.ops import panelchol, tilechol
 
 
 def host_us(label, fn, reps=3000):
@@ -75,6 +78,13 @@ def main() -> None:
     host_us("solve_triangular (1756, 8, 8)",
             lambda: torch.linalg.solve_triangular(L.mT, C, upper=True,
                                                   left=False))
+    S = c.spd_tiles(128, 21, 2, torch.float32, dev)
+    host_us("K6 wrapper (21, 128, 128)", lambda: tilechol.tile_cholesky(S),
+            reps=300)
+    host_us("cholesky_ex (21, 128, 128)",
+            lambda: torch.linalg.cholesky_ex(S), reps=300)
+    W = c.spd_on_device(256, 1, 3, torch.float32, dev) * 256
+    host_us("K2 wrapper p=256", lambda: panelchol.panel_factor(W), reps=100)
     host_us("elementwise add of 8192 floats", lambda: v + v)
 
 

@@ -1,8 +1,10 @@
-// What the kernels' launchers share (tilechol.cu: K6, K7; batchchol.cu: K5;
-// bcsr.cu: K3, K4): the block size and the group of threads that works on
-// one matrix, 16-byte words, and the host-side work of a launch (selecting
-// the device, sizing dynamic shared memory), done once and remembered so
-// that a launch of a small kernel costs the host little more than the launch.
+// What the kernels' launchers share (panelchol.cu: K2; bcsr.cu: K3, K4;
+// batchchol.cu: K5; tilechol.cu: K6, K7; cholstage.cuh, the factorization
+// K2, K5 and K6 build on): the block size and the group of threads that
+// works on one matrix, 16-byte words, and the host-side work of a launch
+// (selecting the device, sizing dynamic shared memory), done once and
+// remembered so that a launch of a small kernel costs the host little more
+// than the launch.
 
 #pragma once
 
@@ -16,24 +18,16 @@ namespace {
 
 constexpr int THREADS = 256;
 
-// A group of G threads works on one matrix, GX of them along a row and
-// G / GX along the column: a warp for the small matrices (eight to a
-// block), the whole block for the others.
+// A group of G threads works on one matrix: a warp for the small matrices
+// (eight to a block), the whole block for the others.
 template <int G>
-struct Group;
-
-template <>
-struct Group<32> {
-  static constexpr int GX = 8;
-  __device__ static void sync() { __syncwarp(); }
-  __device__ static bool all(bool v) { return __all_sync(0xffffffffu, v); }
+struct Group {
+  __device__ static void sync() { __syncthreads(); }
 };
 
 template <>
-struct Group<THREADS> {
-  static constexpr int GX = 32;
-  __device__ static void sync() { __syncthreads(); }
-  __device__ static bool all(bool v) { return __syncthreads_and(v) != 0; }
+struct Group<32> {
+  __device__ static void sync() { __syncwarp(); }
 };
 
 __device__ __forceinline__ float rsqrt_(float x) { return rsqrtf(x); }
@@ -122,20 +116,6 @@ inline cudaError_t allow_shared(const void* kernel, int device, size_t bytes) {
                              static_cast<int>(bytes));
   if (err == cudaSuccess) have = bytes;
   return err;
-}
-
-// Dynamic shared memory: `per_tile` bytes for each of a block's matrices when
-// they fit in what a block may hold (in_smem = 1), else `fallback` bytes each.
-template <typename Kernel>
-cudaError_t shared_bytes(Kernel kernel, int device, int tiles_per_block,
-                         size_t per_tile, size_t fallback, size_t* bytes,
-                         int* in_smem) {
-  int optin = 0;
-  cudaError_t err = optin_shared(device, &optin);
-  if (err != cudaSuccess) return err;
-  *in_smem = tiles_per_block * per_tile <= static_cast<size_t>(optin);
-  *bytes = tiles_per_block * (*in_smem ? per_tile : fallback);
-  return allow_shared(reinterpret_cast<const void*>(kernel), device, *bytes);
 }
 
 }  // namespace

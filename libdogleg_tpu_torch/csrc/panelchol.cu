@@ -4,274 +4,278 @@
 // Replaces the TPU kernel libdogleg_tpu/ops/pallas_panelchol.py::panel_factor
 // (pallas_call at :157, kernel body _make_kernel at :90-136). Caller:
 // libdogleg_tpu_torch/ops/largechol.py::large_cholesky, once per 256-wide
-// diagonal block of the n > 256 dense factorization.
+// diagonal block of the n > 256 dense factorization (32 launches at
+// n = 8192, one panel each), which turns the rest of a panel step into two
+// matrix products with inv(L).
 //
-// What it computes, per instance: L lower-triangular with zeros above the
+// What it computes, per panel: L lower-triangular with zeros above the
 // diagonal, X = inv(L), and ok = every pivot d2 positive and finite. The
 // pivot rule is the TPU kernel's: d = sqrt(max(d2, tiny)) with tiny the
 // float32 tiny value in both precisions (pallas_panelchol.py:49,58), so a
-// failed pivot leaves ok = 0 and the escalating lambda retries.
+// failed pivot leaves ok = 0 and the escalating lambda retries. p is a
+// multiple of 16 up to 256; a NaN entry makes ok false and hangs nothing (no
+// loop depends on the data).
 //
-// Design. One thread block of 256 threads per instance; p <= 256, p % 16 == 0.
-// Phase 0 copies the lower triangle of W into L, which then serves as the
-// working matrix in device memory (at most 512 KB per instance, resident in
-// the 50 MB L2). Phase 1 is right-looking over 16-wide column panels: each
-// thread holds one row of the panel (p - j0 rows by 16) in registers and the
-// panel is factored column by column (pivot, scale, update of the panel's
-// later columns), then written back and staged in shared memory, and the
-// trailing lower triangle takes its rank-16 update in 64 x 64 tiles, each
-// thread a 4 x 4 register tile reading the panel from shared memory. Phase 2 builds X row block by row block (forward
-// substitution of L X = I): with the 16 rows of L staged in shared memory, the
-// thread of column c forms T = -L[I, :r0] X[:r0, c] for the block's 16 rows in
-// registers, then X[I, c] = inv(L_II) T, where the 16 threads of a warp invert
-// the 16 x 16 diagonal block by substitution. The whole panel never sits in
-// shared memory: the packed lower triangle of a 256-wide float64 panel is
-// 257 KB, above the 227 KB a block can hold. Static shared memory per block:
-// about 17.5 KB (float32), 35 KB (float64).
+// What bounds it on this card. Not the bytes (three p x p matrices, 0.79 MB
+// at p = 256 in float32, 0.24 us at 3.35 TB/s) and not the operations
+// (2 p^3 / 3, 0.17 us at the float32 rate), but two chains of dependent
+// steps: the p pivots of the factor, and the p / 16 row blocks of a
+// triangular inverse. The large solve factors one matrix, so a launch has
+// one panel and cannot hide either chain behind other panels.
 //
-// What bounds it: it is latency-bound on a single SM. The large solve
-// factors one matrix, so each launch is one block on 1 of 132 SMs, with two
-// block-wide barriers per column of phase 1 (512 per 256-wide panel), eight
-// warps to hide the latency of the L2-resident working matrix (hence the
-// unrolled loads), and the p^3/2 multiply-adds of both phases on that one
-// SM's floating-point units. On an H100 (700 W) it takes about 0.41 ms
-// (float32) at p = 256; timed with each phase compiled out, the inverse
-// (phase 2) is the largest part (about 40%), then the trailing update, then
-// the column steps. Filling the card needs several instances per launch or a
-// multi-block panel, which is later work.
+// Design: two kernels on the same stream, one wrapper call.
+//   1. panelchol_factor_kernel, one block per panel (512 threads in
+//      float32, 256 in float64):
+//      cholstage.cuh's blocked right-looking factorization (the first warp
+//      factors each 16x16 diagonal block in registers with shuffles, no
+//      barrier inside the 16 pivot steps; rows of the sub-panel solved in
+//      registers; the rank-16 update on 4x4 register tiles), with K2's pivot
+//      rule as the template parameter, the first warp factoring the next
+//      diagonal block beside the other warps' update: 2 barriers a
+//      sub-panel, 32 at p = 256, where a pivot loop across the block has
+//      512. The working
+//      copy sits in shared memory: whole rows where they fit (p <= 224 in
+//      float32, p <= 144 in float64), else the packed lower triangle (every
+//      p in float32, p <= 208 in float64), else it is L itself, in place,
+//      which stays in L2.
+//   2. panelchol_inverse_kernel, p / 16 blocks per panel: column c of
+//      inv(L) solves L x = e_c and needs no other column, so block cb owns
+//      columns [16 cb, 16 cb + 16) and starts at row 16 cb (X is
+//      lower-triangular). It first inverts the 16x16 diagonal blocks it will
+//      meet, all at once (16 threads a block, a thread a column), then goes
+//      left-looking over 16-row blocks I with its slab of X in shared
+//      memory: X[I, :] = inv(L_II) (E_I - L[I, <I] X[<I, :]). The product
+//      is split eight ways along its sum, a warp a part, a thread two rows
+//      and four columns of the 16x16 result, so that six 16-byte shared
+//      loads feed 32 multiply-adds; the rows of L arrive through cp.async
+//      one row block ahead. Three barriers a row block. Nothing of X is read back
+//      from device memory.
+//
+// On an H100 (700 W) at p = 256, alone: the factor kernel 93 us in float32
+// (217 us in float64), the inverse kernel 21 us (33 us); with the wrapper
+// 0.12 ms a call (0.25 ms), where the one-block kernel before took 0.41 ms.
+// Dense and mostly zero panels take the same time (cholstage.cuh's
+// quotient). What holds it back in turn (artifacts/
+// exp_torch_cholstage_variants.py has the split and the cycle counts): in
+// the factor, a stage's chain on one SM (a panel row's 16 dependent
+// divisions, then the next diagonal block's 16 pivots) and, in the early
+// stages, the update's 4x4 tiles, which 16 warps feed from shared memory
+// faster than it delivers; in the inverse, about 10000 cycles before the
+// first row block (the diagonal blocks' loads and inverses) and 1900 a row
+// block, half of it the product, which is a 16 x K x 16 one with little
+// reuse: shared memory delivers its operands to the registers no faster.
 //
 // Numerics: built without --use_fast_math, so sqrt and division are IEEE and
 // isfinite/isnan work. Products are plain float32 or float64 multiply-adds
 // (nvcc contracts them into FMA), never TF32.
 
-#include <cfloat>
-#include <cstddef>
-#include <cuda_runtime.h>
+#include <cuda_pipeline.h>
+
+#include "cholstage.cuh"
 
 namespace {
 
-constexpr int SUB = 16;             // column-panel width
-constexpr int MAX_P = 256;          // largest panel
-constexpr int LDP = MAX_P + 1;      // shared row stride (padding against bank conflicts)
-constexpr int THREADS = 256;        // one thread per column in phase 2
-constexpr int TILE = 64;            // trailing-update tile: 16 x 16 threads of 4 x 4
+constexpr int MAX_P = 256;  // largest panel
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-panelchol_kernel(const T* __restrict__ W, int p, T* __restrict__ Lg,
-                 T* __restrict__ Xg, int* __restrict__ ok_out) {
-  // Phase 1: the column panel, column-major: buf[c * LDP + r], r the row
-  // relative to j0. Phase 2: 16 rows of L, k-major: buf[k * SUB + r].
-  __shared__ __align__(16) T buf[SUB * LDP];
-  __shared__ T linv[SUB * SUB];
-  __shared__ T scaled[SUB];   // phase 1: column c of the diagonal block
-  __shared__ T piv;
-  __shared__ int ok_sh;
+__global__ void __launch_bounds__(lone_threads<T>, 1)
+panelchol_factor_kernel(const T* __restrict__ W, int p, T* __restrict__ Lg,
+                        bool* __restrict__ ok_out, int mode, int vec_in) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const size_t at = static_cast<size_t>(blockIdx.x) * p * p;
+  bool finite;  // not part of K2's ok
+  const bool good =
+      blocked_cholesky<T, lone_threads<T>, ClampedSqrtPivot, LOOK_AHEAD>(
+          W + at, p, Lg + at, reinterpret_cast<T*>(smem_raw), mode,
+          vec_in != 0, true, threadIdx.x, &finite);
+  if (threadIdx.x == 0) ok_out[blockIdx.x] = good;
+}
 
-  const int tid = threadIdx.x;
-  const size_t base = static_cast<size_t>(blockIdx.x) * p * p;
-  const T* A = W + base;
-  T* L = Lg + base;
-  T* X = Xg + base;
-  const T tiny = T(FLT_MIN);
+constexpr int SLICES = 8;         // the inverse's product: parts of the sum
+// The inverse: buffers for 16 rows of L, one being read and the others on
+// their way. Four (three row blocks ahead) were measured and are no faster.
+constexpr int AHEAD_ROWS = 2;
+constexpr int PS_LD = PANEL + 4;  // row stride of a part's 16x16 partial sums
 
-  // Phase 0: L = the lower triangle of W, one warp per row. The unrolled
-  // loop keeps a row's loads in flight together (this kernel runs 8 warps
-  // on one SM, too few to hide device-memory latency one load at a time).
-  const int lane = tid % 32, warp = tid / 32;
-  for (int i = warp; i < p; i += THREADS / 32) {
-#pragma unroll
-    for (int q = 0; q < MAX_P / 32; ++q) {
-      const int j = lane + 32 * q;
-      if (j < p) {
-        const size_t at = static_cast<size_t>(i) * p + j;
-        L[at] = j <= i ? A[at] : T(0);
-      }
-    }
-  }
-  if (tid == 0) ok_sh = 1;
-  __syncthreads();
-
-  // Phase 1: right-looking over 16-wide column panels.
-  for (int j0 = 0; j0 < p; j0 += SUB) {
-    const int m = p - j0;
-    T* Lp = L + static_cast<size_t>(j0) * p + j0;  // L[j0:, j0:]
-    // Factor the column panel; thread r owns row r of it in registers. At
-    // column c, thread c publishes the pivot, the owners of rows c+1..15
-    // publish their scaled entries of column c, and every row below takes
-    // its update: two barriers and one division per thread per column.
-    const int r = tid;
-    T v[SUB];
-#pragma unroll
-    for (int c = 0; c < SUB; ++c)
-      v[c] = r < m ? Lp[static_cast<size_t>(r) * p + c] : T(0);
-#pragma unroll
-    for (int c = 0; c < SUB; ++c) {
-      if (r == c) piv = v[c];
-      __syncthreads();
-      const T d2 = piv;
-      // max(d2, tiny) propagating NaN, as jnp.maximum does
-      const T d = sqrt(isnan(d2) || d2 > tiny ? d2 : tiny);
-      if (tid == 0 && !(d2 > T(0) && isfinite(d2))) ok_sh = 0;
-      if (r == c) {
-        v[c] = d;
-      } else if (r > c && r < m) {
-        v[c] /= d;
-        if (r < SUB) scaled[r] = v[c];
-      }
-      __syncthreads();
-      if (r > c && r < m) {
-#pragma unroll
-        for (int c2 = c + 1; c2 < SUB; ++c2)
-          if (r >= c2) v[c2] -= v[c] * scaled[c2];
-      }
-    }
-    if (r < m) {
-#pragma unroll
-      for (int c = 0; c < SUB; ++c) {
-        Lp[static_cast<size_t>(r) * p + c] = v[c];
-        buf[c * LDP + r] = v[c];
-      }
-    }
-    __syncthreads();
-    // Trailing update of the lower triangle of L[j0+16:, j0+16:].
-    const int nt = (m - SUB + TILE - 1) / TILE;
-    const int tx = tid % 16, ty = tid / 16;
-    for (int ti = 0; ti < nt; ++ti) {
-      for (int tj = 0; tj <= ti; ++tj) {
-        const int ib = SUB + ti * TILE + ty, jb = SUB + tj * TILE + tx;
-        // load the tile's entries first, so their latency overlaps the sums
-        T acc[4][4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-#pragma unroll
-          for (int l = 0; l < 4; ++l) {
-            const int ri = ib + 16 * k, cj = jb + 16 * l;
-            acc[k][l] = ri < m && cj <= ri ? Lp[static_cast<size_t>(ri) * p + cj] : T(0);
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < SUB; ++c) {
-          T a[4], b[4];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const int ri = ib + 16 * k, cj = jb + 16 * k;
-            a[k] = ri < m ? buf[c * LDP + ri] : T(0);
-            b[k] = cj < m ? buf[c * LDP + cj] : T(0);
-          }
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-#pragma unroll
-            for (int l = 0; l < 4; ++l) acc[k][l] -= a[k] * b[l];
-        }
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-#pragma unroll
-          for (int l = 0; l < 4; ++l) {
-            const int ri = ib + 16 * k, cj = jb + 16 * l;
-            if (ri < m && cj <= ri) Lp[static_cast<size_t>(ri) * p + cj] = acc[k][l];
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // Phase 2: X = inv(L), one 16-row block at a time.
-  const int c = tid;  // this thread's column
-  for (int r0 = 0; r0 < p; r0 += SUB) {
-    const int kw = r0 + SUB;  // columns of L the block's rows reach
-    for (int r = warp; r < SUB; r += THREADS / 32) {
-#pragma unroll
-      for (int q = 0; q < MAX_P / 32; ++q) {
-        const int k = lane + 32 * q;
-        if (k < kw) buf[k * SUB + r] = L[static_cast<size_t>(r0 + r) * p + k];
-      }
-    }
-    __syncthreads();
-    if (tid < SUB) {
-      // column t of inv(L_II) by forward substitution
-      const int t = tid;
-      T x[SUB];
-#pragma unroll
-      for (int r = 0; r < SUB; ++r) {
-        if (r < t) {
-          x[r] = T(0);
-        } else if (r == t) {
-          x[r] = T(1) / buf[(r0 + r) * SUB + r];
-        } else {
-          T s = T(0);
-#pragma unroll
-          for (int k = 0; k < r; ++k)
-            if (k >= t) s += buf[(r0 + k) * SUB + r] * x[k];
-          x[r] = -s / buf[(r0 + r) * SUB + r];
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < SUB; ++r) linv[r * SUB + t] = x[r];
-    }
-    // T[r] = -sum_k L[r0 + r, k] X[k, c] over k < r0. X[k, c] is zero for
-    // k < c, so the loop starts at the warp's first column: every lane of a
-    // warp runs the same trip count.
-    T acc[SUB] = {};
-    if (c < r0) {
-      // unrolled so that several rows of X are loaded at once
-#pragma unroll 8
-      for (int k = c & ~31; k < r0; ++k) {
-        const T xk = X[static_cast<size_t>(k) * p + c];
-#pragma unroll
-        for (int r = 0; r < SUB; ++r) acc[r] += buf[k * SUB + r] * xk;
-      }
-    }
-    __syncthreads();  // linv is ready
-    if (c < p) {
-      T out[SUB];
-#pragma unroll
-      for (int r = 0; r < SUB; ++r) {
-        if (c < r0) {
-          T s = T(0);
-#pragma unroll
-          for (int j = 0; j <= r; ++j) s -= linv[r * SUB + j] * acc[j];
-          out[r] = s;
-        } else if (c < kw) {
-          out[r] = linv[r * SUB + (c - r0)];
-        } else {
-          out[r] = T(0);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < SUB; ++r) X[static_cast<size_t>(r0 + r) * p + c] = out[r];
-    }
-    __syncthreads();  // the next block reads these rows of X and reuses buf
-  }
-  if (tid == 0) ok_out[blockIdx.x] = ok_sh;
+// Elements of shared memory of the inverse kernel: the slab of X, the
+// buffers of 16 rows of L, the partial sums, the 16x16 right-hand side and
+// the inverted diagonal blocks.
+inline size_t inverse_elems(int p) {
+  return static_cast<size_t>(p) * PANEL + AHEAD_ROWS * PANEL * (p + 4) +
+         SLICES * PANEL * PS_LD + DK_SIZE +
+         static_cast<size_t>(p / PANEL) * DK_SIZE;
 }
 
 template <typename T>
-static int launch(const void* W, int B, int p, void* L, void* X, void* ok,
-                  int device, void* stream) {
+__global__ void __launch_bounds__(THREADS)
+panelchol_inverse_kernel(const T* __restrict__ Lg, int p,
+                         T* __restrict__ Xg) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  static_assert(THREADS == PANEL * PANEL && THREADS == 32 * SLICES,
+                "a thread an entry of a 16x16 block; a warp a part");
+  constexpr int V = Word<T>::N;
+  const int t = threadIdx.x, r = t / PANEL, c = t % PANEL;
+  const int c0 = blockIdx.y * PANEL;  // first column, and row, of the slab
+  const int nb = (p - c0) / PANEL;    // row blocks the slab reaches
+  const size_t base = static_cast<size_t>(blockIdx.x) * p * p;
+  const T* L = Lg + base;
+  T* X = Xg + base;
+  const int lrld = p + 4;
+  T* Ys = reinterpret_cast<T*>(smem_raw);  // (p - c0, 16): the slab of X
+  T* Lr = Ys + p * PANEL;                  // AHEAD_ROWS buffers of (16, lrld)
+  T* Ps = Lr + AHEAD_ROWS * PANEL * lrld;  // SLICES parts of (16, PS_LD)
+  T* Ts = Ps + SLICES * PANEL * PS_LD;     // (16, DK_LD)
+  T* Di = Ts + DK_SIZE;                    // nb blocks of (16, DK_LD)
+
+  // rows of row block ib of L, columns c0 .. c0 + 16 ib, on their way into
+  // buffer ib % AHEAD_ROWS, as the ib-th group of copies (an empty group
+  // beyond the last row block keeps the count)
+  // (16 threads a row, a 16-byte word each at a time)
+  auto stage = [&](int ib) {
+    const int nw = ib < nb ? ib * PANEL / V : 0;  // 16-byte words a row
+    T* dst = Lr + (ib % AHEAD_ROWS * PANEL + r) * lrld;
+    const T* src = L + static_cast<size_t>(c0 + ib * PANEL + r) * p + c0;
+    for (int w = c; w < nw; w += PANEL)
+      __pipeline_memcpy_async(dst + w * V, src + w * V, 16);
+    __pipeline_commit();
+  };
+  for (int ib = 1; ib < AHEAD_ROWS - 1; ++ib) stage(ib);
+
+  // the diagonal blocks the slab meets, inverted all at once: block r by
+  // the 16 threads with that r, thread c its column c by forward
+  // substitution in registers
+  // (thread (r, c) fetches entry (r, c) of every block, all loads in flight)
+  {
+    T v[MAX_P / PANEL];
+#pragma unroll
+    for (int q = 0; q < MAX_P / PANEL; ++q) {
+      const int d0 = c0 + q * PANEL;
+      if (q < nb) v[q] = L[static_cast<size_t>(d0 + r) * p + d0 + c];
+    }
+#pragma unroll
+    for (int q = 0; q < MAX_P / PANEL; ++q)
+      if (q < nb) Di[q * DK_SIZE + r * DK_LD + c] = v[q];
+  }
+  __syncthreads();
+  T x[PANEL];
+  if (r < nb) {
+    const T* D = Di + r * DK_SIZE;
+#pragma unroll
+    for (int i = 0; i < PANEL; ++i) {
+      if (i < c) {
+        x[i] = T(0);
+      } else if (i == c) {
+        x[i] = T(1) / D[i * DK_LD + i];
+      } else {
+        T s = T(0);
+#pragma unroll
+        for (int k = 0; k < i; ++k)
+          if (k >= c) s += D[i * DK_LD + k] * x[k];
+        x[i] = quotient(-s, D[i * DK_LD + i]);
+      }
+    }
+  }
+  __syncthreads();  // every block has been read
+  if (r < nb) {
+#pragma unroll
+    for (int i = 0; i < PANEL; ++i) Di[r * DK_SIZE + i * DK_LD + c] = x[i];
+  }
+  __syncthreads();
+
+  for (int ib = 0; ib < nb; ++ib) {
+    const int kw = ib * PANEL;  // rows of the slab above this block
+    stage(ib + AHEAD_ROWS - 1);  // into the buffer the last turn read
+    const T* Dq = Di + ib * DK_SIZE;
+    T out;
+    if (ib == 0) {
+      out = Dq[r * DK_LD + c];  // inv(L_II) E_I
+    } else {
+      // the rows of this block have landed (awaited at the end of the last
+      // turn). T = -L[I, <I] X[<I, :]: a warp a part of the sum (every
+      // eighth group of four terms), a thread two rows and four columns of
+      // T, so that six 16-byte loads feed 32 multiply-adds
+      const int part = t / 32, pr = t % 32 / 4, pc = t % 4 * 4;
+      const T* lrow = Lr + (ib % AHEAD_ROWS * PANEL + pr) * lrld;
+      Quad<T> lo = {}, hi = {};  // rows pr and pr + 8
+      for (int k = 4 * part; k < kw; k += 4 * SLICES) {
+        const Quad<T> llo = load4(lrow + k);
+        const Quad<T> lhi = load4(lrow + PANEL / 2 * lrld + k);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const Quad<T> yq = load4(Ys + (k + i) * PANEL + pc);
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            lo.v[v] += llo.v[i] * yq.v[v];
+            hi.v[v] += lhi.v[i] * yq.v[v];
+          }
+        }
+      }
+      store4(Ps + (part * PANEL + pr) * PS_LD + pc, lo);
+      store4(Ps + (part * PANEL + pr + PANEL / 2) * PS_LD + pc, hi);
+      __syncthreads();
+      T sum = T(0);
+#pragma unroll
+      for (int q = 0; q < SLICES; ++q)
+        sum += Ps[(q * PANEL + r) * PS_LD + c];
+      Ts[r * DK_LD + c] = -sum;
+      __syncthreads();
+      out = T(0);
+#pragma unroll
+      for (int j = 0; j < PANEL; ++j)
+        if (j <= r) out += Dq[r * DK_LD + j] * Ts[j * DK_LD + c];
+    }
+    Ys[(kw + r) * PANEL + c] = out;
+    __pipeline_wait_prior(AHEAD_ROWS - 2);  // row block ib + 1 has landed
+    __syncthreads();  // the slab's new rows, and the next rows of L
+  }
+
+  for (int row = r; row < p; row += THREADS / PANEL)
+    X[static_cast<size_t>(row) * p + c0 + c] =
+        row < c0 ? T(0) : Ys[(row - c0) * PANEL + c];
+}
+
+template <typename T>
+int panelchol(const void* W, int B, int p, void* L, void* X, void* ok,
+              int device, void* stream) {
   if (B <= 0) return 0;
-  if (p <= 0 || p > MAX_P || p % SUB) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  if (p <= 0 || p > MAX_P || p % PANEL || !aligned16(L))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  panelchol_kernel<T><<<B, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(W), p, static_cast<T*>(L), static_cast<T*>(X),
-      static_cast<int*>(ok));
+  size_t bytes = 0;
+  int mode = 0;
+  err = chol_work_mode<T>(panelchol_factor_kernel<T>, device, 1, p, true,
+                          &bytes, &mode);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t inv_bytes = inverse_elems(p) * sizeof(T);
+  err = allow_shared(
+      reinterpret_cast<const void*>(panelchol_inverse_kernel<T>), device,
+      inv_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  panelchol_factor_kernel<T><<<B, lone_threads<T>, bytes, s>>>(
+      static_cast<const T*>(W), p, static_cast<T*>(L), static_cast<bool*>(ok),
+      mode, aligned16(W));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  panelchol_inverse_kernel<T><<<dim3(B, p / PANEL), THREADS, inv_bytes, s>>>(
+      static_cast<const T*>(L), p, static_cast<T*>(X));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// C entry points: W, L, X are (B, p, p) row-major, ok is (B,) int32. Launch
-// on `stream` without synchronizing; return the cudaError_t of the launch.
+// C entry points: W, L, X are (B, p, p) row-major, ok is (B,) bool, one
+// byte each. Launch both kernels on `stream` without synchronizing; return
+// the cudaError_t of the first launch that failed.
 extern "C" int dogleg_panelchol_f32(const void* W, int B, int p, void* L,
                                     void* X, void* ok, int device,
                                     void* stream) {
-  return launch<float>(W, B, p, L, X, ok, device, stream);
+  return panelchol<float>(W, B, p, L, X, ok, device, stream);
 }
 
 extern "C" int dogleg_panelchol_f64(const void* W, int B, int p, void* L,
                                     void* X, void* ok, int device,
                                     void* stream) {
-  return launch<double>(W, B, p, L, X, ok, device, stream);
+  return panelchol<double>(W, B, p, L, X, ok, device, stream);
 }

@@ -12,24 +12,56 @@
 // tiles (supernodal path, a few dozen per level).
 //
 // What they compute. K6: L lower-triangular with zeros above the diagonal,
-// right-looking by columns with the TPU kernel's pivot rule, L_jj = d *
-// rsqrt(d) and L_ij = a_ij * rsqrt(d), unclamped, so a non-SPD tile leaves
-// NaN or a non-positive diagonal; ok = every pivot d > 0 and finite and every
-// entry of L finite. K7: x_j = (c_j - sum_{l<j} D_jl x_l) / D_jj for each row
-// of C, D (k, n, n), C and X (k, m, n). The quotient is a true division. Any
-// 1 <= n <= 256 and m >= 1, float32 and float64; NaN inputs flow through
-// without hanging anything (no loop depends on the data), and since the rows
-// of X are independent a NaN in C stays in its own row.
+// with the TPU kernel's pivot rule, L_jj = d * rsqrt(d) and L_ij = a_ij *
+// rsqrt(d), unclamped, so a non-SPD tile leaves NaN or a non-positive
+// diagonal; ok = every pivot d > 0 and finite and every entry of L finite.
+// K7: x_j = (c_j - sum_{l<j} D_jl x_l) / D_jj for each row of C, D (k, n, n),
+// C and X (k, m, n). The quotient is a true division. Any 1 <= n <= 256 and
+// m >= 1, float32 and float64; NaN inputs flow through without hanging
+// anything (no loop depends on the data): a tile that is not SPD spoils its
+// own L and no other, and since the rows of X are independent a NaN in C
+// stays in its own row.
 //
-// K6's design. A group of threads works on one tile: one warp for n <= 32
-// (eight tiles per 256-thread block), the whole block for n > 32. The working
-// tile sits in shared memory with a padded row stride (n + 1) when the
-// block's tiles fit in what a block may hold (227 KB on an H100: a 128x128
-// tile is 66 KB in float32 and 132 KB in float64); otherwise, as for 256x256,
-// it is worked on in place in the output in device memory, L2-resident. Each
-// column step stages the scaled column in a shared vector, so the trailing
-// update reads rows contiguously: two barriers per column. What bounds it:
-// latency, a tile's n column steps are sequential.
+// What bounds K6 on this card. Not the bytes ((21, 128, 128) float32 moves
+// 2.75 MB, 0.82 us at 3.35 TB/s) and not the operations (n^3 / 3 a tile,
+// 0.2 us for that batch at the float32 rate), but the chain: the n pivots of
+// a tile depend on one another, and a supernodal level has a few dozen tiles
+// at most, one block each, so nothing hides a block's chain. The TPU
+// kernel's loop over columns, carried over, paid two block-wide barriers a
+// column and fed every multiply-add from shared memory (168 us at (21, 128,
+// 128) float32 on an H100, 700 W, 1.4 us a column).
+//
+// K6's design, n > 32 (the supernodal super tiles): a block per tile (512
+// threads in float32, 256 in float64) runs cholstage.cuh's blocked
+// right-looking factorization in 16-wide panels, the one K5 and K2 run: the
+// first warp factors the 16x16 diagonal block in registers with shuffles,
+// every thread solves a row of the panel below in registers, and the
+// trailing triangle takes its rank-16 update on 4x4 register tiles fed by
+// 16-byte shared loads: two barriers a panel, 16 at n = 128 where the
+// column loop had 256. A tile whose n is no
+// multiple of 16 is padded in shared memory with an identity diagonal
+// (exact), and rows that are not whole aligned 16-byte words are copied by
+// elements. The working copy: whole rows in shared memory where they fit
+// (n <= 224 in float32, n <= 144 in float64), else the packed lower triangle
+// in shared memory (every n in float32, n <= 208 in float64), else in place
+// in the output, which stays in L2; only whole panels work in place, so the
+// wrapper pads such a tile first (dogleg_tilechol_in_shared tells it).
+// The same block looks ahead: its first warp factors the next diagonal block
+// beside the other warps' update. On an H100 (700 W), float32, alone: 26 us
+// at (21, 128, 128), dense or mostly zero alike (the divisions go through
+// cholstage.cuh's quotient), 79 us at (21, 256, 256); with its wrapper it is
+// several times faster than torch.linalg.cholesky_ex there. What holds it
+// back in turn: a stage's chain (the 16 dependent divisions of a panel row,
+// about 2100 cycles, then a tile and the 16 pivots of the next diagonal
+// block, about 3400) on a card of which 21 tiles use a sixth. A cluster of
+// blocks per tile would divide only the update beyond the next diagonal
+// block, a ninth of the time at n = 128
+// (artifacts/exp_torch_cholstage_variants.py).
+//
+// K6's design, n <= 32 (the simplicial 8x8 tiles, hundreds to a launch): a
+// warp per tile, eight tiles per block, right-looking by columns on a copy
+// in shared memory; the kernel is a few microseconds and its wrapper's host
+// work several times that.
 //
 // What bounds K7 on this card. Not the bytes ((68, 128, 128) float32 moves
 // 11 MB, D's lower triangles, C and X, 3.3 us at 3.35 TB/s) and not the
@@ -76,7 +108,7 @@
 
 #include <cuda_pipeline.h>
 
-#include "group.cuh"
+#include "cholstage.cuh"
 
 namespace {
 
@@ -85,35 +117,31 @@ constexpr int TS_THREADS = 128;  // K7, n > 32: threads of a block
 constexpr int JB = 16;           // K7, n > 32: width of a column block
 constexpr int ROW_THREADS = 64;  // K7, n <= 32: threads, and rows, of a block
 
-template <typename T, int G>
+// K6 for n <= 32: a warp per tile, eight tiles per block, right-looking by
+// columns. The working tile sits in shared memory with a row stride of
+// n + 1; each column step stages the scaled column in a shared vector, so
+// the trailing update reads rows contiguously.
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-tilechol_kernel(const T* __restrict__ A, int k, int n, T* __restrict__ Lg,
-                int* __restrict__ ok_out, int in_smem) {
+tilechol_warp_kernel(const T* __restrict__ A, int k, int n,
+                     T* __restrict__ Lg, bool* __restrict__ ok_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int GX = Group<G>::GX, GY = G / GX;
-  const int g = threadIdx.x / G, t = threadIdx.x % G;
+  constexpr int GX = 8, GY = 4;  // lanes along a row, along the column
+  const int g = threadIdx.x / 32, t = threadIdx.x % 32;
   const int tx = t % GX, ty = t / GX;
-  const size_t tile = static_cast<size_t>(blockIdx.x) * (THREADS / G) + g;
-  if (tile >= static_cast<size_t>(k)) return;  // whole groups only
+  const size_t tile = static_cast<size_t>(blockIdx.x) * (THREADS / 32) + g;
+  if (tile >= static_cast<size_t>(k)) return;  // whole warps only
 
   const size_t nn = static_cast<size_t>(n) * n;
   const T* a = A + tile * nn;
   T* l = Lg + tile * nn;
-  const int ld = in_smem ? n + 1 : n;
-  T* col = reinterpret_cast<T*>(smem_raw) +
-           g * ((in_smem ? static_cast<size_t>(n) * ld : 0) + n);
-  T* W = in_smem ? col + n : l;  // the working tile, lower triangle
+  const int ld = n + 1;
+  T* col = reinterpret_cast<T*>(smem_raw) + g * (n * ld + n);
+  T* W = col + n;  // the working tile, lower triangle
 
   for (int i = ty; i < n; i += GY)
-    for (int c = tx; c < n; c += GX) {
-      const T v = a[static_cast<size_t>(i) * n + c];
-      if (in_smem) {
-        if (c <= i) W[i * ld + c] = v;
-      } else {
-        l[static_cast<size_t>(i) * n + c] = c <= i ? v : T(0);
-      }
-    }
-  Group<G>::sync();
+    for (int c = tx; c <= i; c += GX) W[i * ld + c] = a[i * n + c];
+  __syncwarp();
 
   bool good = true;  // every pivot so far positive and finite
   for (int j = 0; j < n; ++j) {
@@ -121,9 +149,9 @@ tilechol_kernel(const T* __restrict__ A, int k, int n, T* __restrict__ Lg,
     const T inv = rsqrt_(d);
     good = good && d > T(0) && isfinite(d);
     // column j of L, staged; W is not written in this phase
-    for (int i = j + t; i < n; i += G)
+    for (int i = j + t; i < n; i += 32)
       col[i] = i == j ? d * inv : W[i * ld + j] * inv;
-    Group<G>::sync();
+    __syncwarp();
     if (t == 0) W[j * ld + j] = col[j];
     for (int i = j + 1 + ty; i < n; i += GY) {
       const T ci = col[i];
@@ -131,7 +159,7 @@ tilechol_kernel(const T* __restrict__ A, int k, int n, T* __restrict__ Lg,
       if (tx == 0) row[j] = ci;
       for (int c = j + 1 + tx; c <= i; c += GX) row[c] -= ci * col[c];
     }
-    Group<G>::sync();
+    __syncwarp();
   }
 
   bool fin = true;
@@ -139,10 +167,28 @@ tilechol_kernel(const T* __restrict__ A, int k, int n, T* __restrict__ Lg,
     for (int c = tx; c < n; c += GX) {
       const T v = c <= i ? W[i * ld + c] : T(0);
       fin = fin && isfinite(v);
-      if (in_smem) l[static_cast<size_t>(i) * n + c] = v;
+      l[i * n + c] = v;
     }
-  const bool all_fin = Group<G>::all(fin);
+  const bool all_fin = __all_sync(0xffffffffu, fin);
   if (t == 0) ok_out[tile] = good && all_fin;
+}
+
+// K6 for n > 32: a block per tile, cholstage.cuh's blocked factorization
+// with the unclamped pivot rule; see the note at the head of this file.
+template <typename T>
+__global__ void __launch_bounds__(lone_threads<T>, 1)
+tilechol_blocked_kernel(const T* __restrict__ A, int n, T* __restrict__ Lg,
+                        bool* __restrict__ ok_out, int mode, int vec_in,
+                        int vec_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const size_t at = static_cast<size_t>(blockIdx.x) * n * n;
+  bool fin;
+  const bool good =
+      blocked_cholesky<T, lone_threads<T>, RsqrtPivot, LOOK_AHEAD>(
+          A + at, n, Lg + at, reinterpret_cast<T*>(smem_raw), mode,
+          vec_in != 0, vec_out != 0, threadIdx.x, &fin);
+  const bool all_fin = __syncthreads_and(fin) != 0;
+  if (threadIdx.x == 0) ok_out[blockIdx.x] = good && all_fin;
 }
 
 // K7's staging: rows [row0, row0 + nrows) and columns [0, ncols) of a
@@ -334,21 +380,53 @@ trisolve_rows_kernel(const T* __restrict__ D, const T* __restrict__ C, int k,
     if (c < n) X[row + c] = x[c];
 }
 
-template <typename T, int G>
-int launch_chol(const void* A, int k, int n, void* L, void* ok, int device,
-                void* stream) {
-  constexpr int TPB = THREADS / G;
-  size_t bytes = 0;
-  int in_smem = 0;
-  cudaError_t err = shared_bytes(
-      tilechol_kernel<T, G>, device, TPB,
-      (static_cast<size_t>(n) * (n + 1) + n) * sizeof(T), n * sizeof(T),
-      &bytes, &in_smem);
+template <typename T>
+int launch_chol_warp(const void* A, int k, int n, void* L, void* ok,
+                     int device, void* stream) {
+  constexpr int TPB = THREADS / 32;
+  // at most 8 x (32 x 33 + 32) elements: 68 KB in float64
+  const size_t bytes =
+      TPB * (static_cast<size_t>(n) * (n + 1) + n) * sizeof(T);
+  cudaError_t err = allow_shared(
+      reinterpret_cast<const void*>(tilechol_warp_kernel<T>), device, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  tilechol_kernel<T, G><<<(k + TPB - 1) / TPB, THREADS, bytes,
-                          static_cast<cudaStream_t>(stream)>>>(
+  tilechol_warp_kernel<T><<<(k + TPB - 1) / TPB, THREADS, bytes,
+                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(A), k, n, static_cast<T*>(L),
-      static_cast<int*>(ok), in_smem);
+      static_cast<bool*>(ok));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Whether the blocked kernel's working copy of an n-wide tile, padded to a
+// multiple of 16, fits in the shared memory a block may hold on `device`.
+template <typename T>
+cudaError_t blocked_in_shared(int n, int device, int* fits) {
+  const int npad = (n + PANEL - 1) / PANEL * PANEL;
+  int optin = 0;
+  cudaError_t err = optin_shared(device, &optin);
+  *fits = chol_work_elems(npad, PACKED) * sizeof(T) <=
+          static_cast<size_t>(optin);
+  return err;
+}
+
+template <typename T>
+int launch_chol_blocked(const void* A, int k, int n, void* L, void* ok,
+                        int device, void* stream) {
+  const int npad = (n + PANEL - 1) / PANEL * PANEL;
+  size_t bytes = 0;
+  int mode = 0;
+  cudaError_t err = chol_work_mode<T>(tilechol_blocked_kernel<T>, device, 1,
+                                      npad, true, &bytes, &mode);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec_in = n % 4 == 0 && aligned16(A);
+  const int vec_out = n % 4 == 0 && aligned16(L);
+  // in place in L: whole panels and aligned rows only (the wrapper pads)
+  if (mode == IN_PLACE && !(n == npad && vec_out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  tilechol_blocked_kernel<T><<<k, lone_threads<T>, bytes,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(A), n, static_cast<T*>(L), static_cast<bool*>(ok),
+      mode, vec_in, vec_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -399,8 +477,8 @@ int tilechol(const void* A, int k, int n, void* L, void* ok, int device,
   if (n <= 0 || n > MAX_N) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return n <= 32 ? launch_chol<T, 32>(A, k, n, L, ok, device, stream)
-                 : launch_chol<T, THREADS>(A, k, n, L, ok, device, stream);
+  return n <= 32 ? launch_chol_warp<T>(A, k, n, L, ok, device, stream)
+                 : launch_chol_blocked<T>(A, k, n, L, ok, device, stream);
 }
 
 template <typename T>
@@ -419,9 +497,9 @@ int trisolve(const void* D, const void* C, int k, int n, int m, void* X,
 
 }  // namespace
 
-// C entry points. A, L are (k, n, n) row-major and ok is (k,) int32 (K6); D
-// is (k, n, n), C and X (k, m, n) row-major (K7). Launch on `stream` without
-// synchronizing; return the cudaError_t of the launch.
+// C entry points. A, L are (k, n, n) row-major and ok is (k,) bool, one byte
+// each (K6); D is (k, n, n), C and X (k, m, n) row-major (K7). Launch on
+// `stream` without synchronizing; return the cudaError_t of the launch.
 extern "C" int dogleg_tilechol_f32(const void* A, int k, int n, void* L,
                                    void* ok, int device, void* stream) {
   return tilechol<float>(A, k, n, L, ok, device, stream);
@@ -442,4 +520,16 @@ extern "C" int dogleg_trisolve_right_f64(const void* D, const void* C, int k,
                                          int n, int m, void* X, int device,
                                          void* stream) {
   return trisolve<double>(D, C, k, n, m, X, device, stream);
+}
+
+// Whether K6 works an n-wide tile of `elt_size`-byte elements in shared
+// memory on `device` (1) or in place in its output (0), which it does only
+// for n a multiple of 16; a negative value is minus a cudaError_t.
+extern "C" int dogleg_tilechol_in_shared(int n, int elt_size, int device) {
+  if (n <= 32) return 1;
+  int fits = 0;
+  const cudaError_t err = elt_size == 4
+                              ? blocked_in_shared<float>(n, device, &fits)
+                              : blocked_in_shared<double>(n, device, &fits);
+  return err == cudaSuccess ? fits : -static_cast<int>(err);
 }

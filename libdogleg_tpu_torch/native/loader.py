@@ -140,6 +140,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, f"dogleg_trisolve_right_{dt}")
         fn.argtypes = [ptr, ptr, i32, i32, i32, ptr, i32, ptr]
         fn.restype = i32
+    # n, element size in bytes, device
+    lib.dogleg_tilechol_in_shared.argtypes = [i32, i32, i32]
+    lib.dogleg_tilechol_in_shared.restype = i32
     return lib
 
 

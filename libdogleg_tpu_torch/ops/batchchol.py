@@ -26,11 +26,11 @@ MAX_N = 256
 launch_count = 0
 
 
-def pad_to_block(A: torch.Tensor) -> torch.Tensor:
-    """Pad (..., n, n) to the next multiple of BLOCK with an identity
+def pad_to_block(A: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
+    """Pad (..., n, n) to the next multiple of `block` with an identity
     diagonal block: [[A, 0], [0, I]] factors as [[L, 0], [0, I]]."""
     n = A.shape[-1]
-    npad = (-n) % BLOCK
+    npad = (-n) % block
     if npad == 0:
         return A
     W = torch.zeros(A.shape[:-2] + (n + npad, n + npad), dtype=A.dtype,
@@ -54,18 +54,18 @@ def _trsm_right_lt(P: torch.Tensor, Lkk: torch.Tensor) -> torch.Tensor:
     return torch.stack(X, dim=-1)
 
 
-def batched_blocked_cholesky_reference(A: torch.Tensor):
+def batched_blocked_cholesky_reference(A: torch.Tensor, block: int = BLOCK):
     """K5's plain version: the right-looking blocked Cholesky of (..., n, n)
-    in BLOCK-wide panels (padded internally to a multiple of BLOCK): the
-    unrolled diagonal Cholesky of ops/smallchol.py, an unrolled triangular
-    solve of the panel below it, and the trailing update as one batched
-    matrix product. Returns (L, ok), the contract of
-    smallchol.small_cholesky."""
+    in `block`-wide panels (padded internally to a multiple of `block`, the
+    kernel's 16 unless told otherwise): the unrolled diagonal Cholesky of
+    ops/smallchol.py, an unrolled triangular solve of the panel below it,
+    and the trailing update as one batched matrix product. Returns (L, ok),
+    the contract of smallchol.small_cholesky."""
     n = A.shape[-1]
-    b = BLOCK
+    b = block
     if n <= b:
         return smallchol.small_cholesky(A)
-    W = pad_to_block(A)
+    W = pad_to_block(A, b)
     npad = W.shape[-1]
     L = torch.zeros_like(W)
     ok = None

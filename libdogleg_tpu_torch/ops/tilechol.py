@@ -15,9 +15,11 @@ the kernel or raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from libdogleg_tpu_torch.ops import smallchol
+from libdogleg_tpu_torch.ops import batchchol, smallchol
 
 # Largest tile the kernels take (csrc/tilechol.cu MAX_N).
 MAX_N = 256
@@ -61,12 +63,38 @@ def tile_cholesky_reference(blocks: torch.Tensor):
     return L, ok
 
 
+def tile_cholesky_blocked_reference(blocks: torch.Tensor, block: int = 16):
+    """K6's algorithm for tiles wider than 32 in plain PyTorch, for the
+    tests: the tile padded to a multiple of `block` with an identity
+    diagonal, right-looking over `block`-wide panels (the diagonal block by
+    K6's pivot rule, the panel below solved against it with a true division,
+    the trailing block's rank-`block` update), and K6's ok: every pivot
+    positive and finite and every entry of L finite."""
+    L, ok = batchchol.batched_blocked_cholesky_reference(blocks, block)
+    return L, ok & torch.isfinite(L).all(-1).all(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _works_in_shared(n: int, itemsize: int, index: int) -> bool:
+    """Whether K6 holds an n-wide tile in shared memory on card `index`;
+    otherwise it works in place in its output, which it can only for n a
+    multiple of 16 (csrc/tilechol.cu, launch_chol_blocked)."""
+    from libdogleg_tpu_torch.native.loader import load_library
+    fits = load_library().dogleg_tilechol_in_shared(n, itemsize, index)
+    if fits < 0:
+        raise RuntimeError(f"dogleg_tilechol_in_shared failed: cudaError_t "
+                           f"{-fits}")
+    return bool(fits)
+
+
 def tile_cholesky(blocks: torch.Tensor):
     """Cholesky of (k, n, n) SPD tiles, 1 <= n <= 256. Returns (L, ok): L
     lower-triangular with zeros above the diagonal; ok (k,) bool, every
     pivot positive and finite and every entry of L finite. The pivot rule
     is L_jj = d * rsqrt(d), unclamped, so a non-SPD tile leaves NaN or a
-    non-positive diagonal. CUDA tensors go to kernel K6, CPU tensors to
+    non-positive diagonal. CUDA tensors go to kernel K6 (a tile too large
+    for shared memory whose n is no multiple of 16 is padded to one with an
+    identity block first, which the result drops again), CPU tensors to
     tile_cholesky_reference."""
     _check_square("blocks", blocks)
     if blocks.device.type == "cpu":
@@ -75,14 +103,17 @@ def tile_cholesky(blocks: torch.Tensor):
         raise ValueError(f"no kernel for device {blocks.device}")
     k, n = blocks.shape[0], blocks.shape[-1]
     A = blocks.contiguous()
+    if n % batchchol.BLOCK and not _works_in_shared(
+            n, A.element_size(), A.device.index or 0):
+        A = batchchol.pad_to_block(A)
     L = torch.empty_like(A)
-    ok = torch.empty(k, dtype=torch.int32, device=A.device)
+    ok = torch.empty(k, dtype=torch.bool, device=A.device)
     if k:
         dt = "f32" if A.dtype == torch.float32 else "f64"
-        _launch(f"dogleg_tilechol_{dt}", A.device, A.data_ptr(), k, n,
-                L.data_ptr(), ok.data_ptr())
+        _launch(f"dogleg_tilechol_{dt}", A.device, A.data_ptr(), k,
+                A.shape[-1], L.data_ptr(), ok.data_ptr())
         launch_counts["tile_cholesky"] += 1
-    return L, ok != 0
+    return (L if A.shape[-1] == n else L[:, :n, :n].contiguous()), ok
 
 
 def tri_solve_right_reference(D: torch.Tensor, C: torch.Tensor):

@@ -87,10 +87,11 @@ def _spd(n, rng, batch=()):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
                                        (torch.float32, 2e-4)])
-@pytest.mark.parametrize("p", [16, 64, 256])
+@pytest.mark.parametrize("p", [16, 32, 64, 128, 240, 256])
 def test_panel_kernel_matches_twin(cuda, p, dtype, tol):
     """K2 against its twin on the card: L and inv(L) within tol relative to
-    their largest entry, ok identical, and a negative pivot caught."""
+    their largest entry, L inv(L) the identity, zeros above both diagonals,
+    ok identical, and a negative pivot caught."""
     from libdogleg_tpu_torch.ops import panelchol
     rng = np.random.default_rng(p)
     W = _spd(p, rng, batch=(3,))
@@ -101,11 +102,58 @@ def test_panel_kernel_matches_twin(cuda, p, dtype, tol):
     torch.cuda.synchronize()
     assert panelchol.launch_count == before + 1
     Lr, Linvr, okr = panelchol.panel_factor_reference(Wt)
+    assert ok.dtype == torch.bool
     assert ok.tolist() == okr.tolist() == [True, True, False]
     for got, want in ((L, Lr), (Linv, Linvr)):
         err = (got[:2] - want[:2]).abs().max() / want[:2].abs().max()
         assert float(err) < tol
+    eye = torch.eye(p, dtype=dtype, device=cuda)
+    assert float((L[:2] @ Linv[:2] - eye).abs().max()) < tol
     assert bool((torch.triu(L, 1) == 0).all())
+    assert bool((torch.triu(Linv[:2], 1) == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 2e-4)])
+def test_panel_kernel_batch_with_a_nan_entry(cuda, dtype, tol):
+    """A batch of 8 panels at p = 256, one with a NaN entry: ok False for
+    that one only, from the kernel and the twin, nothing hangs, and the
+    other panels within tol."""
+    from libdogleg_tpu_torch.ops import panelchol
+    W = _spd(256, np.random.default_rng(8), batch=(8,))
+    W[5, 200, 3] = W[5, 3, 200] = np.nan
+    Wt = torch.as_tensor(W, dtype=dtype, device=cuda)
+    L, Linv, ok = panelchol.panel_factor(Wt)
+    torch.cuda.synchronize()
+    Lr, Linvr, okr = panelchol.panel_factor_reference(Wt)
+    want = [True] * 5 + [False] + [True] * 2
+    assert ok.tolist() == okr.tolist() == want
+    good = [0, 1, 2, 3, 4, 6, 7]
+    for got, ref in ((L, Lr), (Linv, Linvr)):
+        err = (got[good] - ref[good]).abs().max() / ref[good].abs().max()
+        assert float(err) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 2e-4)])
+def test_panel_kernel_takes_a_panel_that_is_not_aligned(cuda, dtype, tol):
+    """A contiguous panel one element into a larger buffer, so that its rows
+    are no whole 16-byte words: K2 copies it in by elements."""
+    from libdogleg_tpu_torch.ops import panelchol
+    p = 64
+    W = torch.as_tensor(_spd(p, np.random.default_rng(5)), dtype=dtype,
+                        device=cuda)
+    buf = torch.zeros(p * p + 1, dtype=dtype, device=cuda)
+    Wv = buf[1:].view(p, p).copy_(W)
+    assert Wv.is_contiguous() and Wv.data_ptr() % 16
+    L, Linv, ok = panelchol.panel_factor(Wv)
+    Lr, Linvr, okr = panelchol.panel_factor(W)
+    assert bool(ok) and bool(okr)
+    assert torch.equal(L, Lr) and torch.equal(Linv, Linvr)
+    want = panelchol.panel_factor_reference(W)[0]
+    assert float((L - want).abs().max() / want.abs().max()) < tol
 
 
 @pytest.mark.cuda
@@ -168,10 +216,14 @@ def test_grid_solve_launches_panel_kernel(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
                                        (torch.float32, 2e-4)])
-@pytest.mark.parametrize("n", [8, 40, 128])
+@pytest.mark.parametrize("n", [8, 16, 24, 33, 40, 48, 64, 100, 128, 250,
+                               256])
 def test_tile_kernels_match_twins(cuda, n, dtype, tol):
-    """K6 and K7 against their twins on the card: L and X within tol of
-    their largest entry, ok identical, and a negative pivot caught."""
+    """K6 and K7 against their twins on the card, on tiles a warp takes
+    (n <= 32) and tiles a block takes, n that is and is not a multiple of
+    the panel width, in shared memory and in place: L and X within tol of
+    their largest entry, ok identical, and a negative pivot caught in its
+    own tile only."""
     from libdogleg_tpu_torch.ops import tilechol
     rng = np.random.default_rng(n)
     S = _spd(n, rng, batch=(5,))
@@ -184,12 +236,18 @@ def test_tile_kernels_match_twins(cuda, n, dtype, tol):
     X = tilechol.tri_solve_right(Lr[:4], C[:4])
     torch.cuda.synchronize()
     assert all(tilechol.launch_counts[k] == before[k] + 1 for k in before)
+    assert ok.dtype == torch.bool and L.is_contiguous()
     assert ok.tolist() == okr.tolist() == [True] * 4 + [False]
     assert bool((torch.triu(L, 1) == 0).all())
     err = (L[:4] - Lr[:4]).abs().max() / Lr[:4].abs().max()
     assert float(err) < tol
     Xr = tilechol.tri_solve_right_reference(Lr[:4], C[:4])
     assert float((X - Xr).abs().max() / Xr.abs().max()) < tol
+    # tiles one element into a larger buffer: not 16-byte aligned
+    buf = torch.zeros(4 * n * n + 1, dtype=dtype, device=cuda)
+    Sv = buf[1:].view(4, n, n).copy_(St[:4])
+    Lv, okv = tilechol.tile_cholesky(Sv)
+    assert bool(okv.all()) and torch.equal(Lv, L[:4])
 
 
 @pytest.mark.cuda
@@ -258,6 +316,41 @@ def test_batched_blocked_cholesky_matches_plain_version(cuda, n, dtype, tol):
     good = ok.nonzero()[:, 0]
     err = float((L[good] - Lr[good]).abs().max() / Lr[good].abs().max())
     assert err < tol, err
+
+
+def k5_digest(dtype, device) -> str:
+    """SHA-256 of K5's factors of fixed (11, n, n) batches, n in {32, 64,
+    128, 256}: matrices (R + R^T) / 2 + n I with R uniform in [0, 1) from a
+    numpy seed, formed elementwise so that every machine gets the same
+    bits."""
+    import hashlib
+
+    from libdogleg_tpu_torch.ops import batchchol
+    h = hashlib.sha256()
+    for n in (32, 64, 128, 256):
+        R = np.random.default_rng(n).uniform(size=(11, n, n))
+        S = (R + np.swapaxes(R, -1, -2)) / 2 + n * np.eye(n)
+        L, ok = batchchol.batched_blocked_cholesky(
+            torch.as_tensor(S, dtype=dtype, device=device))
+        assert bool(ok.all())
+        h.update(L.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+# k5_digest of the kernel as it stood before its stage moved into
+# csrc/cholstage.cuh (H100, CUDA 12.8): the move changed no bit of K5's result
+K5_DIGESTS = {
+    torch.float32:
+        "85a37be0a37619c4e3e258d7f7f3b4759adfcaa2c1585023a1c93e77f2c3fdcd",
+    torch.float64:
+        "beb1f479859f5ce7156b493f76e70ef5593bf1d0888a66f0a22bc86fcaa70a3d",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_blocked_cholesky_bits_unchanged(cuda, dtype):
+    assert k5_digest(dtype, cuda) == K5_DIGESTS[dtype]
 
 
 def _midsize(nstate, batch, dtype, device):

@@ -3,7 +3,10 @@ ops/largechol.py) and BlockedDenseNewtonSolver against the JAX package, in
 float64 on numpy-seeded inputs.
 
 Kernel K2's plain twin is held against the JAX kernel
-`pallas_panelchol.panel_factor` run in interpret mode. The factorizations
+`pallas_panelchol.panel_factor` run in interpret mode, and so is the
+algorithm of K2's inverse kernel in its plain form
+`panel_inverse_columns_reference` (inv(L) one slab of columns at a time,
+float64 to 1e-12 and float32 to 2e-4 of the largest entry). The factorizations
 sum in other orders than XLA's, so factors agree to rtol 1e-10 (atol scaled
 by n); the failure flag `ok` and the escalated lambda must be identical.
 
@@ -87,6 +90,67 @@ def test_panel_twin_matches_jax_kernel(p):
     # before the failing pivot the factor is still the JAX kernel's
     np.testing.assert_allclose(L[1, :20].numpy(), np.asarray(jL[1, :20]),
                                rtol=1e-10, atol=1e-10 * p)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_panel(p, np_dtype):
+    """Two SPD panels as a numpy array of `np_dtype` and the JAX kernel's
+    (L, inv(L), ok) for them, in interpret mode."""
+    W = _spd(p, np.random.default_rng(900 + p), batch=(2,)).astype(np_dtype)
+    jL, jLinv, jok = jpanel(jnp.asarray(W), interpret=True)
+    assert np.asarray(jL).dtype == np_dtype
+    return W, np.asarray(jL), np.asarray(jLinv), np.asarray(jok)
+
+
+@pytest.mark.parametrize("np_dtype,tol", [(np.float64, 1e-12),
+                                          (np.float32, 2e-4)])
+@pytest.mark.parametrize("cols", [16, 32])
+@pytest.mark.parametrize("p", [16, 64])
+def test_panel_inverse_by_columns_matches_twin_and_jax_kernel(p, cols,
+                                                             np_dtype, tol):
+    """inv(L) slab by slab against the twin's recursive inverse, against the
+    JAX kernel's inv(L), and as an inverse; zeros above the diagonal. The
+    factor the slabs start from is the twin's, itself held to the JAX
+    kernel's."""
+    W, jL, jLinv, jok = _jax_panel(p, np_dtype)
+    L, Linv, ok = panelchol.panel_factor_reference(torch.as_tensor(W))
+    assert ok.tolist() == jok.tolist() == [True, True]
+    X = panelchol.panel_inverse_columns_reference(L, cols=cols)
+    assert X.shape == L.shape and X.dtype == L.dtype
+    assert bool((torch.triu(X, 1) == 0).all())
+
+    def close(got, want):
+        assert float(np.abs(got - want).max()) <= tol * float(
+            np.abs(want).max())
+    close(L.numpy(), jL)
+    close(X.numpy(), Linv.numpy())
+    close(X.numpy(), jLinv)
+    close(X.numpy() @ L.numpy(), np.broadcast_to(np.eye(p), (2, p, p)))
+
+
+def test_panel_inverse_by_columns_wants_whole_blocks():
+    L = torch.eye(32, dtype=torch.float64)
+    with pytest.raises(ValueError, match="cols"):
+        panelchol.panel_inverse_columns_reference(L, cols=24)
+    X = panelchol.panel_inverse_columns_reference(2.0 * L, cols=48)
+    np.testing.assert_array_equal(X.numpy(), 0.5 * np.eye(32))
+
+
+@pytest.mark.parametrize("p", [16, 32])
+def test_panel_twin_flags_a_nan_entry_like_the_jax_kernel(p):
+    """A NaN in the first panel of two: ok False for it and True for the
+    other from the twin and from the JAX kernel, and the other's factor and
+    inverse untouched."""
+    W = _jax_panel(p, np.float64)[0].copy()
+    W[0, p - 3, 2] = W[0, 2, p - 3] = np.nan
+    L, Linv, ok = panelchol.panel_factor(torch.as_tensor(W))
+    assert ok.dtype == torch.bool
+    jL, jLinv, jok = jpanel(jnp.asarray(W), interpret=True)
+    assert ok.tolist() == np.asarray(jok).tolist() == [False, True]
+    np.testing.assert_allclose(L[1].numpy(), np.asarray(jL[1]), rtol=1e-10,
+                               atol=1e-10 * p)
+    np.testing.assert_allclose(Linv[1].numpy(), np.asarray(jLinv[1]),
+                               rtol=1e-10, atol=1e-12)
 
 
 @pytest.mark.parametrize("shape", [(24, 24), (2, 300, 300), (16, 16, 8)])

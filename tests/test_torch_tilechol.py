@@ -1,14 +1,19 @@
-"""The algorithm of kernel K7 (csrc/tilechol.cu), in its plain PyTorch form
-`tri_solve_right_blocked_reference`, against the wrapper's plain twin
-`tri_solve_right_reference` and against the JAX package's Pallas kernel
-`pallas_tri_solve_right` in interpret mode, on numpy-seeded inputs.
+"""The algorithms of kernels K6 and K7 (csrc/tilechol.cu), in their plain
+PyTorch forms `tile_cholesky_blocked_reference` and
+`tri_solve_right_blocked_reference`, against the wrappers' plain twins
+(`tile_cholesky_reference`, `tri_solve_right_reference`) and against the JAX
+package's Pallas kernels `pallas_cholesky` and `pallas_tri_solve_right` in
+interpret mode, on numpy-seeded inputs.
 
-The kernel itself runs on the card only (tests/test_torch_cuda.py); here its
-arithmetic is held through its plain form: left-looking over 16- or 32-wide
-column blocks, the solve inside a block column by column, a true division by
-the diagonal. The three sum each x_j's terms in different orders, so they
-agree to rounding: float64 to rtol 1e-12 of the largest entry, float32 to
-2e-4 of it (the tolerance the card tests hold K7 to).
+The kernels themselves run on the card only (tests/test_torch_cuda.py); here
+their arithmetic is held through its plain form. K6: the tile padded to a
+multiple of the panel width with an identity diagonal, right-looking over
+16-wide panels, the unclamped pivot rule L_jj = d * rsqrt(d). K7:
+left-looking over 16- or 32-wide column blocks, the solve inside a block
+column by column, a true division by the diagonal. The forms sum each entry's
+terms in different orders, so they agree to rounding: float64 to 1e-12 of
+the largest entry, float32 to 2e-4 of it (the tolerance the card tests hold
+the kernels to).
 """
 
 import functools
@@ -136,3 +141,83 @@ def test_wrapper_refuses_mixed_types():
     with pytest.raises(ValueError):
         tilechol.tri_solve_right(torch.zeros((1, 4, 4), dtype=torch.float16),
                                  torch.zeros((1, 4, 4), dtype=torch.float16))
+
+
+@functools.lru_cache(maxsize=None)
+def _chol_case(n, np_dtype, bad=None, k=3):
+    """(k, n, n) SPD tiles as a numpy array of `np_dtype`, tile `bad` (if
+    any) with one diagonal entry negated so that it is not SPD, and the JAX
+    kernel's (L, ok): the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(77 * n)
+    A = rng.normal(size=(k, n, n))
+    S = A @ np.swapaxes(A, -1, -2) / n + np.eye(n)
+    if bad is not None:
+        S[bad, n // 2, n // 2] = -S[bad, n // 2, n // 2]
+    S = S.astype(np_dtype)
+    Lj, okj = pallas_chol.pallas_cholesky(jnp.asarray(S), interpret=True)
+    Lj = np.asarray(Lj)
+    assert Lj.dtype == np_dtype
+    return S, Lj, np.asarray(okj)
+
+
+@pytest.mark.parametrize("np_dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("block", [8, 16])
+@pytest.mark.parametrize("n", [8, 24, 40, 128])
+def test_blocked_cholesky_matches_twin_and_jax_kernel(n, block, np_dtype):
+    """n below, equal to, a multiple of and no multiple of the panel width
+    (the last padded with an identity diagonal). The blocked form against
+    the wrapper's twin, against the JAX Pallas kernel, and as a factor of
+    the tile; ok identical; zeros above the diagonal."""
+    S, Lj, okj = _chol_case(n, np_dtype)
+    St = torch.as_tensor(S)
+    L, ok = tilechol.tile_cholesky_blocked_reference(St, block=block)
+    assert L.shape == St.shape and L.dtype == St.dtype
+    assert ok.dtype == torch.bool
+    Lr, okr = tilechol.tile_cholesky_reference(St)
+    assert ok.tolist() == okr.tolist() == okj.tolist() == [True] * 3
+    assert bool((torch.triu(L, 1) == 0).all())
+    tol = TOL[np_dtype]
+    _close(L.numpy(), Lr.numpy(), tol)
+    _close(L.numpy(), Lj, tol)
+    _close(L.numpy() @ np.swapaxes(L.numpy(), -1, -2), S, 10 * tol)
+
+
+@pytest.mark.parametrize("np_dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("n", [24, 40])
+def test_blocked_cholesky_flags_only_the_tile_that_is_not_spd(n, np_dtype):
+    """A negative pivot in the second panel of tile 1: ok False for that
+    tile from the blocked form, the twin and the JAX kernel, its factor not
+    finite or not positive on the diagonal, and the other tiles as before."""
+    S, Lj, okj = _chol_case(n, np_dtype, bad=1)
+    St = torch.as_tensor(S)
+    L, ok = tilechol.tile_cholesky_blocked_reference(St)
+    _, okr = tilechol.tile_cholesky_reference(St)
+    assert ok.tolist() == okr.tolist() == okj.tolist() == [True, False, True]
+    d = torch.diagonal(L[1])
+    assert not bool(torch.isfinite(L[1]).all()) or not bool((d > 0).all())
+    keep = [0, 2]
+    _close(L[keep].numpy(), Lj[keep], TOL[np_dtype])
+    assert bool((torch.triu(L[keep], 1) == 0).all())
+
+
+def test_cholesky_wrapper_on_cpu_tensors_takes_the_twin():
+    S, Lj, _ = _chol_case(40, np.float64)
+    before = dict(tilechol.launch_counts)
+    L, ok = tilechol.tile_cholesky(torch.as_tensor(S))
+    assert tilechol.launch_counts == before
+    assert ok.dtype == torch.bool and ok.tolist() == [True] * 3
+    _close(L.numpy(), Lj, 1e-12)
+    empty = torch.zeros((0, 24, 24), dtype=torch.float64)
+    for fn in (tilechol.tile_cholesky,
+               tilechol.tile_cholesky_blocked_reference):
+        L, ok = fn(empty)
+        assert L.shape == (0, 24, 24) and ok.shape == (0,)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 7), (8, 8), (1, 257, 257),
+                                   (2, 0, 0)])
+def test_cholesky_wrapper_refuses_what_the_kernel_does_not_take(shape):
+    with pytest.raises(ValueError):
+        tilechol.tile_cholesky(torch.zeros(shape))
+    with pytest.raises(ValueError):
+        tilechol.tile_cholesky(torch.zeros((1, 4, 4), dtype=torch.float16))
