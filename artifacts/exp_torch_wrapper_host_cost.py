@@ -16,7 +16,8 @@ panel for K2's: the argument checks, the library handle, the cached
 index tensors, the output's allocation, the stream handle (through a
 torch.cuda.Stream object and through the runtime binding), the ctypes call
 that launches the kernel, the whole wrappers, and torch.mv of a BSR tensor,
-solve_triangular and an elementwise add for scale.
+solve_triangular and an elementwise add for scale. Last, K1's two wrappers
+at B=8192 float32 with either stream handle, in turns.
 """
 
 from __future__ import annotations
@@ -86,6 +87,33 @@ def main() -> None:
     W = c.spd_on_device(256, 1, 3, torch.float32, dev) * 256
     host_us("K2 wrapper p=256", lambda: panelchol.panel_factor(W), reps=100)
     host_us("elementwise add of 8192 floats", lambda: v + v)
+    k1_host_cost(dev)
+
+
+def k1_host_cost(dev) -> None:
+    """Both of K1's wrappers at B=8192 float32, each taking its stream
+    through launch_target and, in turns, through a torch.cuda.Stream object
+    built per call (the form they had before), in the order new, old, old,
+    new. 100 calls a reading: the kernel takes longer than its wrapper."""
+    from libdogleg_tpu_torch import DoglegParameters
+    from libdogleg_tpu_torch.native import loader
+    from libdogleg_tpu_torch.ops import mega
+    bench = DoglegParameters(**c.BENCH)
+    general = c.instances(1, c.BATCH, torch.float32, dev)
+    factored, _ = c.factored_args(1, c.BATCH, torch.float32, dev)
+    new = loader.launch_target
+
+    def old(device):
+        return device.index or 0, torch.cuda.current_stream(device).cuda_stream
+    for form, target in (("launch_target", new), ("Stream object", old),
+                         ("Stream object", old), ("launch_target", new)):
+        loader.launch_target = target
+        host_us(f"K1 general wrapper B={c.BATCH}, stream by {form}",
+                lambda: mega.megakernel_optimize(*general, bench), reps=100)
+        host_us(f"K1 factored wrapper B={c.BATCH}, stream by {form}",
+                lambda: mega.megakernel_optimize_factored(*factored, bench),
+                reps=100)
+    loader.launch_target = new
 
 
 if __name__ == "__main__":

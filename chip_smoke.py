@@ -13,7 +13,7 @@ Phases, each printing its own lines:
   4. the public path: batched_optimize(quadratic_surface.products, ...) on
      8192 float32 problems, which must launch K1 and recover >= 99%;
   5. the single-solve CLI, `sample --check --device cuda <mode>`, in every
-     ported mode (float64);
+     ported mode (float64), `factored` among them;
   6. CUDA-event timing of K1 and of the twin at B=8192 float32;
   7. K2 (csrc/panelchol.cu) against its twin: panels p in {16, 32, 64, 128,
      240, 256}, batch {1, 8}, float32 and float64 (L and inv(L) within 1e-10
@@ -88,10 +88,24 @@ Phases, each printing its own lines:
      path's starts, K5 held to its plain version there; the substitutions
      (torch.cholesky_solve); the public call's
      host wall with the gate's strategy, with DenseNewtonSolver and
-     compacted, attempts and K5 launches per solve, and a profiler split.
+     compacted, attempts and K5 launches per solve, and a profiler split;
+ 17. K1's factored instance (the sufficient-statistics products): hazard F2,
+     the device two_prod and two_sum on 2^20 pairs, exact and bit for bit
+     the eager split forms; the device function against
+     factored_products_minor at B=8192 (float64 rtol 1e-12, float32 the
+     tolerances of tests/test_pallas_mega.py:177-183); the kernel against
+     its twin in float64 at B=1024 (identical decisions, p within rtol
+     1e-9) and in float32 at B=8192 under the benchmark rule (agreement >=
+     0.85, recovered_frac >= 0.99), the statistics made on the card; the
+     public path, factored_statistics then
+     batched_optimize(factored_products_fn(G), ...), at B=8192 float32: the
+     factored K1 launched, the general one not, every reason > 0,
+     recovered_frac >= 0.99; CUDA-event times of the kernel with its
+     wrapper (in turns with phase 6's general K1), alone (profiler), its
+     twin, the statistics transform, the whole call, and a profiler split.
 Then one JSON line about the kernels (time, plain version's time, the
-library call's where one exists, and the bound from this run's shapes), the
-card line again, and a last JSON
+library call's where one exists, and the bound from this run's shapes; K1
+once per instance), the card line again, and a last JSON
 line with "ok": true. Any failure exits non-zero before the last line; so
 does a machine without a CUDA device, or a directory without the package.
 """
@@ -1301,6 +1315,236 @@ def phase16_timing(dev, bench, card, mid, k5) -> None:
               flush=True)
 
 
+def error_free_pairs(n, seed, dtype, device):
+    """n pairs (a, b) of random sign with exponents spanning -60..60, the
+    pair's exponents summing to at least -96, so that the exact error of
+    a * b is no subnormal (below that no two_prod is exact)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    ea = rng.integers(-60, 61, n)
+    eb = rng.integers(np.maximum(-60, -96 - ea), 61)
+
+    def draw(e):
+        m = rng.uniform(1.0, 2.0, n) * rng.choice([-1.0, 1.0], n)
+        return torch.as_tensor(np.ldexp(m, e), dtype=dtype, device=device)
+    return draw(ea), draw(eb)
+
+
+def factored_args(seed, batch, dtype, device):
+    """instances(seed, ...) in the factored form: p0, the statistics made
+    on the device, and the Gram pair."""
+    from libdogleg_tpu_torch.models import quadratic_surface as qs
+    p0, meas, _, _ = instances(seed, batch, dtype, device)
+    return (p0, *qs.factored_statistics(meas),
+            qs.gram_pair(dtype, device)), meas
+
+
+# Operations of one factored products evaluation, counted from
+# quadratic_surface.factored_products_minor as the device function runs it
+# (an fma counts 2, a two_prod 3, a two_sum 6): c 2; per row of G c a
+# two_prod and a product and sum of the low part (5), five columns of a
+# two_prod, a two_sum and four operations on the low part (65), and g from
+# the pair (9): 79, six rows 474; Jt_x 6; the 21 entries of JtJ's lower
+# triangle from the columns of G T, 52; c.g 11; c.h as a pair 70; the last
+# two_sum, four sums and the clamp 11.
+FACTORED_PRODUCTS_OPS = 2 + 474 + 6 + 52 + 11 + 70 + 11
+FACTORED_GROUPS = (("K1 factored", ("dogleg_mega_factored",)),
+                   ("reductions", ("reduce",)),
+                   ("copies and concatenation", ("memcpy", "cat", "copy")))
+
+
+def phase17_factored(dev, bench) -> dict:
+    """K1's factored instance: hazard F2 on the card, the factored products
+    against their twin, the kernel against its twin in float64 and float32,
+    the public path counted, and its times. Returns its kernels-line entry's
+    numbers."""
+    import torch
+
+    from libdogleg_tpu_torch.models import quadratic_surface as qs
+    from libdogleg_tpu_torch.ops import mega
+    from libdogleg_tpu_torch.parallel import batched_optimize
+    from libdogleg_tpu_torch.utils.benchtime import measure_ms
+
+    card = card_line()
+    # F2: the device two_prod (fma) and two_sum (uncontracted)
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        a, b = error_free_pairs(1 << 20, 17, dtype, dev)
+        got = mega.error_free_transforms(a, b)
+        want = mega.error_free_transforms_reference(a, b)
+        torch.cuda.synchronize()
+        for label, g, w in zip(("p", "e_p", "s", "e_s"), got, want):
+            check(torch.equal(g, w), f"F2 {name} {label} bit for bit the "
+                  f"eager twin's")
+        exact = ""
+        if dtype == torch.float32:
+            p, e, s, es = (t.double() for t in got)
+            check(torch.equal(p + e, a.double() * b.double()),
+                  "F2 float32 p + e == a * b exactly")
+            check(torch.equal(s + es, a.double() + b.double()),
+                  "F2 float32 s + e == a + b exactly")
+            exact = ("; p + e == a b and s + e == a + b exactly in float64 "
+                     "on every pair")
+        print(f"[17 F2 {name}] two_prod and two_sum on {a.numel()} pairs "
+              f"(exponents -60..60): bit for bit the eager split forms"
+              f"{exact}", flush=True)
+
+    # the device function against factored_products_minor
+    for dtype, rtol, rtol_jtj, atol in ((torch.float64, 1e-12, 1e-12, 1e-12),
+                                        (torch.float32, 1e-6, 1e-5, 1e-8)):
+        name = str(dtype).split(".")[-1]
+        (p0, hh, hl, nh, nl, G), _ = factored_args(3, BATCH, dtype, dev)
+        near = torch.as_tensor(qs.P_TRUE, dtype=dtype, device=dev) + 1e-3 * p0
+        for where, p in (("the starts", p0), ("near the truth", near)):
+            got = mega.factored_products_device(p, (hh, hl, nh, nl), G)
+            n2, jtx, jtj = qs.factored_products_minor(
+                p.t(), hh.t(), hl.t(), nh[None], nl[None], *G)
+            # the kernel computes JtJ's lower triangle and mirrors it; the
+            # twin's upper triangle sums the same terms in another order
+            check(torch.equal(got[2], got[2].mT),
+                  f"factored products {name} JtJ symmetric")
+            got = (got[0], got[1], torch.tril(got[2]))
+            want = (n2[0], jtx.t(), torch.tril(jtj.permute(2, 0, 1)))
+            torch.cuda.synchronize()
+            for label, g, w, rt, at in zip(
+                    ("norm2", "Jt_x", "JtJ's lower triangle"), got, want,
+                    (rtol, rtol, rtol_jtj), (0.0, atol, 0.0)):
+                bad = ~torch.isclose(g, w, rtol=rt, atol=at)
+                check(not bool(bad.any()),
+                      f"factored products {name} {label} at {where} within "
+                      f"rtol {rt}, atol {at}: {int(bad.sum())} outside, "
+                      f"first {g[bad][:3].tolist()} against "
+                      f"{w[bad][:3].tolist()}")
+            differ = [int((g != w).sum()) for g, w in zip(got, want)]
+            print(f"[17 factored products {name} B={BATCH} at {where}] "
+                  f"within tolerance of factored_products_minor; elements "
+                  f"not bit for bit: norm2 {differ[0]}, Jt_x {differ[1]}, "
+                  f"JtJ's lower triangle {differ[2]}", flush=True)
+
+    # the kernel against its twin: float64, then float32 under the rule
+    args64, _ = factored_args(0, 1024, torch.float64, dev)
+    r_k = mega.megakernel_optimize_factored(*args64)
+    r_t = mega.megakernel_optimize_factored_reference(*args64)
+    torch.cuda.synchronize()
+    for field in ("step_count", "n_attempts", "reason"):
+        check(torch.equal(getattr(r_k, field), getattr(r_t, field)),
+              f"factored f64 {field} identical")
+    check(torch.allclose(r_k.p, r_t.p, rtol=1e-9, atol=0.0),
+          "factored f64 p within rtol 1e-9")
+    print(f"[17 K1 factored f64 B=1024] decisions identical to the twin's; "
+          f"max |dp| {(r_k.p - r_t.p).abs().max().item():.3e} (rtol 1e-9); "
+          f"reasons {torch.bincount(r_k.reason, minlength=7).tolist()}",
+          flush=True)
+
+    args32, meas32 = factored_args(1, BATCH, torch.float32, dev)
+    r_k = mega.megakernel_optimize_factored(*args32, bench)
+    r_t = mega.megakernel_optimize_factored_reference(*args32, bench)
+    torch.cuda.synchronize()
+    same = ((r_k.step_count == r_t.step_count)
+            & (r_k.n_attempts == r_t.n_attempts))
+    agree = same.float().mean().item()
+    rec_k, rec_t = recovered_frac(r_k.p), recovered_frac(r_t.p)
+    max_abs_err = (r_k.p - r_t.p).abs()[same].max().item()
+    check(agree >= 0.85, f"factored f32 decision agreement {agree} >= 0.85")
+    check(rec_k >= 0.99, f"factored f32 kernel recovered_frac {rec_k} >= 0.99")
+    print(f"[17 K1 factored f32 B={BATCH}] decision agreement {agree:.4f} "
+          f"(>= 0.85); recovered_frac kernel {rec_k:.4f} twin {rec_t:.4f} "
+          f"(>= 0.99); max |dp| where decisions agree {max_abs_err:.3e}",
+          flush=True)
+
+    # the public path, counted: statistics, then batched_optimize
+    p0, meas, _, _ = instances(2, BATCH, torch.float32, dev)
+    fn = qs.factored_products_fn(qs.gram_pair(torch.float32, dev))
+
+    def solve(p0, meas):
+        return batched_optimize(fn, p0, bench,
+                                problem_data=qs.factored_statistics(meas))
+
+    mega.launch_count = mega.factored_launch_count = 0
+    r = solve(p0, meas)
+    torch.cuda.synchronize()
+    launches, general = mega.factored_launch_count, mega.launch_count
+    rec = recovered_frac(r.p)
+    check(launches >= 1 and general == 0,
+          f"batched_optimize on the factored products launched the factored "
+          f"K1 ({launches}) and not the general one ({general})")
+    check(r.p.shape == (BATCH, qs.NSTATE) and bool(torch.isfinite(r.p).all())
+          and bool(torch.isfinite(r.norm2_x).all()), "finite (B, 6) result")
+    check(bool((r.reason > 0).all()), "every factored problem terminated")
+    check(rec >= 0.99, f"factored public path recovered_frac {rec} >= 0.99")
+    print(f"[17 batched_optimize factored B={BATCH} f32] factored K1 "
+          f"launches {launches}, general {general}; recovered_frac "
+          f"{rec:.4f}; reasons "
+          f"{torch.bincount(r.reason, minlength=7).tolist()}", flush=True)
+
+    # times at the main path's shapes, the two instances in turns
+    gargs = instances(1, BATCH, torch.float32, dev)
+    turns = []
+    for _ in range(2):
+        turns.append((
+            measure_ms(mega.megakernel_optimize, *gargs, bench, warmup=3,
+                       reps=20),
+            measure_ms(mega.megakernel_optimize_factored, *args32, bench,
+                       warmup=3, reps=20)))
+    ms = turns[0][1]
+    alone = kernels_us(mega.megakernel_optimize_factored, (*args32, bench),
+                       ("dogleg_mega_factored_kernel",))
+    alone_g = kernels_us(mega.megakernel_optimize, (*gargs, bench),
+                         ("dogleg_mega_kernel",))
+    plain_ms = measure_ms(mega.megakernel_optimize_factored_reference,
+                          *args32, bench, warmup=1, reps=5)
+    stats_ms = measure_ms(qs.factored_statistics, meas32, warmup=3, reps=20)
+    def solve_general(p0, meas):
+        return batched_optimize(qs.products, p0, bench, problem_data=meas)
+
+    # host walls in turns with phase 4's call on the same measurements
+    walls = {"factored": [], "general": []}
+    for turn in range(8):
+        for label, call in (("factored", solve),
+                            ("general", solve_general)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(p0, meas)
+            torch.cuda.synchronize()
+            if turn:  # the first turn warms up
+                walls[label].append((time.perf_counter() - t0) * 1e3)
+    call_ms = measure_ms(solve, p0, meas, warmup=3, reps=20)
+    # the bound from this run's data: p0, the statistics and the Gram pair
+    # in, the nine result fields out; one products evaluation at the start
+    # and one per attempt, and per attempt the step math as phase 6 counts
+    r_b = mega.megakernel_optimize_factored(*args32, bench)
+    n = qs.NSTATE
+    evals = float((r_b.n_attempts + 1).sum())
+    limit = bound(
+        nbytes_of(*args32[:5], *args32[5])
+        + nbytes_of(*(t for t in r_b if t is not None)),
+        evals * FACTORED_PRODUCTS_OPS
+        + float(r_b.n_attempts.sum()) * (n ** 3 / 3 + 6 * n * n + 10 * n))
+    print(f"[17 timing B={BATCH} f32] factored K1 {turns[0][1]:.4f} / "
+          f"{turns[1][1]:.4f} ms with its wrapper, general K1 (phase 6) "
+          f"{turns[0][0]:.4f} / {turns[1][0]:.4f} ms (two turns, CUDA events "
+          f"over 20 back-to-back calls); alone: factored "
+          f"{us_text(alone['dogleg_mega_factored_kernel'])}, general "
+          f"{us_text(alone_g['dogleg_mega_kernel'])}; twin {plain_ms:.4f} "
+          f"ms; bound {limit['bound_ms'] * 1e3:.2f} us by "
+          f"{limit['bound_by']} ({evals / BATCH:.2f} products evaluations "
+          f"a problem, {FACTORED_PRODUCTS_OPS} operations each); card {card}",
+          flush=True)
+    print(f"[17 timing B={BATCH} f32] factored_statistics on the (B, 100) "
+          f"measurements {stats_ms:.4f} ms; the whole call (statistics and "
+          f"batched_optimize) {call_ms:.4f} ms by CUDA events over 20 calls "
+          f"({BATCH / call_ms * 1e3:.0f} solves/s); host wall ms "
+          f"{', '.join(f'{w:.3f}' for w in walls['factored'])}, in turns "
+          f"with phase 4's call on the same measurements "
+          f"{', '.join(f'{w:.3f}' for w in walls['general'])}; card {card}",
+          flush=True)
+    print(f"[17 whole call B={BATCH} f32] "
+          f"{device_split(solve, p0, meas, groups=FACTORED_GROUPS)}",
+          flush=True)
+    return dict(launches=launches, max_abs_err=max_abs_err, ms=ms,
+                plain_ms=plain_ms, library_ms=None, **limit)
+
+
 def main() -> int:
     import torch
 
@@ -1437,6 +1681,7 @@ def main() -> int:
     # K5's error is taken in phase 16, on the JtJ the main path gives it
     k5 = {"launches": mid["launches"], "max_abs_err": 0.0}
     phase16_timing(dev, bench, card, mid, k5)
+    k1f = phase17_factored(dev, bench)
 
     def entry(name, source, replaces, d):
         return {"name": name, "route": "cuda", "source": source,
@@ -1449,6 +1694,9 @@ def main() -> int:
               "libdogleg_tpu/ops/pallas_mega.py:522",
               dict(launches=launches, max_abs_err=max_abs_err, ms=ms,
                    plain_ms=plain_ms, library_ms=None, **k1_bound)),
+        entry("megakernel_optimize_factored",
+              "libdogleg_tpu_torch/csrc/mega.cu",
+              "libdogleg_tpu/ops/pallas_mega.py:522", k1f),
         entry("panel_factor", "libdogleg_tpu_torch/csrc/panelchol.cu",
               "libdogleg_tpu/ops/pallas_panelchol.py:157", k2),
         entry("bcsr_jtj_blocks_kernel", "libdogleg_tpu_torch/csrc/bcsr.cu",

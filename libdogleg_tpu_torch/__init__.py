@@ -33,6 +33,7 @@ from libdogleg_tpu_torch.ops.newton import (
 )
 from libdogleg_tpu_torch.problems import (
     DenseProblem,
+    FactoredBasisProblem,
     ProductsProblem,
     ResidualProblem,
     SparseProblem,
@@ -60,6 +61,7 @@ __all__ = [
     "DenseNewtonSolver",
     "SparseNewtonSolver",
     "DenseProblem",
+    "FactoredBasisProblem",
     "ProductsProblem",
     "ResidualProblem",
     "SparseProblem",

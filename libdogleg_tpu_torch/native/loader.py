@@ -113,10 +113,21 @@ def build() -> BuildInfo:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in ("dogleg_mega_f32", "dogleg_mega_f64"):
-        fn = getattr(lib, name)
-        # p0, meas_t, gx, gy, B, params, 9 outputs, device, stream
-        fn.argtypes = [ptr, ptr, ptr, ptr, i32, ptr] + [ptr] * 9 + [i32, ptr]
+    for dt in ("f32", "f64"):
+        for name in (f"dogleg_mega_{dt}", f"dogleg_mega_factored_{dt}"):
+            fn = getattr(lib, name)
+            # p0, meas_t or stats_t, gx or Ghi, gy or Glo, B, params,
+            # 9 outputs, device, stream
+            fn.argtypes = ([ptr, ptr, ptr, ptr, i32, ptr] + [ptr] * 9
+                           + [i32, ptr])
+            fn.restype = i32
+        # p, stats_t, Ghi, Glo, B, norm2, jtx, jtj, device, stream
+        fn = getattr(lib, f"dogleg_factored_products_{dt}")
+        fn.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, ptr]
+        fn.restype = i32
+        # a, b, n, p, e_p, s, e_s, device, stream
+        fn = getattr(lib, f"dogleg_error_free_{dt}")
+        fn.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, ptr]
         fn.restype = i32
     for dt in ("f32", "f64"):
         # W, B, p, L, Linv, ok, device, stream

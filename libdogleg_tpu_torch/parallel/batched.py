@@ -2,8 +2,8 @@
 libdogleg_tpu/parallel/batched.py:121-406).
 
 A batch of independent problem instances goes either to the whole-solve
-kernel K1 (ops/mega.py), when the products function is one the kernel
-computes on the device, or to the masked batched solver of solver.py, with
+kernel K1 (ops/mega.py), in the instance whose device function the products
+function names, or to the masked batched solver of solver.py, with
 the per-element products function batched by torch.func.vmap. On the masked
 path a dense mid-size JtJ in a large batch takes BlockedDenseNewtonSolver
 by default (_auto_newton), whose factorization is kernel K5 on CUDA tensors.
@@ -42,10 +42,12 @@ def _kernel_takes(products_fn, p0_batch, newton_solver,
     """The gate in front of kernel K1.
 
     The kernel takes the batch when the products function names a device
-    function it has, the states are on CUDA, and no custom Newton strategy
-    is asked for (a history is refused before the gate). use_megakernel=True
-    raises where
-    the kernel cannot take the batch; False disables it. There is no
+    function it has (in its `cuda_device_function` attribute: the general
+    instance for quadratic_surface.products, the factored one for
+    quadratic_surface.factored_products_fn(G_pair)), the states are on
+    CUDA, and no custom Newton strategy is asked for (a history is refused
+    before the gate). use_megakernel=True raises where the kernel cannot
+    take the batch; False disables it. There is no
     minimum batch (the JAX package's AUTO_MEGA_MIN_BATCH amortizes a Mosaic
     compile; here the build happens once per process and the kernel is the
     faster path at any batch), and no fallback: a batch the kernel takes
@@ -119,14 +121,28 @@ def _prepare(products_fn, p0_batch, parameters, mesh, problem_data,
     return prm, newton_solver, batched_of
 
 
-def _run_megakernel(p0_batch, problem_data, prm) -> SolveResult:
+def _run_megakernel(products_fn, p0_batch, problem_data,
+                    prm) -> SolveResult:
+    """Kernel K1's instance for the device function products_fn names:
+    the general one takes the (B, 100) measurements as problem_data, the
+    factored one the statistics (h_hi, h_lo, n2m_hi, n2m_lo) and the Gram
+    pair the products function carries (quadratic_surface.
+    factored_products_fn)."""
     from libdogleg_tpu_torch.models import quadratic_surface as qs
-    from libdogleg_tpu_torch.ops.mega import megakernel_optimize
-    if not isinstance(problem_data, torch.Tensor):
-        raise ValueError("the kernel's products take the (B, 100) "
-                         "measurements as problem_data")
-    gx, gy = qs.make_grid(p0_batch.dtype, p0_batch.device)
-    return megakernel_optimize(p0_batch, problem_data, gx, gy, prm)
+    from libdogleg_tpu_torch.ops import mega
+    if products_fn.cuda_device_function == "quadratic_surface_products":
+        if not isinstance(problem_data, torch.Tensor):
+            raise ValueError("the kernel's products take the (B, 100) "
+                             "measurements as problem_data")
+        gx, gy = qs.make_grid(p0_batch.dtype, p0_batch.device)
+        return mega.megakernel_optimize(p0_batch, problem_data, gx, gy, prm)
+    if (not isinstance(problem_data, (tuple, list)) or len(problem_data) != 4
+            or getattr(products_fn, "G_pair", None) is None):
+        raise ValueError("the kernel's factored products take (h_hi, h_lo, "
+                         "n2m_hi, n2m_lo) as problem_data and the Gram pair "
+                         "from quadratic_surface.factored_products_fn")
+    return mega.megakernel_optimize_factored(p0_batch, *problem_data,
+                                             products_fn.G_pair, prm)
 
 
 def batched_optimize(products_fn,
@@ -168,7 +184,7 @@ def batched_optimize(products_fn,
         products_fn, p0_batch, parameters, mesh, problem_data, newton_solver,
         layout, record_history, use_megakernel)
     if batched_of is None:
-        return _run_megakernel(p0_batch, problem_data, prm)
+        return _run_megakernel(products_fn, p0_batch, problem_data, prm)
     return solve_products_batched(batched_of(), p0_batch, prm,
                                   newton_solver=newton_solver)
 
@@ -217,7 +233,7 @@ def batched_optimize_compacted(products_fn,
         products_fn, p0_batch, parameters, mesh, problem_data, newton_solver,
         layout, record_history, use_megakernel)
     if batched_of is None:
-        return _run_megakernel(p0_batch, problem_data, prm)
+        return _run_megakernel(products_fn, p0_batch, problem_data, prm)
     cap = compact_capacity or max(p0_batch.shape[0] // 16, 1)
     full = batched_of()
 

@@ -4,7 +4,7 @@ Each adapter reduces an operating point to the solver's Products, following
 the reference's callback flavors (reference dogleg.h:11-45): dense
 (x + J), sparse (x + block-CSR J), dense-products (norm2x, Jt_x, JtJ), and,
 beyond the reference, residual-only with the Jacobian from forward-mode
-autodiff.
+autodiff and the basis-factored form on sufficient statistics.
 """
 
 from __future__ import annotations
@@ -154,6 +154,90 @@ class ResidualProblem:
 
     def dense_jacobian(self, p: torch.Tensor) -> torch.Tensor:
         return torch.func.jacfwd(self.f)(p)
+
+
+@dataclasses.dataclass(frozen=True)
+class FactoredBasisProblem:
+    """Separable (basis-factored) residual: x(p) = B @ coeffs(p) - meas
+    with B a static (nmeas, nbasis) basis and coeffs(p) the (usually much
+    smaller) nonlinear core. With G = B^T B and h = B^T meas computed once,
+
+        J     = B T,  T = d coeffs / dp
+        JtJ   = T^T G T
+        Jt_x  = T^T (G c - h)
+        norm2 = c.(G c - h) + (meas.meas - c.h)
+
+    so an evaluation never touches the measurement axis: it reads
+    2 nbasis + 2 values of sufficient statistics and does O(nbasis^2)
+    operations. The reference's callbacks always walk the measurement
+    vector (reference dogleg.h:24-45); this is a reformulation of the same
+    mathematics, exact up to float association.
+
+    Numerics: G c and h are large and cancel down to the gradient's scale,
+    far below float32 resolution, so G, h and meas.meas are held as
+    double-working-precision (hi, lo) pairs and the cancelling combinations
+    run in compensated arithmetic (ops/compensated.py). The products are
+    plain torch.matmul, which runs in true float32 on the card (TF32 off,
+    hazard F1).
+
+    coeffs_jac defaults to torch.func.jacfwd(coeffs); pass a closed form
+    when there is one. Build per-instance statistics with
+    FactoredBasisProblem.statistics(B, meas) (a leading batch axis on meas
+    gives a batch of them) and the static Gram pair with
+    FactoredBasisProblem.gram(B64, dtype, device): B in float64 there, Gram
+    entries routinely exceed float32's exact-integer range.
+
+    The products take leading batch axes on p and the statistics where
+    coeffs and coeffs_jac do (the default jacfwd does not; torch.func.vmap
+    the products then). Counterpart of libdogleg_tpu/problems.py:158-241."""
+    coeffs: Callable[[torch.Tensor], torch.Tensor]
+    G_pair: Tuple[torch.Tensor, torch.Tensor]
+    stats: Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+    coeffs_jac: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+
+    @staticmethod
+    def gram(B64, dtype, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """G = B^T B as a double-float32 (or degenerate float64) pair, on
+        `device` (None: the CUDA device); B64 is taken as numpy float64 so
+        that the split keeps the low bits."""
+        from libdogleg_tpu_torch.device import resolve_device
+        device = resolve_device(device)
+        B64 = np.asarray(B64, np.float64)
+        G = B64.T @ B64
+        hi = G.astype(np.float32).astype(np.float64)
+        return (torch.as_tensor(hi, dtype=dtype, device=device),
+                torch.as_tensor(G - hi, dtype=dtype, device=device))
+
+    @staticmethod
+    def statistics(B, measurements):
+        """Per-instance sufficient statistics as compensated pairs:
+        (h_hi, h_lo, n2m_hi, n2m_lo) with h = B^T meas, n2m = meas.meas.
+        measurements (..., nmeas) gives h (..., nbasis), n2m (...)."""
+        from libdogleg_tpu_torch.ops import compensated as comp
+        hh, hl = comp.comp_matvec(B.mT, measurements)
+        p, e = comp.two_prod(measurements, measurements)
+        nh, nl = comp.comp_reduce(p, e, axis=-1)
+        return hh, hl, nh, nl
+
+    def products(self, p: torch.Tensor) -> Products:
+        from libdogleg_tpu_torch.ops import compensated as comp
+        hh, hl, nh, nl = self.stats
+        Ghi, Glo = self.G_pair
+        c = self.coeffs(p)
+        T = (self.coeffs_jac or torch.func.jacfwd(self.coeffs))(p)
+        gh, gl = comp.comp_matvec_pair(Ghi, Glo, c)      # G c
+        dh, dl = comp.pair_add(gh, gl, -hh, -hl)         # g = G c - h
+        g = comp.collapse(dh, dl)
+        Jt_x = (T.mT @ g[..., None])[..., 0]
+        JtJ = T.mT @ ((Ghi + Glo) @ T)
+        wh, wl = comp.pair_dot_pair(c, hh, hl)           # c . h
+        uh, ul = comp.pair_add(nh, nl, -wh, -wl)         # n2m - c.h
+        norm2 = dops.dot(c, g) + comp.collapse(uh, ul)
+        # c.(Gc - h) + (m.m - c.h) can cancel a hair below zero near the
+        # optimum, where x @ x cannot: clamp, so that no consumer sees a
+        # negative cost. Exact whenever the true value is nonnegative.
+        norm2 = torch.maximum(norm2, torch.zeros_like(norm2))
+        return Products(norm2_x=norm2, Jt_x=Jt_x, JtJ=JtJ)
 
 
 def optimize(problem,

@@ -4,16 +4,18 @@ libdogleg_tpu/sample.py).
 Usage:
     python -m libdogleg_tpu_torch.sample [--check] [--f32]
         [--device cuda|cpu] sparse|dense|dense-products-packed-upper|
-        dense-products-unpacked|residual
+        dense-products-unpacked|residual|factored
 
 Solves the 6-parameter quadratic-surface fit in the chosen mode; --check
 asserts convergence within 8 accepted steps and per-parameter recovery
 within 5e-2 (reference sample.c:364-365, 424-457). `sparse` goes through
 the block-CSR SparseProblem with every block stored. The two dense-products
 spellings exercise the packed-upper and unpacked JtJ layouts. `residual` is
-the autodiff mode. The measurements and the start point come from
-torch.Generators seeded 0 and 1 on the CPU, so every device solves the same
-instance. The solve runs on the CUDA device unless --device cpu is given;
+the autodiff mode. `factored` is the sufficient-statistics form
+(FactoredBasisProblem): the same optimum at a cost per evaluation
+independent of the measurement count. The measurements and the start
+point come from torch.Generators seeded 0 and 1 on the CPU, so every device
+solves the same instance. The solve runs on the CUDA device unless --device cpu is given;
 with no CUDA device and no --device cpu it prints a message and returns 1.
 """
 
@@ -27,7 +29,7 @@ RED = "\x1b[31m"
 RESET = "\x1b[0m"
 
 MODES = ("sparse", "dense", "dense-products-packed-upper",
-         "dense-products-unpacked", "residual")
+         "dense-products-unpacked", "residual", "factored")
 
 
 def main(argv=None) -> int:
@@ -67,6 +69,8 @@ def main(argv=None) -> int:
         problem = sp.make_dense_problem(meas)
     elif args.mode == "residual":
         problem = sp.make_residual_problem(meas)
+    elif args.mode == "factored":
+        problem = sp.make_factored_problem(meas)
     elif args.mode.endswith("packed-upper"):
         # the user callback produces packed-upper JtJ; the adapter expands
         # it (sample.c:165-237)

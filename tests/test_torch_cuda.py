@@ -1,5 +1,5 @@
-"""Kernels K1-K7 on a CUDA card against their plain twins on the same
-card.
+"""Kernels K1-K7 (K1 in both of its instances) on a CUDA card against
+their plain twins on the same card.
 
 These tests need an NVIDIA GPU and skip without one. This file imports no
 jax, so it runs on a machine that has only PyTorch:
@@ -511,3 +511,92 @@ def test_launch_target_is_the_current_stream(cuda):
     side = torch.cuda.Stream(cuda)
     with torch.cuda.stream(side):
         assert launch_target(cuda)[1] == side.cuda_stream
+
+
+def _error_free_pairs(n, seed, dtype, device):
+    """n pairs with exponents spanning -60..60, the pair's exponents summing
+    to at least -96, so that the exact error of a * b is no subnormal."""
+    rng = np.random.default_rng(seed)
+    ea = rng.integers(-60, 61, n)
+    eb = rng.integers(np.maximum(-60, -96 - ea), 61)
+
+    def draw(e):
+        m = rng.uniform(1.0, 2.0, n) * rng.choice([-1.0, 1.0], n)
+        return torch.as_tensor(np.ldexp(m, e), dtype=dtype, device=device)
+    return draw(ea), draw(eb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_error_free_transforms_exact_on_card(cuda, dtype):
+    """Hazard F2: the kernel's two_prod (fma) and two_sum (uncontracted)
+    are exact, and bit for bit the eager split forms."""
+    a, b = _error_free_pairs(1 << 16, 7, dtype, cuda)
+    got = mega.error_free_transforms(a, b)
+    want = mega.error_free_transforms_reference(a, b)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if dtype == torch.float32:
+        p, e, s, es = (t.double() for t in got)
+        assert torch.equal(p + e, a.double() * b.double())
+        assert torch.equal(s + es, a.double() + b.double())
+
+
+def _factored_instances(seed, batch, dtype, device):
+    p0, meas, _, _ = _instances(seed, batch, dtype, device)
+    return (p0, *qs.factored_statistics(meas),
+            qs.gram_pair(dtype, device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol,rtol_jtj",
+                         [(torch.float64, 1e-12, 1e-12),
+                          (torch.float32, 1e-6, 1e-5)])
+def test_factored_products_device_function_matches_twin(cuda, dtype, rtol,
+                                                        rtol_jtj):
+    """The tolerances of tests/test_pallas_mega.py:177-183."""
+    p0, hh, hl, nh, nl, G = _factored_instances(3, 1000, dtype, cuda)
+    for p in (p0, torch.as_tensor(qs.P_TRUE, dtype=dtype, device=cuda)
+              + 1e-3 * p0):
+        n2, jtx, jtj = mega.factored_products_device(p, (hh, hl, nh, nl), G)
+        tn2, tjtx, tjtj = qs.factored_products_minor(
+            p.t(), hh.t(), hl.t(), nh[None], nl[None], *G)
+        np.testing.assert_allclose(n2.cpu().numpy(), tn2[0].cpu().numpy(),
+                                   rtol=rtol)
+        np.testing.assert_allclose(jtx.cpu().numpy(),
+                                   tjtx.t().cpu().numpy(), rtol=rtol,
+                                   atol=1e-8)
+        # the kernel computes JtJ's lower triangle and mirrors it; the
+        # twin's upper triangle sums the same terms in another order
+        assert torch.equal(jtj, jtj.mT)
+        np.testing.assert_allclose(
+            torch.tril(jtj).cpu().numpy(),
+            torch.tril(tjtj.permute(2, 0, 1)).cpu().numpy(), rtol=rtol_jtj)
+
+
+@pytest.mark.cuda
+def test_factored_kernel_f64_decisions_equal_twin(cuda):
+    args = _factored_instances(0, 1000, torch.float64, cuda)
+    before = mega.factored_launch_count
+    r_k = mega.megakernel_optimize_factored(*args)
+    torch.cuda.synchronize()
+    assert mega.factored_launch_count == before + 1
+    r_t = mega.megakernel_optimize_factored_reference(*args)
+    for field in ("step_count", "n_attempts", "reason"):
+        assert torch.equal(getattr(r_k, field), getattr(r_t, field)), field
+    np.testing.assert_allclose(r_k.p.cpu().numpy(), r_t.p.cpu().numpy(),
+                               rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_batched_optimize_launches_factored_kernel(cuda):
+    p0, hh, hl, nh, nl, G = _factored_instances(2, 256, torch.float32, cuda)
+    before = (mega.launch_count, mega.factored_launch_count)
+    r = batched_optimize(qs.factored_products_fn(G), p0, BENCH,
+                         problem_data=(hh, hl, nh, nl))
+    assert (mega.launch_count, mega.factored_launch_count) == (
+        before[0], before[1] + 1)
+    assert r.p.is_cuda and r.p.shape == (256, qs.NSTATE)
+    assert bool((r.reason > 0).all())
+    err = np.abs(r.p.cpu().double().numpy() - qs.P_TRUE)
+    assert np.mean(np.all(err < 0.2, axis=1)) >= 0.99
