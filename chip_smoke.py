@@ -3,18 +3,29 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
+It holds and times the kernels the package ships; the grid of K1's lanes
+per problem that chose them is artifacts/exp_torch_k1_parent.py's.
+
 Phases, each printing its own lines:
   1. the card (nvidia-smi name and power limit) and the software versions;
-  2. build kernel K1 (csrc/mega.cu) from the checkout with nvcc;
+  2. build the kernels (csrc/*.cu) from the checkout with nvcc, with
+     ptxas's registers and spills, and the lanes per problem of K1's two
+     instances as the library reports them;
   3. K1 against its plain PyTorch twin on the card, on numpy-seeded inputs:
-     float64 at B=1024 (identical decisions, p within rtol 1e-9) and float32
-     at B=8192 under the benchmark stopping rule (decision agreement >= 0.85,
-     kernel recovered_frac >= 0.99, norm2_x within rtol 1e-2, atol 1e-4);
+     float64 at B=1024 and at B = 1, 31, 1000, 8193 (identical decisions,
+     p within rtol 1e-9) and float32 at B=8192 under the benchmark stopping
+     rule (decision agreement >= 0.85, kernel recovered_frac >= 0.99,
+     norm2_x within rtol 1e-2, atol 1e-4); the general device function
+     alone against grouped_products_reference (float64 1e-12, float32 1e-5
+     of products_magnitude, at the starts and near the truth);
   4. the public path: batched_optimize(quadratic_surface.products, ...) on
-     8192 float32 problems, which must launch K1 and recover >= 99%;
+     8192 float32 problems, which must launch K1 and recover >= 99%; its
+     host wall, alone and over a loop of calls ended by one synchronize,
+     and a call that must not wait for the card;
   5. the single-solve CLI, `sample --check --device cuda <mode>`, in every
      ported mode (float64), `factored` among them;
-  6. CUDA-event timing of K1 and of the twin at B=8192 float32;
+  6. CUDA-event timing of K1 and of the twin at B=8192 float32, and the
+     attempts a problem took;
   7. K2 (csrc/panelchol.cu) against its twin: panels p in {16, 32, 64, 128,
      240, 256}, batch {1, 8}, float32 and float64 (L and inv(L) within 1e-10
      (f64) or 2e-4 (f32) of their largest entry, L inv(L) within the same of
@@ -95,14 +106,16 @@ Phases, each printing its own lines:
      factored_products_minor at B=8192 (float64 rtol 1e-12, float32 the
      tolerances of tests/test_pallas_mega.py:177-183); the kernel against
      its twin in float64 at B=1024 (identical decisions, p within rtol
-     1e-9) and in float32 at B=8192 under the benchmark rule (agreement >=
-     0.85, recovered_frac >= 0.99), the statistics made on the card; the
+     1e-9; also at B = 1, 31, 1000, 8193) and in float32 at B=8192 under
+     the benchmark rule (agreement >= 0.85, recovered_frac >= 0.99), the
+     statistics made on the card; the
      public path, factored_statistics then
      batched_optimize(factored_products_fn(G), ...), at B=8192 float32: the
      factored K1 launched, the general one not, every reason > 0,
      recovered_frac >= 0.99; CUDA-event times of the kernel with its
      wrapper (in turns with phase 6's general K1), alone (profiler), its
-     twin, the statistics transform, the whole call, and a profiler split.
+     twin, the statistics transform, the whole call, and a profiler split;
+     and the attempts a problem took.
 Then one JSON line about the kernels (time, plain version's time, the
 library call's where one exists, and the bound from this run's shapes; K1
 once per instance), the card line again, and a last JSON
@@ -1435,6 +1448,8 @@ def phase17_factored(dev, bench) -> dict:
           f"max |dp| {(r_k.p - r_t.p).abs().max().item():.3e} (rtol 1e-9); "
           f"reasons {torch.bincount(r_k.reason, minlength=7).tolist()}",
           flush=True)
+    print(f"[17 K1 factored f64] {ragged_f64_decisions(dev, factored=True)}",
+          flush=True)
 
     args32, meas32 = factored_args(1, BATCH, torch.float32, dev)
     r_k = mega.megakernel_optimize_factored(*args32, bench)
@@ -1528,8 +1543,8 @@ def phase17_factored(dev, bench) -> dict:
           f"{us_text(alone_g['dogleg_mega_kernel'])}; twin {plain_ms:.4f} "
           f"ms; bound {limit['bound_ms'] * 1e3:.2f} us by "
           f"{limit['bound_by']} ({evals / BATCH:.2f} products evaluations "
-          f"a problem, {FACTORED_PRODUCTS_OPS} operations each); card {card}",
-          flush=True)
+          f"a problem, {FACTORED_PRODUCTS_OPS} operations each); "
+          f"{attempts_text(r_b.n_attempts)}; card {card}", flush=True)
     print(f"[17 timing B={BATCH} f32] factored_statistics on the (B, 100) "
           f"measurements {stats_ms:.4f} ms; the whole call (statistics and "
           f"batched_optimize) {call_ms:.4f} ms by CUDA events over 20 calls "
@@ -1543,6 +1558,109 @@ def phase17_factored(dev, bench) -> dict:
           flush=True)
     return dict(launches=launches, max_abs_err=max_abs_err, ms=ms,
                 plain_ms=plain_ms, library_ms=None, **limit)
+
+
+F64_BATCHES = (1, 31, 1000, 8193)  # no multiple of a group, warp or block
+
+
+def ptxas_k1(log: str) -> list:
+    """ptxas's registers and spills of each K1 solve kernel in an nvcc log,
+    one short line each."""
+    import re
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"entry function '.*?(dogleg_mega(?:_factored)?_kernel)"
+                      r"I([fd])Li(\d+)E", line)
+        if "entry function" in line:
+            name = (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}"
+                    f", G={m.group(3)}>" if m else None)
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name}: {regs} registers; {spill}")
+            name = None
+    return out
+
+
+def attempts_text(n_attempts) -> str:
+    """Mean, 99th percentile and largest of the attempts a problem took."""
+    a = n_attempts.double()
+    return (f"attempts a problem mean {a.mean().item():.2f}, p99 "
+            f"{a.quantile(0.99).item():.0f}, max {int(a.max().item())}")
+
+
+def public_call_walls(p0, meas, bench) -> str:
+    """The host wall of the public call batched_optimize(quadratic_surface.
+    products, ...): single calls, each ended by a synchronize; a loop of 50
+    calls ended by one synchronize (the enqueue and the whole); and whether
+    a call waits for the card (torch.cuda's sync debug mode set to raise).
+    Fails if it does."""
+    import torch
+
+    from libdogleg_tpu_torch.models import quadratic_surface as qs
+    from libdogleg_tpu_torch.parallel import batched_optimize
+
+    def call():
+        return batched_optimize(qs.products, p0, bench, problem_data=meas)
+    single = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        single.append((time.perf_counter() - t0) * 1e3)
+    loop = 50
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(loop):
+        call()
+    enqueued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    whole = time.perf_counter() - t0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+        waits = None
+    except RuntimeError as e:
+        waits = str(e).splitlines()[0][:160]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(waits is None, f"the public call does not wait for the card: "
+          f"{waits}")
+    return (f"host wall of single calls ms "
+            f"{', '.join(f'{w:.3f}' for w in single)}; a loop of {loop} "
+            f"calls ended by one synchronize: {enqueued / loop * 1e3:.4f} ms a "
+            f"call to enqueue, {whole / loop * 1e3:.4f} ms a call in all; the "
+            f"call does not wait for the card (sync debug mode)")
+
+
+def ragged_f64_decisions(dev, factored: bool) -> str:
+    """K1's instance against its twin in float64 at F64_BATCHES: identical
+    decisions, p within rtol 1e-9. Returns a line's text."""
+    import torch
+
+    from libdogleg_tpu_torch.ops import mega
+    fn, twin = ((mega.megakernel_optimize_factored,
+                 mega.megakernel_optimize_factored_reference) if factored
+                else (mega.megakernel_optimize,
+                      mega.megakernel_optimize_reference))
+    worst = 0.0
+    for i, batch in enumerate(F64_BATCHES):
+        args = (factored_args(20 + i, batch, torch.float64, dev)[0]
+                if factored else instances(20 + i, batch, torch.float64, dev))
+        r_k, r_t = fn(*args), twin(*args)
+        torch.cuda.synchronize()
+        for field in ("step_count", "n_attempts", "reason"):
+            check(torch.equal(getattr(r_k, field), getattr(r_t, field)),
+                  f"f64 B={batch} {field} identical")
+        check(torch.allclose(r_k.p, r_t.p, rtol=1e-9, atol=1e-12),
+              f"f64 B={batch} p within rtol 1e-9")
+        check(torch.allclose(r_k.JtJ, r_t.JtJ, rtol=1e-9, atol=0.0),
+              f"f64 B={batch} JtJ within rtol 1e-9")
+        worst = max(worst, (r_k.p - r_t.p).abs().max().item())
+    return (f"decisions identical to the twin's at B = "
+            f"{', '.join(map(str, F64_BATCHES))}; max |dp| {worst:.3e}")
 
 
 def main() -> int:
@@ -1582,6 +1700,10 @@ def main() -> int:
         if ("registers" in line or "spill" in line
                 or "entry function" in line):
             print(f"[2 ptxas] {line.strip()}", flush=True)
+    general_g = mega.kernel_group()
+    print(f"[2 K1] the library's lanes per problem: general G={general_g}, "
+          f"factored G={mega.kernel_group(factored=True)}; "
+          f"{'; '.join(ptxas_k1(info.log))}", flush=True)
 
     # 3. kernel vs twin
     args64 = instances(0, 1024, torch.float64, dev)
@@ -1597,6 +1719,29 @@ def main() -> int:
     print(f"[3 f64 B=1024] decisions identical; max |dp| {err64:.3e} "
           f"(rtol 1e-9); reasons "
           f"{torch.bincount(r_k.reason, minlength=7).tolist()}", flush=True)
+    print(f"[3 f64] {ragged_f64_decisions(dev, factored=False)}", flush=True)
+    # the device products against the grouped order of summation
+    for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        p0_, meas_, gx_, gy_ = instances(3, BATCH, dtype, dev)
+        near = torch.as_tensor(qs.P_TRUE, dtype=dtype, device=dev) + 1e-2 * p0_
+        for where, p in (("the starts", p0_), ("near the truth", near)):
+            got = mega.products_device(p, meas_, gx_, gy_)
+            want = mega.grouped_products_reference(p, meas_, gx_, gy_,
+                                                   general_g)
+            worst = []
+            for label, g, w, m in zip(
+                    ("norm2", "Jt_x", "JtJ"), got, want,
+                    mega.products_magnitude(p, meas_, gx_, gy_)):
+                worst.append(float(((g - w).abs() / m).max()))
+                check(worst[-1] <= rtol,
+                      f"general products {dtype} {label} at {where} within "
+                      f"rtol {rtol} of products_magnitude: {worst[-1]:.3e}")
+            print(f"[3 products {str(dtype).split('.')[-1]} B={BATCH} at "
+                  f"{where}] the device function against "
+                  f"grouped_products_reference (G={general_g}): largest "
+                  f"difference over products_magnitude (rtol {rtol}): norm2 "
+                  f"{worst[0]:.2e}, Jt_x {worst[1]:.2e}, JtJ {worst[2]:.2e}",
+                  flush=True)
 
     args32 = instances(1, BATCH, torch.float32, dev)
     r_k = mega.megakernel_optimize(*args32, bench)
@@ -1631,6 +1776,8 @@ def main() -> int:
     print(f"[4 batched_optimize B={BATCH} f32] K1 launches {launches}; "
           f"recovered_frac {rec:.4f}; reasons "
           f"{torch.bincount(r.reason, minlength=7).tolist()}", flush=True)
+    print(f"[4 public call B={BATCH} f32] {public_call_walls(p0, meas, bench)}"
+          f"; card {card}", flush=True)
 
     # 5. the single-solve CLI on the card
     for mode in sample.MODES:
@@ -1663,8 +1810,8 @@ def main() -> int:
           f"({BATCH / ms * 1e3:.0f} solves/s); twin {plain_ms:.4f} ms "
           f"({BATCH / plain_ms * 1e3:.0f} solves/s); bound "
           f"{k1_bound['bound_ms'] * 1e3:.2f} us by {k1_bound['bound_by']} "
-          f"({evals / BATCH:.2f} products evaluations a problem); card "
-          f"{card}", flush=True)
+          f"({evals / BATCH:.2f} products evaluations a problem); "
+          f"{attempts_text(r_b.n_attempts)}; card {card}", flush=True)
 
     k2 = phase7_panel(dev)
     k2.update(phase8_slice(dev, bench))

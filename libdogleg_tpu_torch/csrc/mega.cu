@@ -20,31 +20,52 @@
 // criteria 1-4 and the attempt cap -- and the final p, Jt_x, JtJ, norm2_x,
 // trust region, lambda, step count, attempt count and stop reason.
 //
-// Design. One thread per problem; its whole state (products, cached steps,
-// Cholesky factor: about 160 values at n=6) lives in registers. Each thread
-// runs its own attempt loop and stops when its own problem is done, where the
-// Pallas kernel looped its whole lane tile until the slowest lane was done.
-// The lambda escalation is a plain bounded loop, the Gauss-Newton step and
-// its factorization are computed only when the attempt needs a fresh one
+// Design. A group of G lanes of one warp per problem (G a power of two, set
+// per instance below). Every lane of the group holds the problem's whole
+// state in registers (products, cached steps, Cholesky factor: about 160
+// values at n=6) and runs the step math redundantly; the lanes share only
+// the products:
+//   - general (G = 4): lane r of the group takes measurements r, r + G,
+//     r + 2G, ... of the problem's row of the (B, 100) measurements, as the
+//     caller holds them (a group reads one contiguous 400- or 800-byte row),
+//     with the grid in shared memory, loaded once a block; the 28 partial
+//     sums (norm2, Jt_x, JtJ's lower triangle) are combined by a xor
+//     butterfly within the group;
+//   - factored (G = 1): its 14 statistics are read per problem from their
+//     own (B, 6) and (B,) arrays, once, into registers; the (6, 6) Gram pair
+//     and its sum Ghi + Glo sit in shared memory, once a block. A build
+//     with G > 1 has every lane of a group compute all of the products; no
+//     such G was faster than G = 1 at every batch of the grid (PERF.md §6),
+//     so a problem has one thread, 32 to a block.
+// IEEE addition commutes, so after the butterfly every lane of a group holds
+// the same bits, takes the same branches and never diverges from the others;
+// only lane 0 writes the results. Each thread runs its own attempt loop and
+// stops when its own problem is done, so a warp waits for the slowest of its
+// 32 / G problems (one thread per problem made it wait for 32). Lanes past
+// the batch compute problem B - 1 again and write nothing: no lane leaves
+// before a shuffle, and every shuffle names its own group's lanes only,
+// because the groups of a warp run different numbers of attempts. The lambda
+// escalation is a plain bounded loop, the Gauss-Newton step and its
+// factorization are computed only when the attempt needs a fresh one
 // (solver.py's lazy cache; the Pallas kernel refactored every attempt), and
 // the trial products run only when the attempt evaluates a trial point.
-// The general instance reads the measurements batch-minor, (100, B), so a
-// warp's 32 loads of one measurement index are one contiguous 128-byte read;
-// the grid sits in shared memory, loaded once per block. The factored
-// instance reads its 14 statistics per problem batch-minor, (14, B), once,
-// into registers, and the (6, 6) Gram pair and its sum Ghi + Glo into shared
-// memory once per block.
+// Blocks are 32 G threads, at most 128, so that ceil(B G / threads) blocks
+// cover the 132 SMs at B = 8192 for every G.
 //
-// What bounds it on this card: per-thread serial floating-point work and its
-// latency. The general products are ~100 x 83 operations a call, about ten
-// calls a solve, and the f64 instance is near the register limit, with the
-// 3.3 MB of f32 measurements read once a call, mostly from the 50 MB L2. The
-// factored products are 626 operations a call on registers and shared
-// memory; the step math (a few hundred operations an attempt, a Cholesky of
-// 6 among them) is then of the same size. At B=8192 and 128 threads per block the launch has
-// 64 blocks, so it fills only 64 of the 132 SMs with 4 warps each: the card
-// is far from full, and more work per SM needs a larger batch or several
-// threads per problem.
+// What bounds it on this card (the grid of G in PERF.md §6): the dependent
+// chain of the batch's slowest problem, its attempts times the latency of
+// an attempt's step math (a Cholesky of 6, IEEE divisions and square roots,
+// the same on every lane, not shortened by G) and products, and, as G and B
+// grow, the schedulers' instruction throughput. The general products are
+// 100 x 83 operations an evaluation on one lane; split over G lanes they
+// cost 100 / G of that plus 28 log2 G shuffles and sums, which took 99 us to
+// 54-58 us at B = 8192 and G = 4 on an H100 80GB HBM3 (700 W), while at
+// B = 1024 no G goes below ~32 us: the slowest chain. The factored products
+// are 626 operations, and the factored instance stays at 25-30 us at
+// B = 1024 and ~35 us at B = 8192 for G = 1 and 2: the chain again (giving
+// the lanes of a group the six rows of G c - h in turn shortened it no
+// further).
+// The 3.3 MB of f32 measurements stay in the 50 MB L2.
 //
 // Numerics: built without --use_fast_math. Every comparison with a NaN must
 // be false (the NaN-rho rule of params.py and solver.py), and the pivot test
@@ -56,12 +77,23 @@
 // They are written with the __fadd_rn/__fmul_rn family, which is never
 // contracted, in the twin's order operation for operation, and two_prod is
 // p = a*b, e = fma(a, b, -p), exact without a split. The rest of the file
-// keeps the default contraction, so the general instance's bits do not
-// depend on this.
+// keeps the default contraction.
 
 #include <cfloat>
 #include <cstddef>
 #include <cuda_runtime.h>
+
+// Lanes per problem of each instance, chosen by the grid measured on the
+// H100 (PERF.md §6), and set here only: the wrappers read them through
+// dogleg_mega_group. A build may set them with -D to time another choice,
+// as artifacts/exp_torch_k1_parent.py does; the package's library is built
+// with these.
+#ifndef K1_GENERAL_GROUP
+#define K1_GENERAL_GROUP 4
+#endif
+#ifndef K1_FACTORED_GROUP
+#define K1_FACTORED_GROUP 1
+#endif
 
 // Solver parameters; must match ops/mega.py::_MegaParams field for field.
 struct DoglegMegaParams {
@@ -84,7 +116,16 @@ namespace {
 constexpr int N = 6;                // states
 constexpr int M = 100;              // measurements
 constexpr int NP = N * (N + 1) / 2; // packed symmetric / triangular size
-constexpr int THREADS = 128;        // threads (problems) per block
+constexpr int GENERAL_G = K1_GENERAL_GROUP;
+constexpr int FACTORED_G = K1_FACTORED_GROUP;
+constexpr int MAX_THREADS = 128;    // threads per block at most
+constexpr int THREADS = 128;        // threads per block of the check kernels
+
+// Threads per block for groups of G lanes: 32 G, at most MAX_THREADS.
+template <int G>
+constexpr int threads_for() {
+  return 32 * G < MAX_THREADS ? 32 * G : MAX_THREADS;
+}
 
 // StopReason codes of libdogleg_tpu_torch/solver.py.
 enum : int {
@@ -100,6 +141,48 @@ enum : int {
 // Index of element (i, j) of a packed lower triangle; symmetric access.
 __host__ __device__ constexpr int pk(int i, int j) {
   return i >= j ? i * (i + 1) / 2 + j : j * (j + 1) / 2 + i;
+}
+
+// The G lanes of one warp that share a problem: this lane's rank in the
+// group and the group's lanes as a shuffle mask. Blocks are a multiple of
+// 32 threads, so threadIdx.x locates the lane in its warp.
+template <int G>
+struct Group {
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0,
+                "a group is a power of two of lanes within a warp");
+  unsigned mask;
+  int rank;
+
+  __device__ __forceinline__ explicit Group(int thread)
+      : mask(G == 32 ? 0xffffffffu
+                     : ((1u << G) - 1u) << ((thread & 31) & ~(G - 1))),
+        rank(thread & (G - 1)) {}
+
+  // v summed over the group by a xor butterfly. Lane r adds v(r ^ k) to
+  // its own and lane r ^ k adds v(r) to its own; addition commutes, so
+  // every lane ends with the same bits.
+  template <typename T>
+  __device__ __forceinline__ T sum(T v) const {
+#pragma unroll
+    for (int k = 1; k < G; k <<= 1) v += __shfl_xor_sync(mask, v, k);
+    return v;
+  }
+};
+
+// The problem this thread works on and whether it writes the results: the
+// global thread's index over G; a lane past the batch takes problem B - 1
+// again and writes nothing, so that its group still meets every shuffle.
+struct Lane {
+  int b;
+  bool write;
+};
+
+template <int G>
+__device__ __forceinline__ Lane lane_of(int B) {
+  const long long q =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
+  return {q < B ? static_cast<int>(q) : B - 1,
+          q < B && (threadIdx.x & (G - 1)) == 0};
 }
 
 template <typename T>
@@ -154,58 +237,50 @@ __device__ __forceinline__ T quad_form(const T (&A)[NP], const T (&v)[N]) {
   return q;
 }
 
-// The device function behind quadratic_surface.products: norm2(x), J^T x
-// and J^T J of the model m(x, y; p) - meas over the grid, for problem b.
-template <typename T>
-__device__ __forceinline__ void quadratic_surface_products(
-    const T (&p)[N], const T* __restrict__ meas_t, int B, int b,
-    const T* sgx, const T* sgy, Products<T>& out) {
-  T n2 = T(0);
-  T jtx[N];
-  T jtj[NP];
-#pragma unroll
-  for (int a = 0; a < N; ++a) jtx[a] = T(0);
-#pragma unroll
-  for (int a = 0; a < NP; ++a) jtj[a] = T(0);
-  const T p01 = p[0] * p[1];
-  const T p12 = p[1] * p[2];
-#pragma unroll 4
-  for (int i = 0; i < M; ++i) {
-    const T X = sgx[i];
-    const T Y = sgy[i];
-    const T meas = meas_t[static_cast<size_t>(i) * B + b];
-    const T x = p01 * X * X + p12 * Y * Y + p[2] * X * Y + p[3] * X +
-                p[4] * Y + p[5] - meas;
-    const T J[N] = {p[1] * X * X, p[0] * X * X + p[2] * Y * Y,
-                    p[1] * Y * Y + X * Y, X, Y, T(1)};
-    n2 += x * x;
-#pragma unroll
-    for (int a = 0; a < N; ++a) {
-      jtx[a] += J[a] * x;
-#pragma unroll
-      for (int c = 0; c <= a; ++c) jtj[pk(a, c)] += J[a] * J[c];
-    }
-  }
-  out.norm2 = n2;
-#pragma unroll
-  for (int a = 0; a < N; ++a) out.jtx[a] = jtx[a];
-#pragma unroll
-  for (int a = 0; a < NP; ++a) out.jtj[a] = jtj[a];
-}
-
-// The general instance's products functor: problem b's measurements and the
-// grid in shared memory.
-template <typename T>
+// The general instance's products functor, the device function behind
+// quadratic_surface.products: norm2(x), J^T x and J^T J of the model
+// m(x, y; p) - meas over the grid (in shared memory), for one problem's
+// row of measurements, its sums split over the group's lanes (the plain
+// version of that order is ops/mega.py::grouped_products_reference).
+template <typename T, int G>
 struct SurfaceProducts {
-  const T* __restrict__ meas_t;
-  int B;
-  int b;
+  const T* __restrict__ meas;  // the problem's 100 measurements
   const T* sgx;
   const T* sgy;
+  Group<G> group;
 
   __device__ __forceinline__ void operator()(const T (&p)[N],
                                              Products<T>& out) const {
-    quadratic_surface_products(p, meas_t, B, b, sgx, sgy, out);
+    T n2 = T(0);
+    T jtx[N];
+    T jtj[NP];
+#pragma unroll
+    for (int a = 0; a < N; ++a) jtx[a] = T(0);
+#pragma unroll
+    for (int a = 0; a < NP; ++a) jtj[a] = T(0);
+    const T p01 = p[0] * p[1];
+    const T p12 = p[1] * p[2];
+#pragma unroll 4
+    for (int i = group.rank; i < M; i += G) {
+      const T X = sgx[i];
+      const T Y = sgy[i];
+      const T x = p01 * X * X + p12 * Y * Y + p[2] * X * Y + p[3] * X +
+                  p[4] * Y + p[5] - meas[i];
+      const T J[N] = {p[1] * X * X, p[0] * X * X + p[2] * Y * Y,
+                      p[1] * Y * Y + X * Y, X, Y, T(1)};
+      n2 += x * x;
+#pragma unroll
+      for (int a = 0; a < N; ++a) {
+        jtx[a] += J[a] * x;
+#pragma unroll
+        for (int c = 0; c <= a; ++c) jtj[pk(a, c)] += J[a] * J[c];
+      }
+    }
+    out.norm2 = group.sum(n2);
+#pragma unroll
+    for (int a = 0; a < N; ++a) out.jtx[a] = group.sum(jtx[a]);
+#pragma unroll
+    for (int a = 0; a < NP; ++a) out.jtj[a] = group.sum(jtj[a]);
   }
 };
 
@@ -253,9 +328,10 @@ __device__ __forceinline__ void two_prod(T a, T b, T& p, T& e) {
 }
 
 // The device function behind quadratic_surface.factored_products_minor:
-// the products from problem b's statistics (in registers) and the Gram pair
-// G = Ghi + Glo (in shared memory, (6, 6) row-major; Gf = Ghi + Glo formed
-// once), operation for operation in the twin's order.
+// the products from one problem's statistics (in registers) and the Gram
+// pair G = Ghi + Glo (in shared memory, (6, 6) row-major; Gf = Ghi + Glo
+// formed once), operation for operation in the twin's order. Every lane of
+// a group computes all of them, so they need no shuffle.
 template <typename T>
 struct FactoredProducts {
   T hh[N], hl[N];  // h = basis^T meas as a pair
@@ -275,29 +351,32 @@ struct FactoredProducts {
     }
   }
 
+  // Row i of g = G c - h: the row of G c as a compensated pair by a
+  // sequential two_sum cascade, then the pair minus (h_hi, h_lo), collapsed.
+  __device__ __forceinline__ T g_row(int i, const T (&c)[N], T h_hi,
+                                     T h_lo) const {
+    T s, lo;
+    two_prod(Ghi[i * N], c[0], s, lo);
+    lo = add_rn(lo, mul_rn(Glo[i * N], c[0]));
+#pragma unroll
+    for (int j = 1; j < N; ++j) {
+      T pj, pe, se;
+      two_prod(Ghi[i * N + j], c[j], pj, pe);
+      two_sum(s, pj, s, se);
+      lo = add_rn(add_rn(add_rn(lo, pe), se), mul_rn(Glo[i * N + j], c[j]));
+    }
+    T d, e;
+    two_sum(s, -h_hi, d, e);
+    return add_rn(d, add_rn(sub_rn(lo, h_lo), e));
+  }
+
   __device__ __forceinline__ void operator()(const T (&p)[N],
                                              Products<T>& out) const {
     const T c[N] = {mul_rn(p[0], p[1]), mul_rn(p[1], p[2]), p[2], p[3], p[4],
                     p[5]};
-    // g = G c - h: each row of G c as a compensated pair by a sequential
-    // two_sum cascade, then the pair minus h, collapsed
     T g[N];
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      T s, lo;
-      two_prod(Ghi[i * N], c[0], s, lo);
-      lo = add_rn(lo, mul_rn(Glo[i * N], c[0]));
-#pragma unroll
-      for (int j = 1; j < N; ++j) {
-        T pj, pe, se;
-        two_prod(Ghi[i * N + j], c[j], pj, pe);
-        two_sum(s, pj, s, se);
-        lo = add_rn(add_rn(add_rn(lo, pe), se), mul_rn(Glo[i * N + j], c[j]));
-      }
-      T d, e;
-      two_sum(s, -hh[i], d, e);
-      g[i] = add_rn(d, add_rn(sub_rn(lo, hl[i]), e));
-    }
+    for (int i = 0; i < N; ++i) g[i] = g_row(i, c, hh[i], hl[i]);
     // Jt_x = T^T g
     out.jtx[0] = mul_rn(p[1], g[0]);
     out.jtx[1] = add_rn(mul_rn(p[0], g[0]), mul_rn(p[2], g[1]));
@@ -395,10 +474,12 @@ __device__ __forceinline__ void cho_solve(const T (&L)[NP], const T (&g)[N],
 }
 
 // The whole solve of problem b from p0[b], with the products `products`
-// computes; writes row b of `out`.
+// computes; writes row b of `out` where `write` holds. Every lane of a group
+// runs it on the same bits, so the lanes take the same branches.
 template <typename T, typename ProductsFn>
 __device__ __forceinline__ void dogleg_solve(const ProductsFn& products,
                                              const T* __restrict__ p0, int b,
+                                             bool write,
                                              const DoglegMegaParams& prm,
                                              const SolveOut<T>& out) {
   // Thresholds and factors in the working type, as the Python solvers
@@ -533,6 +614,7 @@ __device__ __forceinline__ void dogleg_solve(const ProductsFn& products,
     }
   }
 
+  if (!write) return;
   const size_t row = static_cast<size_t>(b);
 #pragma unroll
   for (int a = 0; a < N; ++a) {
@@ -550,38 +632,59 @@ __device__ __forceinline__ void dogleg_solve(const ProductsFn& products,
   out.reason[b] = reason;
 }
 
+// The grid into shared memory, once per block.
 template <typename T>
-__global__ void __launch_bounds__(THREADS) dogleg_mega_kernel(
-    const T* __restrict__ p0, const T* __restrict__ meas_t,
-    const T* __restrict__ gx, const T* __restrict__ gy, int B,
-    DoglegMegaParams prm, SolveOut<T> out) {
-  __shared__ T sgx[M];
-  __shared__ T sgy[M];
+__device__ __forceinline__ void load_grid(const T* __restrict__ gx,
+                                          const T* __restrict__ gy, T* sgx,
+                                          T* sgy) {
   for (int i = threadIdx.x; i < M; i += blockDim.x) {
     sgx[i] = gx[i];
     sgy[i] = gy[i];
   }
   __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  dogleg_solve<T>(SurfaceProducts<T>{meas_t, B, b, sgx, sgy}, p0, b, prm,
-                  out);
 }
 
-// Problem b's statistics, (14, B) batch-minor: h_hi, h_lo, n2m_hi, n2m_lo;
-// the Gram pair from shared memory.
+template <typename T, int G>
+__device__ __forceinline__ SurfaceProducts<T, G> surface_products_of(
+    const T* __restrict__ meas, int b, const T* sgx, const T* sgy) {
+  return {meas + static_cast<size_t>(b) * M, sgx, sgy, Group<G>(threadIdx.x)};
+}
+
+template <typename T, int G>
+__global__ void __launch_bounds__(threads_for<G>()) dogleg_mega_kernel(
+    const T* __restrict__ p0, const T* __restrict__ meas,
+    const T* __restrict__ gx, const T* __restrict__ gy, int B,
+    DoglegMegaParams prm, SolveOut<T> out) {
+  __shared__ T sgx[M];
+  __shared__ T sgy[M];
+  load_grid(gx, gy, sgx, sgy);
+  const Lane l = lane_of<G>(B);
+  dogleg_solve<T>(surface_products_of<T, G>(meas, l.b, sgx, sgy), p0, l.b,
+                  l.write, prm, out);
+}
+
+// The factored statistics of one problem, h_hi, h_lo (B, 6) and n2m_hi,
+// n2m_lo (B,), each from its own array; the Gram pair from shared memory.
+template <typename T>
+struct Stats {
+  const T* __restrict__ hh;
+  const T* __restrict__ hl;
+  const T* __restrict__ nh;
+  const T* __restrict__ nl;
+};
+
 template <typename T>
 __device__ __forceinline__ FactoredProducts<T> factored_products_of(
-    const T* __restrict__ stats_t, int B, int b, const T* sghi,
-    const T* sglo, const T* sgf) {
-  FactoredProducts<T> f;
+    const Stats<T>& st, int b, const T* sghi, const T* sglo, const T* sgf) {
+  FactoredProducts<T> f{};
+  const size_t row = static_cast<size_t>(b) * N;
 #pragma unroll
   for (int a = 0; a < N; ++a) {
-    f.hh[a] = stats_t[static_cast<size_t>(a) * B + b];
-    f.hl[a] = stats_t[static_cast<size_t>(N + a) * B + b];
+    f.hh[a] = st.hh[row + a];
+    f.hl[a] = st.hl[row + a];
   }
-  f.nh = stats_t[static_cast<size_t>(2 * N) * B + b];
-  f.nl = stats_t[static_cast<size_t>(2 * N + 1) * B + b];
+  f.nh = st.nh[b];
+  f.nl = st.nl[b];
   f.Ghi = sghi;
   f.Glo = sglo;
   f.Gf = sgf;
@@ -601,36 +704,33 @@ __device__ __forceinline__ void load_gram(const T* __restrict__ ghi,
   __syncthreads();
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS) dogleg_mega_factored_kernel(
-    const T* __restrict__ p0, const T* __restrict__ stats_t,
-    const T* __restrict__ ghi, const T* __restrict__ glo, int B,
-    DoglegMegaParams prm, SolveOut<T> out) {
+template <typename T, int G>
+__global__ void __launch_bounds__(threads_for<G>())
+    dogleg_mega_factored_kernel(const T* __restrict__ p0, Stats<T> st,
+                                const T* __restrict__ ghi,
+                                const T* __restrict__ glo, int B,
+                                DoglegMegaParams prm, SolveOut<T> out) {
   __shared__ T sghi[N * N], sglo[N * N], sgf[N * N];
   load_gram(ghi, glo, sghi, sglo, sgf);
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  dogleg_solve<T>(factored_products_of(stats_t, B, b, sghi, sglo, sgf), p0, b,
-                  prm, out);
+  const Lane l = lane_of<G>(B);
+  dogleg_solve<T>(factored_products_of<T>(st, l.b, sghi, sglo, sgf), p0,
+                  l.b, l.write, prm, out);
 }
 
-// The factored products alone at p (B, 6), for checking the device function
-// against its twin: norm2 (B,), Jt_x (B, 6), JtJ (B, 6, 6).
-template <typename T>
-__global__ void __launch_bounds__(THREADS) factored_products_kernel(
-    const T* __restrict__ p, const T* __restrict__ stats_t,
-    const T* __restrict__ ghi, const T* __restrict__ glo, int B,
-    T* __restrict__ norm2, T* __restrict__ jtx, T* __restrict__ jtj) {
-  __shared__ T sghi[N * N], sglo[N * N], sgf[N * N];
-  load_gram(ghi, glo, sghi, sglo, sgf);
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+// One evaluation's products of problem b at p, by lane 0 of its group.
+template <typename T, typename ProductsFn>
+__device__ __forceinline__ void products_at(const ProductsFn& products,
+                                            const T* __restrict__ p, int b,
+                                            bool write, T* __restrict__ norm2,
+                                            T* __restrict__ jtx,
+                                            T* __restrict__ jtj) {
   T q[N];
-#pragma unroll
-  for (int a = 0; a < N; ++a) q[a] = p[static_cast<size_t>(b) * N + a];
-  Products<T> r;
-  factored_products_of(stats_t, B, b, sghi, sglo, sgf)(q, r);
   const size_t row = static_cast<size_t>(b);
+#pragma unroll
+  for (int a = 0; a < N; ++a) q[a] = p[row * N + a];
+  Products<T> r;
+  products(q, r);
+  if (!write) return;
   norm2[b] = r.norm2;
 #pragma unroll
   for (int a = 0; a < N; ++a) {
@@ -638,6 +738,34 @@ __global__ void __launch_bounds__(THREADS) factored_products_kernel(
 #pragma unroll
     for (int c = 0; c < N; ++c) jtj[row * N * N + a * N + c] = r.jtj[pk(a, c)];
   }
+}
+
+// Each instance's products alone at p (B, 6), for checking the device
+// functions against their plain versions: norm2 (B,), Jt_x (B, 6), JtJ
+// (B, 6, 6), the lower triangle mirrored.
+template <typename T, int G>
+__global__ void __launch_bounds__(threads_for<G>()) surface_products_kernel(
+    const T* __restrict__ p, const T* __restrict__ meas,
+    const T* __restrict__ gx, const T* __restrict__ gy, int B,
+    T* __restrict__ norm2, T* __restrict__ jtx, T* __restrict__ jtj) {
+  __shared__ T sgx[M];
+  __shared__ T sgy[M];
+  load_grid(gx, gy, sgx, sgy);
+  const Lane l = lane_of<G>(B);
+  products_at(surface_products_of<T, G>(meas, l.b, sgx, sgy), p, l.b,
+              l.write, norm2, jtx, jtj);
+}
+
+template <typename T, int G>
+__global__ void __launch_bounds__(threads_for<G>()) factored_products_kernel(
+    const T* __restrict__ p, Stats<T> st, const T* __restrict__ ghi,
+    const T* __restrict__ glo, int B, T* __restrict__ norm2,
+    T* __restrict__ jtx, T* __restrict__ jtj) {
+  __shared__ T sghi[N * N], sglo[N * N], sgf[N * N];
+  load_gram(ghi, glo, sghi, sglo, sgf);
+  const Lane l = lane_of<G>(B);
+  products_at(factored_products_of<T>(st, l.b, sghi, sglo, sgf), p, l.b,
+              l.write, norm2, jtx, jtj);
 }
 
 // two_prod and two_sum on n pairs, for checking their exactness.
@@ -652,54 +780,96 @@ __global__ void error_free_kernel(const T* __restrict__ a,
   two_sum(a[i], b[i], s[i], se[i]);
 }
 
-int blocks_for(int n) { return (n + THREADS - 1) / THREADS; }
-
-template <typename T>
-SolveOut<T> solve_out(void* p, void* jtx, void* jtj, void* norm2, void* tr,
-                      void* lam, void* step_count, void* n_attempts,
-                      void* reason) {
-  return {static_cast<T*>(p), static_cast<T*>(jtx), static_cast<T*>(jtj),
-          static_cast<T*>(norm2), static_cast<T*>(tr), static_cast<T*>(lam),
-          static_cast<int*>(step_count), static_cast<int*>(n_attempts),
-          static_cast<int*>(reason)};
+// Blocks of threads_for<G>() threads for B problems of G lanes each.
+template <int G>
+int blocks_for(int B) {
+  const long long threads = static_cast<long long>(B) * G;
+  return static_cast<int>((threads + threads_for<G>() - 1) / threads_for<G>());
 }
 
-// Both instances take (p0, per-problem data, two shared arrays, B); the
-// general one the measurements (100, B) and the grid, the factored one the
-// statistics (14, B) and the Gram pair.
-template <typename T, bool Factored>
-int launch(const void* p0, const void* data_t, const void* shared_a,
-           const void* shared_b, int B, const DoglegMegaParams* prm, void* p,
-           void* jtx, void* jtj, void* norm2, void* tr, void* lam,
-           void* step_count, void* n_attempts, void* reason, int device,
-           void* stream) {
+template <typename T>
+SolveOut<T> solve_out(void* const* outs) {
+  return {static_cast<T*>(outs[0]), static_cast<T*>(outs[1]),
+          static_cast<T*>(outs[2]), static_cast<T*>(outs[3]),
+          static_cast<T*>(outs[4]), static_cast<T*>(outs[5]),
+          static_cast<int*>(outs[6]), static_cast<int*>(outs[7]),
+          static_cast<int*>(outs[8])};
+}
+
+template <typename T>
+Stats<T> stats_of(const void* hh, const void* hl, const void* nh,
+                  const void* nl) {
+  return {static_cast<const T*>(hh), static_cast<const T*>(hl),
+          static_cast<const T*>(nh), static_cast<const T*>(nl)};
+}
+
+cudaStream_t stream_of(void* stream) {
+  return static_cast<cudaStream_t>(stream);
+}
+
+template <typename T>
+int launch_general(const void* p0, const void* meas, const void* gx,
+                   const void* gy, int B, const DoglegMegaParams* prm,
+                   void* const* outs, int device, void* stream) {
   if (B <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const SolveOut<T> out = solve_out<T>(p, jtx, jtj, norm2, tr, lam,
-                                       step_count, n_attempts, reason);
-  auto kernel = Factored ? &dogleg_mega_factored_kernel<T>
-                         : &dogleg_mega_kernel<T>;
-  kernel<<<blocks_for(B), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(p0), static_cast<const T*>(data_t),
-      static_cast<const T*>(shared_a), static_cast<const T*>(shared_b), B,
-      *prm, out);
+  constexpr int G = GENERAL_G;
+  const int blocks = blocks_for<G>(B), threads = threads_for<G>();
+  dogleg_mega_kernel<T, G><<<blocks, threads, 0, stream_of(stream)>>>(
+          static_cast<const T*>(p0), static_cast<const T*>(meas),
+          static_cast<const T*>(gx), static_cast<const T*>(gy), B, *prm,
+          solve_out<T>(outs));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_factored_products(const void* p, const void* stats_t,
-                             const void* ghi, const void* glo, int B,
-                             void* norm2, void* jtx, void* jtj, int device,
-                             void* stream) {
+int launch_factored(const void* p0, const void* hh, const void* hl,
+                    const void* nh, const void* nl, const void* ghi,
+                    const void* glo, int B, const DoglegMegaParams* prm,
+                    void* const* outs, int device, void* stream) {
   if (B <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  factored_products_kernel<T><<<blocks_for(B), THREADS, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(p), static_cast<const T*>(stats_t),
-      static_cast<const T*>(ghi), static_cast<const T*>(glo), B,
-      static_cast<T*>(norm2), static_cast<T*>(jtx), static_cast<T*>(jtj));
+  constexpr int G = FACTORED_G;
+  const int blocks = blocks_for<G>(B), threads = threads_for<G>();
+  dogleg_mega_factored_kernel<T, G><<<blocks, threads, 0, stream_of(stream)>>>(
+          static_cast<const T*>(p0), stats_of<T>(hh, hl, nh, nl),
+          static_cast<const T*>(ghi), static_cast<const T*>(glo), B, *prm,
+          solve_out<T>(outs));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_surface_products(const void* p, const void* meas, const void* gx,
+                            const void* gy, int B, void* norm2, void* jtx,
+                            void* jtj, int device, void* stream) {
+  if (B <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int G = GENERAL_G;
+  const int blocks = blocks_for<G>(B), threads = threads_for<G>();
+  surface_products_kernel<T, G><<<blocks, threads, 0, stream_of(stream)>>>(
+          static_cast<const T*>(p), static_cast<const T*>(meas),
+          static_cast<const T*>(gx), static_cast<const T*>(gy), B,
+          static_cast<T*>(norm2), static_cast<T*>(jtx), static_cast<T*>(jtj));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_factored_products(const void* p, const void* hh, const void* hl,
+                             const void* nh, const void* nl, const void* ghi,
+                             const void* glo, int B, void* norm2, void* jtx,
+                             void* jtj, int device, void* stream) {
+  if (B <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int G = FACTORED_G;
+  const int blocks = blocks_for<G>(B), threads = threads_for<G>();
+  factored_products_kernel<T, G><<<blocks, threads, 0, stream_of(stream)>>>(
+          static_cast<const T*>(p), stats_of<T>(hh, hl, nh, nl),
+          static_cast<const T*>(ghi), static_cast<const T*>(glo), B,
+          static_cast<T*>(norm2), static_cast<T*>(jtx), static_cast<T*>(jtj));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -709,8 +879,8 @@ int launch_error_free(const void* a, const void* b, int n, void* p, void* pe,
   if (n <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  error_free_kernel<T><<<blocks_for(n), THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  error_free_kernel<T><<<(n + THREADS - 1) / THREADS, THREADS, 0,
+                         stream_of(stream)>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), n,
       static_cast<T*>(p), static_cast<T*>(pe), static_cast<T*>(s),
       static_cast<T*>(se));
@@ -720,50 +890,53 @@ int launch_error_free(const void* a, const void* b, int n, void* p, void* pe,
 }  // namespace
 
 // C entry points: launch on `stream` without synchronizing; return the
-// cudaError_t of the launch (0 on success).
-#define DOGLEG_MEGA_ENTRY(name, T, factored)                                  \
-  extern "C" int name(const void* p0, const void* data_t,                     \
-                      const void* shared_a, const void* shared_b, int B,      \
-                      const DoglegMegaParams* prm, void* p, void* jtx,        \
-                      void* jtj, void* norm2, void* tr, void* lam,            \
-                      void* step_count, void* n_attempts, void* reason,       \
-                      int device, void* stream) {                             \
-    return launch<T, factored>(p0, data_t, shared_a, shared_b, B, prm, p,     \
-                               jtx, jtj, norm2, tr, lam, step_count,          \
-                               n_attempts, reason, device, stream);           \
+// cudaError_t of the launch (0 on success). The nine outputs of a solve are
+// p, Jt_x, JtJ, norm2_x, trust region, lambda, step count, attempt count
+// and reason.
+#define DOGLEG_MEGA_ENTRIES(dt, T)                                            \
+  extern "C" int dogleg_mega_##dt(                                            \
+      const void* p0, const void* meas, const void* gx, const void* gy,      \
+      int B, const DoglegMegaParams* prm, void* p, void* jtx, void* jtj,      \
+      void* norm2, void* tr, void* lam, void* step_count, void* n_attempts,   \
+      void* reason, int device, void* stream) {                               \
+    void* const outs[] = {p,  jtx, jtj,        norm2,     tr,                 \
+                          lam, step_count, n_attempts, reason};               \
+    return launch_general<T>(p0, meas, gx, gy, B, prm, outs, device, stream); \
+  }                                                                           \
+  extern "C" int dogleg_mega_factored_##dt(                                   \
+      const void* p0, const void* hh, const void* hl, const void* nh,        \
+      const void* nl, const void* ghi, const void* glo, int B,                \
+      const DoglegMegaParams* prm, void* p, void* jtx, void* jtj,             \
+      void* norm2, void* tr, void* lam, void* step_count, void* n_attempts,   \
+      void* reason, int device, void* stream) {                               \
+    void* const outs[] = {p,  jtx, jtj,        norm2,     tr,                 \
+                          lam, step_count, n_attempts, reason};               \
+    return launch_factored<T>(p0, hh, hl, nh, nl, ghi, glo, B, prm, outs,     \
+                              device, stream);                                \
+  }                                                                           \
+  extern "C" int dogleg_products_##dt(                                        \
+      const void* p, const void* meas, const void* gx, const void* gy,       \
+      int B, void* norm2, void* jtx, void* jtj, int device, void* stream) {   \
+    return launch_surface_products<T>(p, meas, gx, gy, B, norm2, jtx, jtj,    \
+                                      device, stream);                        \
+  }                                                                           \
+  extern "C" int dogleg_factored_products_##dt(                               \
+      const void* p, const void* hh, const void* hl, const void* nh,         \
+      const void* nl, const void* ghi, const void* glo, int B, void* norm2,   \
+      void* jtx, void* jtj, int device, void* stream) {                       \
+    return launch_factored_products<T>(p, hh, hl, nh, nl, ghi, glo, B, norm2, \
+                                       jtx, jtj, device, stream);             \
+  }                                                                           \
+  extern "C" int dogleg_error_free_##dt(const void* a, const void* b, int n, \
+                                        void* p, void* pe, void* s, void* se, \
+                                        int device, void* stream) {           \
+    return launch_error_free<T>(a, b, n, p, pe, s, se, device, stream);       \
   }
-DOGLEG_MEGA_ENTRY(dogleg_mega_f32, float, false)
-DOGLEG_MEGA_ENTRY(dogleg_mega_f64, double, false)
-DOGLEG_MEGA_ENTRY(dogleg_mega_factored_f32, float, true)
-DOGLEG_MEGA_ENTRY(dogleg_mega_factored_f64, double, true)
-#undef DOGLEG_MEGA_ENTRY
+DOGLEG_MEGA_ENTRIES(f32, float)
+DOGLEG_MEGA_ENTRIES(f64, double)
+#undef DOGLEG_MEGA_ENTRIES
 
-extern "C" int dogleg_factored_products_f32(const void* p, const void* stats_t,
-                                            const void* ghi, const void* glo,
-                                            int B, void* norm2, void* jtx,
-                                            void* jtj, int device,
-                                            void* stream) {
-  return launch_factored_products<float>(p, stats_t, ghi, glo, B, norm2, jtx,
-                                         jtj, device, stream);
-}
-
-extern "C" int dogleg_factored_products_f64(const void* p, const void* stats_t,
-                                            const void* ghi, const void* glo,
-                                            int B, void* norm2, void* jtx,
-                                            void* jtj, int device,
-                                            void* stream) {
-  return launch_factored_products<double>(p, stats_t, ghi, glo, B, norm2, jtx,
-                                          jtj, device, stream);
-}
-
-extern "C" int dogleg_error_free_f32(const void* a, const void* b, int n,
-                                     void* p, void* pe, void* s, void* se,
-                                     int device, void* stream) {
-  return launch_error_free<float>(a, b, n, p, pe, s, se, device, stream);
-}
-
-extern "C" int dogleg_error_free_f64(const void* a, const void* b, int n,
-                                     void* p, void* pe, void* s, void* se,
-                                     int device, void* stream) {
-  return launch_error_free<double>(a, b, n, p, pe, s, se, device, stream);
+// Lanes per problem of the general (factored == 0) or the factored instance.
+extern "C" int dogleg_mega_group(int factored) {
+  return factored ? FACTORED_G : GENERAL_G;
 }

@@ -46,6 +46,22 @@ def make_grid(dtype=torch.float64, device=None
             torch.as_tensor(gy.ravel(), dtype=dtype, device=device))
 
 
+# make_grid's tensors per (dtype, device), built once, for the port's own
+# read-only uses on the kernel path (parallel/batched.py, factored_statistics)
+_GRIDS = {}
+
+
+def _cached_grid(dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """make_grid(dtype, device), built once per (dtype, device) and shared:
+    the caller must not write to it. make_grid copies from host memory and
+    waits for the device each time; this does so only the first time."""
+    key = (dtype, torch.device(device))
+    grid = _GRIDS.get(key)
+    if grid is None:
+        grid = _GRIDS[key] = make_grid(dtype, device)
+    return grid
+
+
 def model(p: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     return (p[0] * p[1] * gx * gx
             + p[1] * p[2] * gy * gy
@@ -199,7 +215,7 @@ def factored_statistics(measurements: torch.Tensor):
     """Per-instance sufficient statistics as compensated pairs, on the
     measurements' device: (h_hi, h_lo) = basis^T meas (..., 6) and
     (n2m_hi, n2m_lo) = meas . meas (...), for meas (..., NMEAS)."""
-    gx, gy = make_grid(measurements.dtype, measurements.device)
+    gx, gy = _cached_grid(measurements.dtype, measurements.device)
     return FactoredBasisProblem.statistics(basis(gx, gy), measurements)
 
 

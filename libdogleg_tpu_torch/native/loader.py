@@ -72,7 +72,7 @@ def library_path() -> pathlib.Path:
 
 def _run(cmds):
     """Run the commands concurrently; raise with the output of any that
-    fails. Returns the joined output of all of them."""
+    fails. Returns the output of each, in order."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
@@ -90,7 +90,7 @@ def _run(cmds):
                 proc.wait()
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
-    return "".join(outs)
+    return outs
 
 
 def build() -> BuildInfo:
@@ -103,32 +103,18 @@ def build() -> BuildInfo:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmpdir:
         objs = [os.path.join(tmpdir, s.stem + ".o") for s in _sources()]
-        log = _run([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", o]
-                    for s, o in zip(_sources(), objs)])
+        log = "".join(_run([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", o]
+                            for s, o in zip(_sources(), objs)]))
         tmp = os.path.join(tmpdir, so.name)
-        log += _run([[nvcc, "-shared", *NVCC_FLAGS[:2], *objs, "-o", tmp]])
+        log += "".join(_run([[nvcc, "-shared", *NVCC_FLAGS[:2], *objs, "-o",
+                              tmp]]))
         os.replace(tmp, so)  # atomic: a concurrent build never sees half
     return BuildInfo(so, time.perf_counter() - t0, log)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for dt in ("f32", "f64"):
-        for name in (f"dogleg_mega_{dt}", f"dogleg_mega_factored_{dt}"):
-            fn = getattr(lib, name)
-            # p0, meas_t or stats_t, gx or Ghi, gy or Glo, B, params,
-            # 9 outputs, device, stream
-            fn.argtypes = ([ptr, ptr, ptr, ptr, i32, ptr] + [ptr] * 9
-                           + [i32, ptr])
-            fn.restype = i32
-        # p, stats_t, Ghi, Glo, B, norm2, jtx, jtj, device, stream
-        fn = getattr(lib, f"dogleg_factored_products_{dt}")
-        fn.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, ptr]
-        fn.restype = i32
-        # a, b, n, p, e_p, s, e_s, device, stream
-        fn = getattr(lib, f"dogleg_error_free_{dt}")
-        fn.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, ptr]
-        fn.restype = i32
+    bind_mega(lib)
     for dt in ("f32", "f64"):
         # W, B, p, L, Linv, ok, device, stream
         fn = getattr(lib, f"dogleg_panelchol_{dt}")
@@ -154,6 +140,35 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # n, element size in bytes, device
     lib.dogleg_tilechol_in_shared.argtypes = [i32, i32, i32]
     lib.dogleg_tilechol_in_shared.restype = i32
+    return lib
+
+
+def bind_mega(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the entry points of csrc/mega.cu (kernel K1 and its check
+    kernels) on a library that holds them."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for dt in ("f32", "f64"):
+        # the general solve: p0, meas, gx, gy; the factored one: p0, h_hi,
+        # h_lo, n2m_hi, n2m_lo, Ghi, Glo; then B, params, 9 outputs, device,
+        # stream
+        for name, ins in ((f"dogleg_mega_{dt}", 4),
+                          (f"dogleg_mega_factored_{dt}", 7)):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr] * ins + [i32, ptr] + [ptr] * 9 + [i32, ptr]
+            fn.restype = i32
+        # the same inputs, B, norm2, jtx, jtj, device, stream
+        for name, ins in ((f"dogleg_products_{dt}", 4),
+                          (f"dogleg_factored_products_{dt}", 7)):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr] * ins + [i32] + [ptr] * 3 + [i32, ptr]
+            fn.restype = i32
+        # a, b, n, p, e_p, s, e_s, device, stream
+        fn = getattr(lib, f"dogleg_error_free_{dt}")
+        fn.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, ptr]
+        fn.restype = i32
+    # 0 for the general instance, 1 for the factored one
+    lib.dogleg_mega_group.argtypes = [i32]
+    lib.dogleg_mega_group.restype = i32
     return lib
 
 

@@ -109,13 +109,13 @@ def batched_blocked_cholesky(A: torch.Tensor):
     L = torch.empty_like(W)
     ok = torch.empty(B, dtype=torch.int32, device=W.device)
     if B:
-        from libdogleg_tpu_torch.native.loader import load_library
+        from libdogleg_tpu_torch.native.loader import (launch_target,
+                                                       load_library)
         entry = ("dogleg_batchchol_f32" if W.dtype == torch.float32
                  else "dogleg_batchchol_f64")
         err = getattr(load_library(), entry)(
             W.data_ptr(), B, W.shape[-1], L.data_ptr(), ok.data_ptr(),
-            W.device.index or 0,
-            torch.cuda.current_stream(W.device).cuda_stream)
+            *launch_target(W.device))
         if err:
             raise RuntimeError(f"{entry} launch failed: cudaError_t {err}")
         launch_count += 1

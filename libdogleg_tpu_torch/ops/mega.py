@@ -2,9 +2,10 @@
 libdogleg_tpu/ops/pallas_mega.py).
 
 The kernel in csrc/mega.cu runs the entire dog-leg solve of B independent
-quadratic-surface problems (6 states) in one launch, one thread per
-problem, in one of two instances, as the JAX package builds its Pallas
-kernel with one of two products functions:
+quadratic-surface problems (6 states) in one launch, a group of lanes of
+one warp per problem (`kernel_group` reads how many from the library), in
+one of two instances, as the JAX package builds its Pallas kernel with one
+of two products functions:
 
 - `megakernel_optimize` computes the products from the (B, 100)
   measurements (device function `quadratic_surface_products`); its plain
@@ -23,14 +24,20 @@ The JAX package pins its kernel to decision parity with its batched solver
 plain version. On a CPU tensor each wrapper runs its twin; on a CUDA tensor
 it launches the kernel on the current stream or raises.
 
-`factored_products_device` and `error_free_transforms` run the factored
-device function and its two_prod/two_sum alone, so that the card can hold
-them to their twins; they are no launches of K1 and are not counted.
+`products_device`, `factored_products_device` and `error_free_transforms`
+run the device functions and the factored one's two_prod/two_sum alone, so
+that the card can hold them to their plain versions; they are no launches
+of K1 and are not counted. The general device function splits its sums over
+the lanes of a group and combines them by a xor butterfly;
+`grouped_products_reference` is that order in plain PyTorch, for a group
+given explicitly, and `products_magnitude` what its sums are accurate
+relative to.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -65,7 +72,10 @@ class _MegaParams(ctypes.Structure):
         ("lambda_max_tries", ctypes.c_int)]
 
 
+@functools.lru_cache(maxsize=64)
 def _c_params(prm: DoglegParameters) -> _MegaParams:
+    """The kernel's parameter struct, built once for each (frozen, hashable)
+    DoglegParameters. The kernel only reads it."""
     c = _MegaParams()
     for name, _ in _MegaParams._fields_:
         if name == "max_attempts":
@@ -73,6 +83,14 @@ def _c_params(prm: DoglegParameters) -> _MegaParams:
         else:
             setattr(c, name, getattr(prm, name))
     return c
+
+
+def kernel_group(factored: bool = False) -> int:
+    """Lanes per problem of the general or the factored instance, as
+    csrc/mega.cu sets them (K1_GENERAL_GROUP, K1_FACTORED_GROUP), read from
+    the loaded library (building it if need be)."""
+    from libdogleg_tpu_torch.native.loader import load_library
+    return int(load_library().dogleg_mega_group(int(factored)))
 
 
 def _check_like(p0, want) -> None:
@@ -107,37 +125,46 @@ def _check_factored(p0, h_hi, h_lo, n2m_hi, n2m_lo, G_pair) -> None:
                      "Glo": (G_pair[1], [(n, n)])})
 
 
-def _launch_args(p0: torch.Tensor, ins, entry_f32: str, entry_f64: str):
-    """The entry point for p0's dtype and the outputs of a solve, allocated
-    on p0's device; `ins` made contiguous."""
-    from libdogleg_tpu_torch.native.loader import load_library
-    lib = load_library()
-    entry = getattr(lib, entry_f32 if p0.dtype == torch.float32
-                    else entry_f64)
+def _general_inputs(p0, meas, gx, gy):
+    """What the general kernel reads: p0 (B, 6), meas (B, 100) row-major,
+    the grid; each tensor itself where it is contiguous, else a contiguous
+    copy."""
+    return tuple(t.contiguous() for t in (p0, meas, gx, gy))
+
+
+def _factored_inputs(p0, h_hi, h_lo, n2m_hi, n2m_lo, G_pair):
+    """What the factored kernel reads, each through its own pointer: p0,
+    h_hi, h_lo (B, 6), n2m_hi, n2m_lo (B,) or (B, 1), Ghi, Glo (6, 6); each
+    tensor itself where it is contiguous, else a contiguous copy."""
+    return tuple(t.contiguous()
+                 for t in (p0, h_hi, h_lo, n2m_hi, n2m_lo, *G_pair))
+
+
+def _launch_solve(name: str, ins, prm: DoglegParameters) -> SolveResult:
+    """Launch the solve entry `name` (dogleg_mega or dogleg_mega_factored)
+    for p0's dtype on `ins` (p0 first), with the outputs allocated on p0's
+    device; returns them as a batch-leading SolveResult."""
+    from libdogleg_tpu_torch.native.loader import launch_target, load_library
+    p0 = ins[0]
     B, n = p0.shape
     dev, dt = p0.device, p0.dtype
+    entry = getattr(load_library(),
+                    name + ("_f32" if dt == torch.float32 else "_f64"))
     p = torch.empty((B, n), dtype=dt, device=dev)
     jtx = torch.empty((B, n), dtype=dt, device=dev)
     jtj = torch.empty((B, n, n), dtype=dt, device=dev)
-    fscal = torch.empty((3, B), dtype=dt, device=dev)
-    iscal = torch.empty((3, B), dtype=torch.int32, device=dev)
-    result = SolveResult(p=p, norm2_x=fscal[0], Jt_x=jtx, JtJ=jtj,
-                         step_count=iscal[0], n_attempts=iscal[1],
-                         reason=iscal[2], trustregion=fscal[1],
-                         lam=fscal[2])
-    outs = (p, jtx, jtj, fscal[0], fscal[1], fscal[2], iscal[0], iscal[1],
-            iscal[2])
-    return entry, tuple(t.contiguous() for t in ins), outs, result
-
-
-def _launch_solve(entry, ins, outs, B: int, prm: DoglegParameters,
-                  device) -> None:
-    from libdogleg_tpu_torch.native.loader import launch_target
-    c_prm = _c_params(prm)
-    err = entry(*(t.data_ptr() for t in ins), B, ctypes.byref(c_prm),
-                *(t.data_ptr() for t in outs), *launch_target(device))
+    norm2, tr, lam = torch.empty((3, B), dtype=dt, device=dev).unbind(0)
+    step_count, n_attempts, reason = torch.empty(
+        (3, B), dtype=torch.int32, device=dev).unbind(0)
+    err = entry(*(t.data_ptr() for t in ins), B, ctypes.byref(_c_params(prm)),
+                p.data_ptr(), jtx.data_ptr(), jtj.data_ptr(), norm2.data_ptr(),
+                tr.data_ptr(), lam.data_ptr(), step_count.data_ptr(),
+                n_attempts.data_ptr(), reason.data_ptr(), *launch_target(dev))
     if err:
         raise RuntimeError(f"megakernel launch failed: cudaError_t {err}")
+    return SolveResult(p=p, norm2_x=norm2, Jt_x=jtx, JtJ=jtj,
+                       step_count=step_count, n_attempts=n_attempts,
+                       reason=reason, trustregion=tr, lam=lam)
 
 
 def _require_cuda(t: torch.Tensor) -> None:
@@ -178,19 +205,10 @@ def megakernel_optimize(p0: torch.Tensor, meas: torch.Tensor,
     if p0.device.type == "cpu":
         return megakernel_optimize_reference(p0, meas, gx, gy, prm)
     _require_cuda(p0)
-    entry, ins, outs, result = _launch_args(
-        p0, (p0, meas.t(), gx, gy), "dogleg_mega_f32", "dogleg_mega_f64")
-    _launch_solve(entry, ins, outs, p0.shape[0], prm, p0.device)
+    result = _launch_solve("dogleg_mega", _general_inputs(p0, meas, gx, gy),
+                           prm)
     launch_count += 1
     return result
-
-
-def _stats_minor(h_hi, h_lo, n2m_hi, n2m_lo) -> torch.Tensor:
-    """The statistics batch-minor, (14, B): h_hi, h_lo, n2m_hi, n2m_lo, as
-    the kernel reads them."""
-    B = h_hi.shape[0]
-    return torch.cat([h_hi.t(), h_lo.t(), n2m_hi.reshape(1, B),
-                      n2m_lo.reshape(1, B)])
 
 
 def megakernel_optimize_factored_reference(
@@ -233,12 +251,120 @@ def megakernel_optimize_factored(p0: torch.Tensor, h_hi: torch.Tensor,
         return megakernel_optimize_factored_reference(
             p0, h_hi, h_lo, n2m_hi, n2m_lo, G_pair, prm)
     _require_cuda(p0)
-    entry, ins, outs, result = _launch_args(
-        p0, (p0, _stats_minor(h_hi, h_lo, n2m_hi, n2m_lo), *G_pair),
-        "dogleg_mega_factored_f32", "dogleg_mega_factored_f64")
-    _launch_solve(entry, ins, outs, p0.shape[0], prm, p0.device)
+    result = _launch_solve(
+        "dogleg_mega_factored",
+        _factored_inputs(p0, h_hi, h_lo, n2m_hi, n2m_lo, G_pair), prm)
     factored_launch_count += 1
     return result
+
+
+def _lower_mirrored(jtj: torch.Tensor) -> torch.Tensor:
+    """(..., n, n) with its upper triangle replaced by the lower one's
+    mirror, as the kernel keeps JtJ."""
+    low = torch.tril(jtj)
+    return low + torch.tril(low, -1).mT
+
+
+def grouped_products_reference(p: torch.Tensor, meas: torch.Tensor,
+                               gx: torch.Tensor, gy: torch.Tensor,
+                               group: int):
+    """The general device function's products in its order of summation:
+    lane r of a group of `group` lanes sums the terms of measurements
+    r, r + group, r + 2 group, ... in that order, then the lanes' partial
+    sums are combined by the xor butterfly (lane r adds lane r ^ k's sums
+    to its own, k = 1, 2, ..., group / 2). p (B, 6), meas (B, 100), gx, gy
+    (100,) -> (norm2 (B,), Jt_x (B, 6), JtJ (B, 6, 6), the lower triangle
+    mirrored). Each term is computed as the kernel computes it; the kernel
+    may fuse a product and a sum where this rounds twice."""
+    if group < 1 or group > 32 or group & (group - 1):
+        raise ValueError(f"group must be a power of two up to 32, got {group}")
+    B, n = p.shape
+    X, Y = gx[None], gy[None]                      # (1, m)
+    p0, p1, p2, p3, p4, p5 = (p[:, a:a + 1] for a in range(n))
+    x = ((p0 * p1) * X * X + (p1 * p2) * Y * Y + p2 * X * Y + p3 * X
+         + p4 * Y + p5 - meas)                     # (B, m)
+    J = [p1 * X * X, p0 * X * X + p2 * Y * Y, p1 * Y * Y + X * Y,
+         X.expand_as(x), Y.expand_as(x), torch.ones_like(x)]
+    low = [(a, c) for a in range(n) for c in range(a + 1)]
+    terms = torch.stack([x * x] + [J[a] * x for a in range(n)]
+                        + [J[a] * J[c] for a, c in low], dim=-1)
+    m = terms.shape[1]
+    rounds = -(-m // group)
+    # measurement i = k group + r is lane r's k-th term; a lane with fewer
+    # terms adds zeros, which leaves its sum as it is
+    terms = torch.cat([terms, terms.new_zeros(
+        (B, rounds * group - m, terms.shape[-1]))], dim=1)
+    terms = terms.reshape(B, rounds, group, -1)
+    acc = terms.new_zeros((B, group, terms.shape[-1]))
+    for k in range(rounds):
+        acc = acc + terms[:, k]
+    lanes = torch.arange(group)
+    k = 1
+    while k < group:
+        acc = acc + acc[:, lanes ^ k]
+        k *= 2
+    s = acc[:, 0]
+    jtj = s.new_zeros((B, n, n))
+    for idx, (a, c) in enumerate(low):
+        jtj[:, a, c] = s[:, 1 + n + idx]
+    return s[:, 0], s[:, 1:1 + n], _lower_mirrored(jtj)
+
+
+def products_magnitude(p: torch.Tensor, meas: torch.Tensor,
+                       gx: torch.Tensor, gy: torch.Tensor):
+    """What the general products' sums are accurate relative to, however
+    they are rounded or ordered: each sum with every term of it, and every
+    term of the residual x = m(X, Y; p) - meas and of the Jacobian, taken in
+    absolute value before anything cancels. p (B, 6), meas (B, 100), gx, gy
+    (100,) -> (norm2 (B,), Jt_x (B, 6), JtJ (B, 6, 6)). Near the truth x
+    cancels ~1e3 to ~0.5, so |x| itself would not bound one rounding of its
+    terms."""
+    X, Y = gx[None].abs(), gy[None].abs()          # (1, m)
+    a = [p[:, k:k + 1].abs() for k in range(p.shape[1])]
+    xm = (a[0] * a[1] * X * X + a[1] * a[2] * Y * Y + a[2] * X * Y
+          + a[3] * X + a[4] * Y + a[5] + meas.abs())               # (B, m)
+    Jm = torch.stack([(a[1] * X * X).expand_as(xm),
+                      a[0] * X * X + a[2] * Y * Y,
+                      a[1] * Y * Y + X * Y, X.expand_as(xm),
+                      Y.expand_as(xm), torch.ones_like(xm)], dim=-1)
+    return (xm * xm).sum(-1), (Jm * xm[..., None]).sum(1), Jm.mT @ Jm
+
+
+def _products_out(p: torch.Tensor):
+    B, n = p.shape
+    return (torch.empty(B, dtype=p.dtype, device=p.device),
+            torch.empty((B, n), dtype=p.dtype, device=p.device),
+            torch.empty((B, n, n), dtype=p.dtype, device=p.device))
+
+
+def _launch_products(name: str, ins, outs) -> None:
+    from libdogleg_tpu_torch.native.loader import launch_target, load_library
+    p = ins[0]
+    entry = getattr(load_library(),
+                    name + ("_f32" if p.dtype == torch.float32 else "_f64"))
+    err = entry(*(t.data_ptr() for t in ins), p.shape[0],
+                *(t.data_ptr() for t in outs), *launch_target(p.device))
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+
+
+def products_device(p: torch.Tensor, meas: torch.Tensor, gx: torch.Tensor,
+                    gy: torch.Tensor):
+    """The general device function quadratic_surface_products alone: p
+    (B, 6), meas (B, 100), gx, gy as for megakernel_optimize -> (norm2 (B,),
+    Jt_x (B, 6), JtJ (B, 6, 6), the lower triangle mirrored, as the kernel
+    keeps it). The kernel sums in the order of grouped_products_reference
+    with kernel_group() lanes. CPU tensors take its twin, products_minor."""
+    _check(p, meas, gx, gy)
+    if p.device.type == "cpu":
+        n2, jtx, jtj = qs.products_minor(p.t(), meas.t(), gx[:, None],
+                                         gy[:, None])
+        return n2[0], jtx.t(), _lower_mirrored(jtj.permute(2, 0, 1))
+    _require_cuda(p)
+    outs = _products_out(p)
+    _launch_products("dogleg_products", _general_inputs(p, meas, gx, gy),
+                     outs)
+    return outs
 
 
 def factored_products_device(p: torch.Tensor, stats, G_pair: Pair):
@@ -247,31 +373,18 @@ def factored_products_device(p: torch.Tensor, stats, G_pair: Pair):
     megakernel_optimize_factored -> (norm2 (B,), Jt_x (B, 6), JtJ (B, 6, 6),
     JtJ its lower triangle mirrored, as the kernel keeps it). CPU tensors
     take its twin, factored_products_minor."""
-    from libdogleg_tpu_torch.native.loader import launch_target, load_library
     _check_factored(p, *stats, G_pair)
     if p.device.type == "cpu":
         B = p.shape[0]
         n2, jtx, jtj = qs.factored_products_minor(
             p.t(), stats[0].t(), stats[1].t(), stats[2].reshape(1, B),
             stats[3].reshape(1, B), *G_pair)
-        low = torch.tril(jtj.permute(2, 0, 1))
-        return n2[0], jtx.t(), low + torch.tril(low, -1).mT
+        return n2[0], jtx.t(), _lower_mirrored(jtj.permute(2, 0, 1))
     _require_cuda(p)
-    lib = load_library()
-    entry = (lib.dogleg_factored_products_f32 if p.dtype == torch.float32
-             else lib.dogleg_factored_products_f64)
-    B, n = p.shape
-    ins = (p.contiguous(), _stats_minor(*stats), G_pair[0].contiguous(),
-           G_pair[1].contiguous())
-    norm2 = torch.empty(B, dtype=p.dtype, device=p.device)
-    jtx = torch.empty((B, n), dtype=p.dtype, device=p.device)
-    jtj = torch.empty((B, n, n), dtype=p.dtype, device=p.device)
-    err = entry(*(t.data_ptr() for t in ins), B, norm2.data_ptr(),
-                jtx.data_ptr(), jtj.data_ptr(), *launch_target(p.device))
-    if err:
-        raise RuntimeError(f"factored products launch failed: cudaError_t "
-                           f"{err}")
-    return norm2, jtx, jtj
+    outs = _products_out(p)
+    _launch_products("dogleg_factored_products",
+                     _factored_inputs(p, *stats, G_pair), outs)
+    return outs
 
 
 def error_free_transforms_reference(a: torch.Tensor, b: torch.Tensor):

@@ -134,7 +134,7 @@ def _run_megakernel(products_fn, p0_batch, problem_data,
         if not isinstance(problem_data, torch.Tensor):
             raise ValueError("the kernel's products take the (B, 100) "
                              "measurements as problem_data")
-        gx, gy = qs.make_grid(p0_batch.dtype, p0_batch.device)
+        gx, gy = qs._cached_grid(p0_batch.dtype, p0_batch.device)
         return mega.megakernel_optimize(p0_batch, problem_data, gx, gy, prm)
     if (not isinstance(problem_data, (tuple, list)) or len(problem_data) != 4
             or getattr(products_fn, "G_pair", None) is None):

@@ -600,3 +600,83 @@ def test_batched_optimize_launches_factored_kernel(cuda):
     assert bool((r.reason > 0).all())
     err = np.abs(r.p.cpu().double().numpy() - qs.P_TRUE)
     assert np.mean(np.all(err < 0.2, axis=1)) >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
+                                        (torch.float32, 1e-5)])
+def test_products_device_function_matches_grouped_order(cuda, dtype, rtol):
+    """The general device function against its order of summation in plain
+    PyTorch, with the library's lanes per problem: nvcc fuses a product and
+    a sum where the plain version rounds twice, so each result is within
+    rtol of products_magnitude, at the starts and near the truth."""
+    p0, meas, gx, gy = _instances(4, 1000, dtype, cuda)
+    near = torch.as_tensor(qs.P_TRUE, dtype=dtype, device=cuda) + 1e-2 * p0
+    for p in (p0, near):
+        got = mega.products_device(p, meas, gx, gy)
+        want = mega.grouped_products_reference(p, meas, gx, gy,
+                                               mega.kernel_group())
+        for g, w, m in zip(got, want,
+                           mega.products_magnitude(p, meas, gx, gy)):
+            assert bool(((g - w).abs() <= rtol * m).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 31, 1000, 8193])
+@pytest.mark.parametrize("factored", [False, True])
+def test_kernel_f64_decisions_at_ragged_batches(cuda, batch, factored):
+    """Batches that are no multiple of a group, a warp or a block: a lane
+    past the batch computes and writes nothing."""
+    if factored:
+        args = _factored_instances(10 + batch % 7, batch, torch.float64, cuda)
+        fn, twin = (mega.megakernel_optimize_factored,
+                    mega.megakernel_optimize_factored_reference)
+    else:
+        args = _instances(10 + batch % 7, batch, torch.float64, cuda)
+        fn, twin = mega.megakernel_optimize, mega.megakernel_optimize_reference
+    r_k, r_t = fn(*args), twin(*args)
+    torch.cuda.synchronize()
+    for field in ("step_count", "n_attempts", "reason"):
+        assert torch.equal(getattr(r_k, field), getattr(r_t, field)), field
+    np.testing.assert_allclose(r_k.p.cpu().numpy(), r_t.p.cpu().numpy(),
+                               rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(r_k.JtJ.cpu().numpy(), r_t.JtJ.cpu().numpy(),
+                               rtol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factored", [False, True])
+def test_kernel_f32_rule_at_b8192(cuda, factored):
+    """Float32 under the benchmark rule: decision agreement with the twin
+    (>= 0.85 general, >= 0.99 factored), recovered_frac >= 0.99, norm2 within
+    the tolerances of test_kernel_f32_agrees_with_twin."""
+    if factored:
+        args = _factored_instances(1, 8192, torch.float32, cuda)
+        fn, twin = (mega.megakernel_optimize_factored,
+                    mega.megakernel_optimize_factored_reference)
+    else:
+        args = _instances(1, 8192, torch.float32, cuda)
+        fn, twin = mega.megakernel_optimize, mega.megakernel_optimize_reference
+    r_k, r_t = fn(*args, BENCH), twin(*args, BENCH)
+    same = ((r_k.step_count == r_t.step_count)
+            & (r_k.n_attempts == r_t.n_attempts)).float().mean().item()
+    assert same >= (0.99 if factored else 0.85)
+    np.testing.assert_allclose(r_k.norm2_x.cpu().numpy(),
+                               r_t.norm2_x.cpu().numpy(), rtol=1e-2,
+                               atol=1e-4)
+    err = np.abs(r_k.p.cpu().double().numpy() - qs.P_TRUE)
+    assert np.mean(np.all(err < 0.2, axis=1)) >= 0.99
+
+
+@pytest.mark.cuda
+def test_public_call_does_not_wait_for_the_card(cuda):
+    """After its first call, batched_optimize on the kernel's path copies
+    nothing from the host and synchronizes nothing."""
+    p0, meas, _, _ = _instances(2, 256, torch.float32, cuda)
+    batched_optimize(qs.products, p0, BENCH, problem_data=meas)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batched_optimize(qs.products, p0, BENCH, problem_data=meas)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

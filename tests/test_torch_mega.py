@@ -113,3 +113,128 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="float32 or float64"):
         mega.megakernel_optimize(p0.half(), meas.half(), gx.half(),
                                  gy.half())
+
+
+# The general device function's order of summation (grouped_products_reference),
+# against the JAX products and the per-element PyTorch products.
+
+_JAX_PRODUCTS = {}
+
+
+def _jax_products_minor(p0, meas, gx, gy):
+    """jsp.products_minor, jitted once for the module, batch-leading."""
+    import jax
+    fn = _JAX_PRODUCTS.setdefault("fn", jax.jit(jsp.products_minor))
+    n2, jtx, jtj = fn(jnp.asarray(p0.T), jnp.asarray(meas.T),
+                      jnp.asarray(gx)[:, None], jnp.asarray(gy)[:, None])
+    return (np.asarray(n2)[0], np.asarray(jtx).T,
+            np.moveaxis(np.asarray(jtj), -1, 0))
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 16])
+def test_grouped_reference_matches_jax_products_minor(group):
+    meas, p0, gx, gy = _instances(4, 37, np.float64)
+    want = _jax_products_minor(p0, meas, gx, gy)
+    got = mega.grouped_products_reference(
+        *(torch.as_tensor(a) for a in (p0, meas, gx, gy)), group)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-12)
+    # products_device on CPU tensors: its twin, in the kernel's layout
+    dev = mega.products_device(
+        *(torch.as_tensor(a) for a in (p0, meas, gx, gy)))
+    for d, w in zip(dev, want):
+        np.testing.assert_allclose(d.numpy(), w, rtol=1e-12)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 16])
+def test_grouped_reference_matches_per_element_products_f32(group):
+    meas, p0, gx, gy = (torch.as_tensor(a)
+                        for a in _instances(5, 6, np.float32))
+    near = torch.as_tensor(jsp.P_TRUE, dtype=torch.float32) + 1e-2 * p0
+    for p in (p0, near):
+        n2, jtx, jtj = mega.grouped_products_reference(p, meas, gx, gy, group)
+        for i in range(p.shape[0]):
+            one = tsp.products(p[i], meas[i])
+            np.testing.assert_allclose(n2[i].numpy(), one.norm2_x.numpy(),
+                                       rtol=1e-5)
+            for g, w in ((jtx[i], one.Jt_x), (jtj[i], one.JtJ)):
+                np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("group", [1, 4, 16])
+def test_products_magnitude_bounds_float32_rounding(group):
+    """The grouped order in float32 is within 1e-5 of products_magnitude of
+    the float64 products, at the starts and near the truth, where x cancels
+    ~1e3 to ~0.5; the magnitude bounds each product."""
+    meas, p0, gx, gy = (torch.as_tensor(a)
+                        for a in _instances(8, 64, np.float64))
+    near = torch.as_tensor(jsp.P_TRUE) + 1e-2 * p0
+    for p in (p0, near):
+        exact = mega.grouped_products_reference(p, meas, gx, gy, 1)
+        got = mega.grouped_products_reference(
+            *(t.float() for t in (p, meas, gx, gy)), group)
+        for g, w, m in zip(got, exact,
+                           mega.products_magnitude(p, meas, gx, gy)):
+            assert bool((w.abs() <= m * (1 + 1e-12)).all())
+            assert bool(((g.double() - w).abs() <= 1e-5 * m).all())
+
+
+def test_grouped_reference_rejects_a_group_that_is_no_power_of_two():
+    meas, p0, gx, gy = (torch.as_tensor(a)
+                        for a in _instances(3, 2, np.float64))
+    for group in (0, 3, 64):
+        with pytest.raises(ValueError, match="power of two"):
+            mega.grouped_products_reference(p0, meas, gx, gy, group)
+
+
+def test_kernels_read_their_inputs_in_place():
+    """The general kernel reads meas (B, 100) as the caller holds it, the
+    factored one each statistic through its own pointer: no transposing
+    copy and no concatenation where the tensors are contiguous, a
+    contiguous copy where one is not."""
+    meas, p0, gx, gy = (torch.as_tensor(a)
+                        for a in _instances(6, 9, np.float64))
+    ins = mega._general_inputs(p0, meas, gx, gy)
+    assert all(a is b for a, b in zip(ins, (p0, meas, gx, gy)))
+    strided = meas.t().contiguous().t()
+    ins = mega._general_inputs(p0, strided, gx, gy)
+    assert ins[1].is_contiguous() and torch.equal(ins[1], meas)
+    hh, hl, nh, nl = tsp.factored_statistics(meas)
+    G = tsp.gram_pair(torch.float64, "cpu")
+    for n2m in ((nh, nl), (nh[:, None], nl[:, None])):
+        args = (p0, hh, hl, *n2m, G)
+        ins = mega._factored_inputs(*args)
+        assert len(ins) == 7
+        assert all(a is b for a, b in zip(ins, (p0, hh, hl, *n2m, *G)))
+    ins = mega._factored_inputs(p0, hh.t().contiguous().t(), hl, nh, nl, G)
+    assert ins[1].is_contiguous() and torch.equal(ins[1], hh)
+
+
+def test_grid_cache_built_once_per_dtype_and_device():
+    made = tsp.make_grid(torch.float32, "cpu")
+    first = tsp._cached_grid(torch.float32, "cpu")
+    assert tsp._cached_grid(torch.float32, torch.device("cpu")) is first
+    for c, m in zip(first, made):
+        assert c.dtype == torch.float32 and torch.equal(c, m)
+    other = tsp._cached_grid(torch.float64, "cpu")
+    assert other is not first and other[0].dtype == torch.float64
+    # make_grid still hands out fresh tensors a caller may write to
+    again = tsp.make_grid(torch.float32, "cpu")
+    assert all(a is not c for a, c in zip(again, first))
+    # the statistics transform takes the cached grid
+    meas = torch.as_tensor(_instances(7, 3, np.float64)[0])
+    hh, _, _, _ = tsp.factored_statistics(meas)
+    basis = tsp.basis(*tsp.make_grid(torch.float64, "cpu"))
+    np.testing.assert_allclose(hh.numpy(), (meas @ basis).numpy(),
+                               rtol=1e-12)
+
+
+def test_parameter_struct_built_once_per_parameters():
+    prm = DoglegParameters(**BENCH)
+    c = mega._c_params(prm)
+    assert mega._c_params(DoglegParameters(**BENCH)) is c
+    assert mega._c_params(DoglegParameters()) is not c
+    for name, _ in mega._MegaParams._fields_:
+        want = (prm.resolved_max_attempts() if name == "max_attempts"
+                else getattr(prm, name))
+        assert getattr(c, name) == want, name
