@@ -45,9 +45,13 @@ Phases, each printing its own lines:
      full-width dense-coupling grid Jacobian (8 x 8 blocks), then held
      against their twins there, on a 512 x 16 pattern of (32, 128) blocks
      and on patterns with empty block rows of (8, 8), (4, 8) and (3, 5)
-     blocks, so that both of K4's kernels run (the 16-byte-word one and the
-     generic one), in float32 (1e-4 of the largest entry) and float64
-     (1e-12);
+     blocks, so that both kernels of each run (the 16-byte-word ones and
+     the generic ones), in float32 (1e-4 of the largest entry) and float64
+     (1e-12); the kernels that ran read from a profiler trace, which must
+     show those that jtj_instance and matvec_instance name; on the (8, 8)
+     patterns K3 also through values that are not 16-byte aligned, whose
+     generic kernel (jtj_blocks in the trace) must give the word kernel's
+     bits;
  10. CUDA-event timing: K2 and its twin at p=256, K2 alone and each of its
      two kernels alone (profiler), large_cholesky at n=8192 with K2 and
      torch.linalg.cholesky_ex in alternating turns and with the twin, the
@@ -55,8 +59,9 @@ Phases, each printing its own lines:
      (host wall and a profiler's device-time split), K3 and K4 and their
      twins, K4 and
      torch.mv of the BSR tensor in alternating turns, each kernel alone
-     (profiler), and a later call on one structure traced: no
-     host-to-device copy, one launch;
+     (profiler, the word kernels by name), and a later call on one
+     structure traced: no host-to-device copy, one launch of the word
+     kernel;
  11. K6 and K7 (csrc/tilechol.cu) against their twins: tiles n in {8, 16,
      24, 33, 40, 48, 64, 100, 128, 250, 256}, k in {1, 7, 455}, float64
      (1e-10 of the largest entry) and float32 (2e-4), zeros above the
@@ -84,7 +89,8 @@ Phases, each printing its own lines:
      128, 256}, B in {1, 7, 512} (512 up to n = 128), float64 (1e-10 of the
      largest entry) and float32 (1e-5), ok identical, zeros above the
      diagonal, and a batch with one matrix that is not SPD (ok False for
-     that one only, from both, the others within tolerance);
+     that one only, from both, the others within tolerance); which of its
+     kernels ran, from a profiler trace;
  15. the mid-size batched slice at full width: the tanh family of the JAX
      benchmark's config 8 (bench_all.py:515-555), one instance per element,
      at (Nstate 64, batch 512) and (128, 256) in float32 through
@@ -96,8 +102,11 @@ Phases, each printing its own lines:
      decisions on every element);
  16. timing: K5, its plain version, batched torch.linalg.cholesky_ex and
      K6 at (512, 64, 64) and (256, 128, 128) float32, on the JtJ of the
-     path's starts, K5 held to its plain version there; the substitutions
-     (torch.cholesky_solve); the public call's
+     path's starts, K5 held to its plain version there, its streamed
+     kernel the one the trace shows at both shapes; the substitutions
+     (torch.cholesky_solve); K6 at (21, 128, 128) and K2's factor kernel
+     at p = 256 alone beside K5, the three kernels sharing
+     csrc/cholstage.cuh; the public call's
      host wall with the gate's strategy, with DenseNewtonSolver and
      compacted, attempts and K5 launches per solve, and a profiler split;
  17. K1's factored instance (the sufficient-statistics products): hazard F2,
@@ -164,6 +173,14 @@ def bound(nbytes: float, flops: float) -> dict:
 
 def nbytes_of(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def lower_nbytes(S) -> int:
+    """Bytes of the lower triangles, diagonal included, of the (..., n, n)
+    matrices S: what a factorization or a substitution that reads nothing
+    above the diagonal must read of them."""
+    n = S.shape[-1]
+    return S.numel() // (n * n) * (n * (n + 1) // 2) * S.element_size()
 
 
 def card_line() -> str:
@@ -387,6 +404,7 @@ def phase9_bcsr(dev) -> dict:
     import torch
 
     from libdogleg_tpu_torch.ops import bcsr_kernels as tk
+    from libdogleg_tpu_torch.ops.bcsr import BCSRJacobian
     J, prob, p_true = grid_jacobian(torch.float32, dev)
     for k in tk.launch_counts:
         tk.launch_counts[k] = 0
@@ -429,9 +447,22 @@ def phase9_bcsr(dev) -> dict:
             check(tk.matvec_instance(st.block_rows, st.block_cols, dtype)
                   == instance, f"K4 {name} {label} takes the {instance} "
                   f"kernel")
+            # K3's kernels: the word kernel where K4 takes its word kernel
+            k3_instance = tk.jtj_instance(st.block_rows, st.block_cols, dtype)
+            check(k3_instance == {"words": "words", "rows": "entries"}[
+                instance], f"K3 {name} {label} takes the {k3_instance} kernel")
             sched = tk.build_jtj_schedule(Jc.structure)
             v = torch.linspace(-1.0, 1.0, Jc.structure.nstate, dtype=dtype,
                                device=dev)
+            # the kernels that ran, from the trace, are those the two rules
+            # name
+            want = {K3_KERNELS[k3_instance], K4_KERNELS[instance]}
+            ran = kernels_launched(
+                lambda: (tk.bcsr_jtj_blocks_kernel(Jc, sched),
+                         tk.bcsr_matvec_kernel(Jc, v)), (),
+                (*K3_KERNELS.values(), *K4_KERNELS.values()), want)
+            check(ran == want, f"K3/K4 {name} {label} launched {want} "
+                  f"(profiler): {ran}")
             blocks, _ = tk.bcsr_jtj_blocks_kernel(Jc, sched)
             Jv = tk.bcsr_matvec_kernel(Jc, v)
             blocks_r = tk.bcsr_jtj_blocks_reference(Jc, sched)
@@ -444,10 +475,35 @@ def phase9_bcsr(dev) -> dict:
                 out["K3"]["max_abs_err"] = float(
                     (blocks - blocks_r).abs().max())
                 out["K4"]["max_abs_err"] = float((Jv - Jv_r).abs().max())
-            print(f"[9 {label} {name}] vs twins: K3 {e3:.3e} K4 ({instance} "
-                  f"kernel) {e4:.3e} of max (tol {tol}); "
-                  f"{len(sched.pair_i)} pairs, {Jc.structure.nnzb} blocks",
-                  flush=True)
+            generic = ""
+            if k3_instance == "words":
+                # values that are not 16-byte aligned take the generic
+                # kernel, which sums in the same order: the same bits
+                buf = torch.empty(Jc.values.numel() + 1, dtype=dtype,
+                                  device=dev)
+                shifted = buf[1:].view(Jc.values.shape)
+                shifted.copy_(Jc.values)
+                Js = BCSRJacobian(st, shifted)
+                other, _ = tk.bcsr_jtj_blocks_kernel(Js, sched)
+                torch.cuda.synchronize()
+                check(shifted.data_ptr() % 16 != 0
+                      and torch.equal(other, blocks),
+                      f"K3 {name} {label}: the generic kernel on unaligned "
+                      f"values gives the word kernel's bits")
+                ran_s = kernels_launched(
+                    tk.bcsr_jtj_blocks_kernel, (Js, sched),
+                    tuple(K3_KERNELS.values()), {K3_KERNELS["entries"]})
+                check(ran_s == {K3_KERNELS["entries"]},
+                      f"K3 {name} {label}: unaligned values launched "
+                      f"jtj_blocks (profiler): {ran_s}")
+                generic = (f"; unaligned values ({', '.join(ran_s)}, "
+                           f"profiler) give the same bits")
+                del buf, shifted, other, Js
+            print(f"[9 {label} {name}] vs twins: K3 "
+                  f"({K3_KERNELS[k3_instance]}, profiler) {e3:.3e} K4 "
+                  f"({K4_KERNELS[instance]}, profiler) {e4:.3e} of max (tol "
+                  f"{tol}){generic}; {len(sched.pair_i)} pairs, "
+                  f"{Jc.structure.nnzb} blocks", flush=True)
             del Jc, blocks, blocks_r
     return out
 
@@ -643,6 +699,25 @@ def kernel_us(fn, args, name: str, reps: int = 20):
     return kernels_us(fn, args, (name,), reps)[name]
 
 
+# the kernels' names, by the instance each wrapper's launcher chooses
+K3_KERNELS = {"words": "jtj_words", "entries": "jtj_blocks"}
+K4_KERNELS = {"words": "matvec_words", "rows": "matvec_kernel"}
+K5_KERNELS = ("batchchol_streamed", "batchchol_kernel")
+
+
+def kernels_launched(fn, args, names, want=None, reps: int = 3) -> set:
+    """Which of `names` the kernels that `reps` calls of fn launched hold in
+    their names, read from a profiler trace. A trace now and then loses an
+    event: with `want` given, it is taken again, up to six times, until it
+    shows exactly the names in `want`."""
+    for _ in range(6):
+        keys = [ev.key.lower() for ev in device_events(fn, args, reps)]
+        found = {name for name in names if any(name in k for k in keys)}
+        if want is None or found == set(want):
+            break
+    return found
+
+
 def us_text(us) -> str:
     """A kernel_us reading for a printed line."""
     return ("not measured (the profiler returned no events)" if us is None
@@ -724,10 +799,12 @@ def phase10_timing(dev, bench, card, k2, k34) -> dict:
         plain = measure_ms(panelchol.panel_factor_reference, W, warmup=1,
                            reps=3)
         if dtype == torch.float32:
-            # in: W; out: L, inv(L), ok. p^3/3 for the factor and p^3/3 for
-            # the triangular inverse. No single PyTorch call gives both.
+            # in: W's lower triangle (the function reads nothing above the
+            # diagonal); out: L, inv(L), ok. p^3/3 for the factor and p^3/3
+            # for the triangular inverse. No single PyTorch call gives both.
             k2.update(ms=ms, plain_ms=plain, library_ms=None,
-                      **bound(3 * nbytes_of(W) + 1, 2 * 256 ** 3 / 3))
+                      **bound(lower_nbytes(W) + 2 * nbytes_of(W) + 1,
+                              2 * 256 ** 3 / 3))
         # the kernels alone, from one trace: the factor and the inverse
         parts = kernels_us(panelchol.panel_factor, (W,),
                            ("panelchol_factor", "panelchol_inverse"))
@@ -809,9 +886,9 @@ def phase10_timing(dev, bench, card, k2, k34) -> dict:
     bsr = bsr_tensor(J, v)
     for key, fn, ref, args, kname in (
             ("K3", tk.bcsr_jtj_blocks_kernel, tk.bcsr_jtj_blocks_reference,
-             (J, sched), "jtj_blocks"),
+             (J, sched), K3_KERNELS["words"]),
             ("K4", tk.bcsr_matvec_kernel, tk.bcsr_matvec_reference, (J, v),
-             "matvec")):
+             K4_KERNELS["words"])):
         turns = []
         for _ in range(2):  # in turns, so that a drift shows
             turns.append((
@@ -830,7 +907,8 @@ def phase10_timing(dev, bench, card, k2, k34) -> dict:
         print(f"[10 {key} grid {GRID} f32] kernel with its wrapper "
               f"{turns[0][0]:.4f} / {turns[1][0]:.4f} ms, library call "
               f"{library} (two turns, CUDA events over 20 back-to-back "
-              f"calls), twin {plain:.4f} ms; the kernel alone {alone}; bound "
+              f"calls), twin {plain:.4f} ms; the kernel ({kname}) alone "
+              f"{alone}; bound "
               f"{k34[key]['bound_ms'] * 1e3:.2f} us by "
               f"{k34[key]['bound_by']}; a later call: {later}; card {card}",
               flush=True)
@@ -977,15 +1055,18 @@ def phase13_timing(dev, bench, card, sparse, tiles, dense_walls) -> None:
         # the one PyTorch call that computes the same function
         if key == "K6":
             lib, lib_args = torch.linalg.cholesky_ex, (S,)
-            # in: the tiles; out: L and ok. n^3/3 operations a tile
-            limit = bound(2 * nbytes_of(S) + k, k * n ** 3 / 3)
+            # in: the tiles' lower triangles (the function reads nothing
+            # above the diagonal); out: L and ok (a byte a tile). n^3/3
+            # operations a tile
+            limit = bound(lower_nbytes(S) + nbytes_of(S) + k,
+                          k * n ** 3 / 3)
         else:
             lib, lib_args = (lambda D, Cm: torch.linalg.solve_triangular(
                 D.mT, Cm, upper=True, left=False)), (L, C)
             # in: D's lower triangle (the function reads nothing above the
             # diagonal) and C; out: X. m n^2 operations a tile (m = n here)
-            limit = bound(k * n * (n + 1) // 2 * L.element_size()
-                          + 2 * nbytes_of(C), float(k) * n * n * n)
+            limit = bound(lower_nbytes(L) + 2 * nbytes_of(C),
+                          float(k) * n * n * n)
         turns = []
         for _ in range(2):  # in turns, so that a drift shows
             turns.append((measure_ms(fn, *args, warmup=3, reps=20),
@@ -1106,8 +1187,9 @@ def phase14_batchchol(dev) -> None:
                     first = False
                 Lr, okr = batchchol.batched_blocked_cholesky_reference(S)
                 torch.cuda.synchronize()
-                check(L.shape == S.shape and ok.shape == (B,),
-                      f"K5 {name} n={n} B={B} shapes")
+                check(L.shape == S.shape and ok.shape == (B,)
+                      and ok.dtype == torch.bool,
+                      f"K5 {name} n={n} B={B} shapes, ok a bool tensor")
                 check(bool(ok.all()) and torch.equal(ok, okr),
                       f"K5 {name} n={n} B={B} ok")
                 check(bool((torch.triu(L, 1) == 0).all()),
@@ -1130,7 +1212,12 @@ def phase14_batchchol(dev) -> None:
             e_good = rel_err(L[good], Lr[good])
             check(e_good < tol, f"K5 {name} n={n} the neighbours of a failed "
                   f"matrix within {tol}: {e_good:.3e}")
-            print(f"[14 K5 {name} n={n}] vs its plain version, B 1/7/512: "
+            ran = kernels_launched(batchchol.batched_blocked_cholesky, (S,),
+                                   K5_KERNELS)
+            check(len(ran) == 1, f"K5 {name} n={n} launched one of its "
+                  f"kernels (profiler): {ran}")
+            print(f"[14 K5 {name} n={n}, {ran.pop()} (profiler)] vs its "
+                  f"plain version, B 1/7/512: "
                   f"max {max(errs):.3e} of the largest entry (tol {tol}); "
                   f"one matrix not SPD: ok {ok.tolist()} from both, the "
                   f"others within {e_good:.3e}", flush=True)
@@ -1229,7 +1316,7 @@ def phase16_timing(dev, bench, card, mid, k5) -> None:
     import torch
 
     from libdogleg_tpu_torch import DenseNewtonSolver
-    from libdogleg_tpu_torch.ops import batchchol, tilechol
+    from libdogleg_tpu_torch.ops import batchchol, panelchol, tilechol
     from libdogleg_tpu_torch.ops import cholesky as chol
     from libdogleg_tpu_torch.parallel import (batched_optimize,
                                               batched_optimize_compacted)
@@ -1240,8 +1327,11 @@ def phase16_timing(dev, bench, card, mid, k5) -> None:
         pr = torch.func.vmap(midsize_products)(p0, data)
         S, rhs = pr.JtJ.contiguous(), pr.Jt_x
         shape = f"({batch}, {nstate}, {nstate}) f32"
-        # in: the matrices; out: L and ok. n^3/3 operations a matrix
-        limit = bound(2 * nbytes_of(S) + 4 * batch, batch * nstate ** 3 / 3)
+        # in: the matrices' lower triangles (the function reads nothing
+        # above the diagonal); out: L and ok (a byte a matrix). n^3/3
+        # operations a matrix
+        limit = bound(lower_nbytes(S) + nbytes_of(S) + batch,
+                      batch * nstate ** 3 / 3)
         turns = []
         for _ in range(2):  # in turns, so that a drift shows
             turns.append((
@@ -1262,8 +1352,13 @@ def phase16_timing(dev, bench, card, mid, k5) -> None:
               f"largest entry: {err:.3e}")
         k5["max_abs_err"] = max(k5["max_abs_err"],
                                 float((L - Lr).abs().max()))
+        # the streamed kernel runs at both shapes (from the trace)
+        ran = kernels_launched(batchchol.batched_blocked_cholesky, (S,),
+                               K5_KERNELS, {"batchchol_streamed"})
+        check(ran == {"batchchol_streamed"},
+              f"K5 {shape} launched batchchol_streamed (profiler): {ran}")
         alone = us_text(kernel_us(batchchol.batched_blocked_cholesky, (S,),
-                                  "batchchol"))
+                                  "batchchol_streamed"))
         if nstate == MIDSIZE[-1][0]:
             k5.update(ms=turns[0][0], plain_ms=plain,
                       library_ms=turns[0][1], **limit)
@@ -1272,7 +1367,7 @@ def phase16_timing(dev, bench, card, mid, k5) -> None:
               f"{turns[1][1]:.4f} ms, K6 {turns[0][2]:.4f} / "
               f"{turns[1][2]:.4f} ms (two turns, CUDA events over 20 "
               f"back-to-back calls), plain version {plain:.3f} ms; the "
-              f"kernel alone {alone}; bound "
+              f"kernel (batchchol_streamed, profiler) alone {alone}; bound "
               f"{limit['bound_ms'] * 1e3:.2f} us by {limit['bound_by']}; on "
               f"the path's JtJ K5 within {err:.3e} of its plain version's "
               f"largest entry (tol 1e-5), ok identical; card {card}",
@@ -1326,6 +1421,14 @@ def phase16_timing(dev, bench, card, mid, k5) -> None:
         print(f"[16 Nstate {nstate} B={batch} f32 solve, gate] "
               f"{device_split(gate, groups=MIDSIZE_GROUPS)}",
               flush=True)
+    # the other two kernels on csrc/cholstage.cuh, alone, beside K5
+    S = spd_tiles(128, 21, 149, torch.float32, dev)
+    W = spd_on_device(256, 1, 3, torch.float32, dev) * 256
+    k6 = kernel_us(tilechol.tile_cholesky, (S,), "tilechol")
+    k2 = kernel_us(panelchol.panel_factor, (W,), "panelchol_factor")
+    print(f"[16 beside K5, f32] K6 (21, 128, 128) alone {us_text(k6)}; K2's "
+          f"factor kernel p=256 alone {us_text(k2)}; card {card}",
+          flush=True)
 
 
 def error_free_pairs(n, seed, dtype, device):

@@ -8,15 +8,33 @@
 // libdogleg_tpu/ops/pallas_bcsr.py::bcsr_matvec_pallas (pallas_call at :212,
 // kernel _matvec_kernel at :171-187): J v.
 //
-// K3's design: one thread block per output block, walking that block's
-// contiguous run of the schedule (pairs sorted by output block, run offsets
-// derived on the host from out_idx); each thread owns output entries (i, j)
-// and sums over the run's pairs and the bm rows, so there are no atomics and
-// the sum order is fixed. The TPU kernels kept each output tile in VMEM
-// across the grid; here every output is a register sum written once. What
-// bounds it: memory, it reads every scheduled pair's two blocks (2 bm bn
-// values a pair) for bm bn^2 multiply-adds; the blocks are read straight
-// from device memory (L1/L2), not staged. A simple kernel, not tuned.
+// What bounds K3 on this card. It reads each scheduled pair's two blocks
+// (2 bm bn values a pair) for bm bn^2 multiply-adds and writes each output
+// block once: on the 32x32x8 grid model's dense coupling (4992 stored 8x8
+// blocks, 8960 pairs in runs of 1-5, 4992 output blocks, float32) 2.6 MB
+// counted once, under a microsecond at 3.35 TB/s, so it is a launch's size:
+// what counts is that the reads are wide and in flight together, not a chain
+// of dependent trips to memory (run pointers, then a pair's indices, then
+// its values) one scalar at a time.
+//
+// K3's design. For the grid model's (8, 8) blocks, float32 and float64, with
+// 16-byte-aligned values, a group of lanes works on one output block, one
+// lane per 16-byte word of it (16 lanes in float32, 32 in float64), several
+// groups to a thread block, so the grid is one wave. The group reads its
+// run's pair indices once, one lane per pair, and passes them round by
+// shuffles; every value block of up to JTJ_CHUNK pairs is requested before
+// the first product, as 16-byte asynchronous copies into shared memory; each
+// lane then sums its word's entries over the run's pairs in schedule order
+// and, within a pair, over the block's rows in order, which is the generic
+// kernel's order, so the two give the same bits; one 16-byte store a lane.
+// Every other block shape, and values that are not 16-byte aligned, take the
+// generic kernel: one thread block per output block walking that block's run
+// of the schedule (pairs sorted by output block, run offsets derived on the
+// host from out_idx), each thread owning output entries (i, j) and summing
+// over the run's pairs and the bm rows with scalar loads. Neither needs
+// atomics, and the sum order is fixed. The TPU kernels kept each output tile
+// in VMEM across the grid; here every output is a register sum written once.
+// launch_jtj alone chooses between the two.
 //
 // What bounds K4 on this card. It reads each stored block once and v and
 // writes J v: 1.4 MB on the 32x32x8 grid model's 8x8 float32 blocks, under
@@ -39,11 +57,15 @@
 // walking that row's blocks with scalar loads. Both are kernels of this
 // file; launch_matvec alone chooses between them.
 
+#include <cuda_pipeline.h>
+
 #include "group.cuh"
 
 namespace {
 
-constexpr int MV_THREADS = 128;  // K4: threads of a block
+constexpr int MV_THREADS = 128;   // K4: threads of a block
+constexpr int JTJ_THREADS = 128;  // K3's word kernel: threads of a block
+constexpr int JTJ_CHUNK = 8;      // pairs of a run staged at a time
 
 template <typename T>
 __global__ void jtj_blocks_kernel(const T* __restrict__ vals, int bm, int bn,
@@ -86,19 +108,96 @@ __global__ void matvec_kernel(const T* __restrict__ vals, int bm, int bn,
   out[t] = s;
 }
 
+// K3 for (8, 8) blocks: lane w of a group of 64 / V lanes holds word w of
+// the group's output block, row w / (8 / V), V columns from (w % (8 / V)) V.
 template <typename T>
-static int launch_jtj(const void* vals, int bm, int bn, const void* pair_i,
-                      const void* pair_j, const void* run_ptr, int nout,
-                      void* out, int device, void* stream) {
+__global__ void __launch_bounds__(JTJ_THREADS)
+jtj_words_kernel(const T* __restrict__ vals, const int* __restrict__ pair_i,
+                 const int* __restrict__ pair_j,
+                 const int* __restrict__ run_ptr, int nout,
+                 T* __restrict__ out) {
+  constexpr int V = Word<T>::N;
+  constexpr int BLK = 64;        // entries of a block
+  constexpr int LPG = BLK / V;   // lanes of a group: 16 or 32
+  constexpr int GPB = JTJ_THREADS / LPG;
+  constexpr int CL = 8 / V;      // lanes along a row of the block
+  static_assert(JTJ_CHUNK <= LPG, "one lane per pair of a chunk");
+  __shared__ __align__(16) T staged[GPB][2 * JTJ_CHUNK][BLK];
+  const int g = threadIdx.x / LPG, w = threadIdx.x % LPG;
+  const int o = blockIdx.x * GPB + g;
+  if (o >= nout) return;  // whole groups only
+  // the group's lanes of its warp
+  const unsigned mask =
+      LPG == 32 ? 0xffffffffu : 0xffffu << (threadIdx.x & 16);
+  const int i = w / CL, j = (w % CL) * V;  // the lane's output entries
+  T (*buf)[BLK] = staged[g];
+  const int k0 = __ldg(run_ptr + o), k1 = __ldg(run_ptr + o + 1);
+  T acc[V];
+#pragma unroll
+  for (int u = 0; u < V; ++u) acc[u] = T(0);
+  for (int kc = k0; kc < k1; kc += JTJ_CHUNK) {
+    const int m = min(JTJ_CHUNK, k1 - kc);
+    int pi = 0, pj = 0;
+    if (w < m) pi = __ldg(pair_i + kc + w), pj = __ldg(pair_j + kc + w);
+#pragma unroll
+    for (int p = 0; p < JTJ_CHUNK; ++p) {
+      if (p >= m) break;
+      const int bi = __shfl_sync(mask, pi, p, LPG);
+      const int bj = __shfl_sync(mask, pj, p, LPG);
+      __pipeline_memcpy_async(&buf[2 * p][w * V],
+                              vals + static_cast<size_t>(bi) * BLK + w * V,
+                              16);
+      __pipeline_memcpy_async(&buf[2 * p + 1][w * V],
+                              vals + static_cast<size_t>(bj) * BLK + w * V,
+                              16);
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncwarp(mask);
+    for (int p = 0; p < m; ++p) {
+      const T* a = buf[2 * p];
+      const T* b = buf[2 * p + 1];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const T ar = a[r * 8 + i];
+        const Word<T> br = load_word(b + r * 8 + j);
+#pragma unroll
+        for (int u = 0; u < V; ++u) acc[u] += ar * br.v[u];
+      }
+    }
+    __syncwarp(mask);  // the chunk's blocks are read before the next lands
+  }
+  Word<T> res;
+#pragma unroll
+  for (int u = 0; u < V; ++u) res.v[u] = acc[u];
+  store_word(out + static_cast<size_t>(o) * BLK + w * V, res);
+}
+
+// The word kernel for (8, 8) blocks whose values are 16-byte aligned (the
+// output, from torch.empty, always is), the generic one for everything else.
+template <typename T>
+static int launch_jtj(const void* vals_, int bm, int bn, const void* pair_i_,
+                      const void* pair_j_, const void* run_ptr_, int nout,
+                      void* out_, int device, void* stream_) {
   if (nout <= 0) return 0;
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int threads = ((bn * bn + 31) / 32) * 32;
-  if (threads > 256) threads = 256;
-  jtj_blocks_kernel<T><<<nout, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(vals), bm, bn, static_cast<const int*>(pair_i),
-      static_cast<const int*>(pair_j), static_cast<const int*>(run_ptr),
-      static_cast<T*>(out));
+  const T* vals = static_cast<const T*>(vals_);
+  const int* pair_i = static_cast<const int*>(pair_i_);
+  const int* pair_j = static_cast<const int*>(pair_j_);
+  const int* run_ptr = static_cast<const int*>(run_ptr_);
+  T* out = static_cast<T*>(out_);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (bm == 8 && bn == 8 && aligned16(vals) && aligned16(out)) {
+    constexpr int GPB = JTJ_THREADS / (64 / Word<T>::N);  // outputs a block
+    jtj_words_kernel<T><<<(nout + GPB - 1) / GPB, JTJ_THREADS, 0, stream>>>(
+        vals, pair_i, pair_j, run_ptr, nout, out);
+  } else {
+    int threads = ((bn * bn + 31) / 32) * 32;
+    if (threads > 256) threads = 256;
+    jtj_blocks_kernel<T><<<nout, threads, 0, stream>>>(
+        vals, bm, bn, pair_i, pair_j, run_ptr, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -254,15 +254,24 @@ constexpr int lone_threads = sizeof(T) == 4 ? LONE_THREADS_F32 : THREADS;
 // SM, hides that chain behind other blocks and does not.
 constexpr bool LOOK_AHEAD = true;
 
+// Nothing to do beside a stage's diagonal factor.
+struct NoSide {
+  __device__ void operator()(int, int) const {}
+};
+
 // The stages of an n-wide matrix (n a multiple of 16) held in W, its rows
 // where row_of finds them, by thread t of a group of G; Pt is the group's
 // (16, n) staging buffer and Dk its staged diagonal block. The group is
 // synchronized on entry and on return. Returns, on the group's first warp,
 // whether every pivot was positive and finite. With AHEAD (whole blocks
 // only) the group looks ahead; every entry takes the same operations in the
-// same order either way.
-template <typename T, int G, typename Pivot, bool AHEAD>
-__device__ bool chol_stages(T* W, int ld, int n, T* Pt, T* Dk, int t) {
+// same order either way. Without it, every thread calls side(j0, t) before
+// the barrier that ends stage j0's diagonal factor: the first warp after it
+// has factored the block, the others while it does.
+template <typename T, int G, typename Pivot, bool AHEAD,
+          typename Side = NoSide>
+__device__ bool chol_stages(T* W, int ld, int n, T* Pt, T* Dk, int t,
+                            Side side = Side()) {
   static_assert(!AHEAD || G > 32, "a single warp cannot look ahead");
   // the 4x4 tiles of a diagonal block's lower triangle: the first tiles of
   // every trailing block
@@ -276,6 +285,7 @@ __device__ bool chol_stages(T* W, int ld, int n, T* Pt, T* Dk, int t) {
     const int r0 = j0 + PANEL;  // first row and column of the trailing block
     if constexpr (!AHEAD) {
       if (t < 32) good = factor_diag<T, Pivot>(W, ld, j0, Dk, t) && good;
+      side(j0, t);
       Group<G>::sync();
     }
 

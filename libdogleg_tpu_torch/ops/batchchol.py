@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from libdogleg_tpu_torch.native.loader import launch_target, load_library
 from libdogleg_tpu_torch.ops import smallchol
 
 BLOCK = 16
@@ -102,21 +103,20 @@ def batched_blocked_cholesky(A: torch.Tensor):
         return batched_blocked_cholesky_reference(A)
     if A.device.type != "cuda":
         raise ValueError(f"no kernel for device {A.device}")
-    W = pad_to_block(A).contiguous()
-    if W.data_ptr() % 16:  # the kernel moves 16-byte words
-        W = W.clone()
-    B = W.shape[0]
+    W = pad_to_block(A)
+    if not W.is_contiguous() or W.data_ptr() % 16:  # 16-byte words
+        W = W.clone(memory_format=torch.contiguous_format)
+    B, npad = W.shape[0], W.shape[-1]
     L = torch.empty_like(W)
-    ok = torch.empty(B, dtype=torch.int32, device=W.device)
+    ok = torch.empty(B, dtype=torch.bool, device=W.device)
     if B:
-        from libdogleg_tpu_torch.native.loader import (launch_target,
-                                                       load_library)
-        entry = ("dogleg_batchchol_f32" if W.dtype == torch.float32
-                 else "dogleg_batchchol_f64")
-        err = getattr(load_library(), entry)(
-            W.data_ptr(), B, W.shape[-1], L.data_ptr(), ok.data_ptr(),
-            *launch_target(W.device))
+        lib = load_library()
+        entry = (lib.dogleg_batchchol_f32 if W.dtype == torch.float32
+                 else lib.dogleg_batchchol_f64)
+        err = entry(W.data_ptr(), B, npad, L.data_ptr(), ok.data_ptr(),
+                    *launch_target(W.device))
         if err:
-            raise RuntimeError(f"{entry} launch failed: cudaError_t {err}")
+            raise RuntimeError(f"batched_blocked_cholesky launch failed: "
+                               f"cudaError_t {err}")
         launch_count += 1
-    return L[:, :n, :n], ok != 0
+    return (L if npad == n else L[:, :n, :n]), ok

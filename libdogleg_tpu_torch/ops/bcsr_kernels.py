@@ -24,6 +24,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from libdogleg_tpu_torch.native.loader import launch_target, load_library
 from libdogleg_tpu_torch.ops.bcsr import (BCSRJacobian, BCSRStructure,
                                          _index, bcsr_matvec)
 
@@ -90,7 +91,8 @@ def device_indices(owner: np.ndarray, device, name: str = "",
     """The index array `owner` (or, with `make`, an array derived from it,
     told apart by `name`) as an int32 tensor on `device`: copied there once
     and kept for as long as `owner` lives."""
-    device = torch.device(device)
+    if not isinstance(device, torch.device):
+        device = torch.device(device)
     held = _DEVICE_INDICES.get(id(owner))
     if held is None:
         held = _DEVICE_INDICES[id(owner)] = {}
@@ -112,6 +114,13 @@ def _run_ptr(schedule: JtJSchedule) -> np.ndarray:
     return np.concatenate([[0], np.cumsum(counts)])
 
 
+def _jtj_operands(schedule: JtJSchedule) -> np.ndarray:
+    """K3's int32 operands in one array: pair_i, pair_j, then the run
+    pointers, so that a product finds them on the card with one lookup."""
+    return np.concatenate([schedule.pair_i, schedule.pair_j,
+                           _run_ptr(schedule)])
+
+
 def matvec_instance(bm: int, bn: int, dtype) -> str:
     """Which of K4's kernels csrc/bcsr.cu launches for 16-byte-aligned
     (bm, bn) blocks of `dtype`: "words" (a group of lanes per block row, one
@@ -122,6 +131,18 @@ def matvec_instance(bm: int, bn: int, dtype) -> str:
     if (bm, bn) == (8, 8) and dtype in (torch.float32, torch.float64):
         return "words"
     return "rows"
+
+
+def jtj_instance(bm: int, bn: int, dtype) -> str:
+    """Which of K3's kernels csrc/bcsr.cu launches for 16-byte-aligned
+    (bm, bn) blocks of `dtype`: "words" (a group of lanes per output block,
+    one 16-byte word of it per lane) for the grid model's (8, 8) blocks,
+    "entries" (a thread block per output block, a thread per entry, any
+    block shape) otherwise, as for values that are not aligned. Both sum in
+    the same order. The launcher decides; this names its rule."""
+    if (bm, bn) == (8, 8) and dtype in (torch.float32, torch.float64):
+        return "words"
+    return "entries"
 
 
 def bcsr_jtj_blocks_reference(J: BCSRJacobian,
@@ -141,8 +162,8 @@ def bcsr_jtj_blocks_kernel(J: BCSRJacobian,
                            schedule: Optional[JtJSchedule] = None):
     """Block-sparse J^T J. Returns (blocks (nnzb_out, bn, bn), schedule):
     the blocks in the schedule's output pattern; jtj_blocks_to_dense
-    materializes them. CUDA values go to kernel K3, CPU values to
-    bcsr_jtj_blocks_reference."""
+    materializes them. CUDA values go to kernel K3 (of its two kernels the
+    one `jtj_instance` names), CPU values to bcsr_jtj_blocks_reference."""
     _check(J)
     if schedule is None:
         schedule = build_jtj_schedule(J.structure)
@@ -151,21 +172,19 @@ def bcsr_jtj_blocks_kernel(J: BCSRJacobian,
         return bcsr_jtj_blocks_reference(J, schedule), schedule
     if v.device.type != "cuda":
         raise ValueError(f"no kernel for device {v.device}")
-    from libdogleg_tpu_torch.native.loader import launch_target, load_library
     lib = load_library()
     entry = (lib.dogleg_bcsr_jtj_f32 if v.dtype == torch.float32
              else lib.dogleg_bcsr_jtj_f64)
     s = J.structure
     nout = int(schedule.out_ci.shape[0])
+    npairs = int(schedule.pair_i.shape[0])
     vals = v.contiguous()
-    pi = device_indices(schedule.pair_i, v.device)
-    pj = device_indices(schedule.pair_j, v.device)
-    rp = device_indices(schedule.out_idx, v.device, "run_ptr",
-                        lambda: _run_ptr(schedule))
+    ops = device_indices(schedule.out_idx, v.device, "jtj",
+                         lambda: _jtj_operands(schedule)).data_ptr()
     out = torch.empty((nout, s.block_cols, s.block_cols), dtype=v.dtype,
                       device=v.device)
-    err = entry(vals.data_ptr(), s.block_rows, s.block_cols, pi.data_ptr(),
-                pj.data_ptr(), rp.data_ptr(), nout, out.data_ptr(),
+    err = entry(vals.data_ptr(), s.block_rows, s.block_cols, ops,
+                ops + 4 * npairs, ops + 8 * npairs, nout, out.data_ptr(),
                 *launch_target(v.device))
     if err:
         raise RuntimeError(f"bcsr_jtj_blocks_kernel launch failed: "
@@ -213,7 +232,6 @@ def bcsr_matvec_kernel(J: BCSRJacobian, vec: torch.Tensor) -> torch.Tensor:
         return bcsr_matvec_reference(J, vec)
     if v.device.type != "cuda":
         raise ValueError(f"no kernel for device {v.device}")
-    from libdogleg_tpu_torch.native.loader import launch_target, load_library
     lib = load_library()
     entry = (lib.dogleg_bcsr_matvec_f32 if v.dtype == torch.float32
              else lib.dogleg_bcsr_matvec_f64)

@@ -110,12 +110,34 @@ def test_products_equal_jax_f64():
         np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12, atol=1e-12)
 
 
-@pytest.mark.parametrize("bm,bn", [(8, 128), (3, 2)])
+def _grid_like_both(seed, bm, bn, dtype, nbrow=6, nbcol=4):
+    """A Jacobian whose block rows store 1 and 2 blocks in turn, as the grid
+    model's prior and coupling rows do, in both packages."""
+    cols = [[r % nbcol] if r % 2 == 0
+            else sorted({r % nbcol, (r + 1) % nbcol}) for r in range(nbrow)]
+    indptr = np.concatenate([[0], np.cumsum([len(c) for c in cols])])
+    indices = np.concatenate(cols)
+    args = dict(nmeas=nbrow * bm, nstate=nbcol * bn, block_rows=bm,
+                block_cols=bn, indptr=indptr.astype(np.int32),
+                indices=indices.astype(np.int32))
+    rng = np.random.default_rng(seed)
+    values = rng.normal(size=(len(indices), bm, bn)).astype(dtype)
+    Jj = jbcsr.BCSRJacobian(jbcsr.BCSRStructure(**args), jnp.asarray(values))
+    Jt = tbcsr.BCSRJacobian(tbcsr.BCSRStructure(**args),
+                            torch.as_tensor(values))
+    return Jj, Jt, rng
+
+
+@pytest.mark.parametrize("bm,bn", [(8, 128), (3, 2), (8, 8)])
 def test_kernel_twins_match_jax_pallas_f32(bm, bn):
     """K3's and K4's twins (the wrappers on CPU tensors) against the JAX
     Pallas kernels in interpret mode, on a (8, 128)-tile structure like
-    tests/test_pallas_bcsr.py's and on small odd blocks."""
-    Jj, Jt, rng = _both(3, bm, bn, np.float32, nbrow=5, nbcol=4)
+    tests/test_pallas_bcsr.py's, on small odd blocks, and on the grid
+    model's (8, 8) blocks in rows of 1 and 2 blocks."""
+    if (bm, bn) == (8, 8):
+        Jj, Jt, rng = _grid_like_both(3, bm, bn, np.float32)
+    else:
+        Jj, Jt, rng = _both(3, bm, bn, np.float32, nbrow=5, nbcol=4)
     s = Jt.structure
     counts = dict(tk.launch_counts)
     blocks, sched = tk.bcsr_jtj_blocks_kernel(Jt)
@@ -177,6 +199,18 @@ def test_matvec_instance(bm, bn, dtype, want):
     assert tk.matvec_instance(bm, bn, dtype) == want
 
 
+@pytest.mark.parametrize("bm,bn,dtype,want", [
+    (8, 8, torch.float32, "words"), (8, 8, torch.float64, "words"),
+    (4, 8, torch.float32, "entries"), (8, 4, torch.float64, "entries"),
+    (3, 5, torch.float32, "entries"), (3, 5, torch.float64, "entries"),
+    (8, 128, torch.float32, "entries"), (16, 16, torch.float64, "entries"),
+    (8, 8, torch.float16, "entries")])
+def test_jtj_instance(bm, bn, dtype, want):
+    """K3's word kernel for the grid model's (8, 8) blocks in float32 and
+    float64, the generic one for every other shape and type."""
+    assert tk.jtj_instance(bm, bn, dtype) == want
+
+
 def test_device_indices_are_cached_per_array():
     """A structure's index arrays go to the device once: a second call
     returns the same tensors, another structure gets its own, a derived
@@ -217,14 +251,20 @@ def test_device_indices_go_with_their_array():
 
 
 def test_jtj_wrapper_caches_its_schedule_on_the_device():
-    """K3's wrapper takes its pair lists and run pointers from the same
-    cache; the run pointers are the offsets of each output block's run."""
+    """K3's wrapper takes its operands from the same cache, held with the
+    schedule's out_idx: pair_i, pair_j and the run pointers in one int32
+    array, the run pointers the offsets of each output block's run."""
     _, Jt, _ = _both(8, 3, 2, np.float64)
     sched = tk.build_jtj_schedule(Jt.structure)
-    rp = tk.device_indices(sched.out_idx, "cpu", "run_ptr",
-                           lambda: tk._run_ptr(sched))
-    assert tk.device_indices(sched.out_idx, "cpu", "run_ptr") is rp
-    assert rp[0] == 0 and rp[-1] == len(sched.pair_i)
+    ops = tk.device_indices(sched.out_idx, "cpu", "jtj",
+                            lambda: tk._jtj_operands(sched))
+    assert tk.device_indices(sched.out_idx, "cpu", "jtj") is ops
+    npairs = len(sched.pair_i)
+    assert ops.dtype == torch.int32
+    np.testing.assert_array_equal(ops[:npairs].numpy(), sched.pair_i)
+    np.testing.assert_array_equal(ops[npairs:2 * npairs].numpy(), sched.pair_j)
+    rp = ops[2 * npairs:]
+    assert rp[0] == 0 and rp[-1] == npairs
     assert len(rp) == len(sched.out_ci) + 1
     for o in range(len(sched.out_ci)):
         assert (sched.out_idx[rp[o]:rp[o + 1]] == o).all()

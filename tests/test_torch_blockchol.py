@@ -119,6 +119,18 @@ def test_wrapper_refuses(bad, exc):
         batchchol.batched_blocked_cholesky(bad)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_wrapper_ok_is_bool_on_the_cpu(dtype):
+    """The wrapper's ok is a torch.bool tensor, one flag a matrix, as the
+    kernel writes it on the card."""
+    S = torch.as_tensor(_spd(10, (3,), 40), dtype=dtype)
+    S[1, 20, 20] = -S[1, 20, 20]
+    L, ok = batchchol.batched_blocked_cholesky(S)
+    assert ok.dtype == torch.bool and ok.shape == (3,)
+    assert ok.tolist() == [True, False, True]
+    assert L.shape == S.shape and L.dtype == dtype
+
+
 def test_cpu_tensors_launch_nothing():
     before = batchchol.launch_count
     batchchol.batched_blocked_cholesky(torch.as_tensor(_spd(11, (2,), 32)))

@@ -27,6 +27,27 @@ def cuda():
     return torch.device("cuda")
 
 
+def _kernels_run(fn, names, want, reps=3):
+    """Which of `names` the kernels that `reps` calls of fn launched hold in
+    their names, from a profiler trace. A trace now and then loses an event,
+    so it is taken again, up to six times, until it shows exactly `want`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(6):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        keys = [ev.key.lower() for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA]
+        found = {name for name in names if any(name in k for k in keys)}
+        if found == set(want):
+            break
+    return found
+
+
 def _instances(seed, batch, dtype, device):
     g = torch.Generator().manual_seed(seed)
     meas = qs.simulate(g, dtype, device, batch=(batch,))
@@ -351,6 +372,153 @@ K5_DIGESTS = {
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_batched_blocked_cholesky_bits_unchanged(cuda, dtype):
     assert k5_digest(dtype, cuda) == K5_DIGESTS[dtype]
+
+
+K5_KERNELS = ("batchchol_streamed", "batchchol_kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k,n,kernel", [
+    (512, 64, "batchchol_streamed"), (256, 128, "batchchol_streamed"),
+    (7, 48, "batchchol_streamed"), (7, 32, "batchchol_kernel"),
+    (7, 256, "batchchol_kernel")])
+def test_batched_blocked_cholesky_kernel_by_shape(cuda, k, n, kernel,
+                                                  dtype):
+    """Which of K5's kernels runs, read from a profiler trace: the streamed
+    one at the mid-size path's shapes and wherever rows of 48 <= n fit in
+    shared memory, cholstage.cuh's blocked_cholesky for a warp's n <= 32
+    and, in place, at n = 256; the factors within 1e-5 (float32) or 1e-10
+    of the plain version's largest entry."""
+    from libdogleg_tpu_torch.ops import batchchol
+    rng = np.random.default_rng(k + n)
+    A = torch.as_tensor(rng.normal(size=(k, n, n)), device=cuda)
+    S = (A @ A.mT / n + torch.eye(n, dtype=A.dtype, device=cuda)).to(dtype)
+    ran = _kernels_run(lambda: batchchol.batched_blocked_cholesky(S),
+                       K5_KERNELS, {kernel})
+    assert ran == {kernel}
+    L, ok = batchchol.batched_blocked_cholesky(S)
+    Lr, _ = batchchol.batched_blocked_cholesky_reference(S)
+    assert bool(ok.all())
+    tol = 1e-5 if dtype == torch.float32 else 1e-10
+    assert float((L - Lr).abs().max() / Lr.abs().max()) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("batch", [1, 7])
+def test_batched_blocked_cholesky_hard_cases(cuda, batch, dtype, tol):
+    """K5 where it is hard: n = 40, padded to 48, a single matrix, and a
+    batch of 7 whose matrix 3 is not SPD. ok is torch.bool and flags that
+    matrix alone; the others are within tol of the plain version's largest
+    entry; zeros above the diagonal; one launch."""
+    from libdogleg_tpu_torch.ops import batchchol
+    n = 40
+    rng = np.random.default_rng(batch)
+    A = torch.as_tensor(rng.normal(size=(batch, n, n)), device=cuda)
+    S = (A @ A.mT + n * torch.eye(n, dtype=A.dtype, device=cuda)).to(dtype)
+    want = [True] * batch
+    if batch > 3:
+        S[3, 30, 30] = -S[3, 30, 30]
+        want[3] = False
+    before = batchchol.launch_count
+    L, ok = batchchol.batched_blocked_cholesky(S)
+    torch.cuda.synchronize()
+    assert batchchol.launch_count == before + 1
+    assert ok.dtype == torch.bool and L.shape == S.shape
+    Lr, okr = batchchol.batched_blocked_cholesky_reference(S)
+    assert ok.tolist() == okr.tolist() == want
+    assert bool((torch.triu(L, 1) == 0).all())
+    good = ok.nonzero()[:, 0]
+    err = float((L[good] - Lr[good]).abs().max() / Lr[good].abs().max())
+    assert err < tol, err
+
+
+def k3_digest(dtype, device) -> str:
+    """SHA-256 of K3's blocks of J^T J on the 32x32x8 grid model's
+    dense-coupling structure (the word kernel's case), with values uniform
+    in [-1, 1) from a numpy seed, drawn in float64 and rounded to dtype
+    elementwise, so that every machine gets the same bits."""
+    import hashlib
+
+    from libdogleg_tpu_torch.models import grid_mrf
+    from libdogleg_tpu_torch.ops import bcsr_kernels as tk
+    from libdogleg_tpu_torch.ops.bcsr import BCSRJacobian
+    s = grid_mrf.make_grid_mrf(32, 32, 8, coupling="dense", dtype=dtype,
+                               device=device).structure
+    vals = np.random.default_rng(3).uniform(
+        -1.0, 1.0, size=(s.nnzb, s.block_rows, s.block_cols))
+    blocks, _ = tk.bcsr_jtj_blocks_kernel(
+        BCSRJacobian(s, torch.as_tensor(vals, dtype=dtype, device=device)))
+    return hashlib.sha256(blocks.cpu().numpy().tobytes()).hexdigest()
+
+
+# k3_digest of the kernel as it stood before the word kernel (one thread
+# block per output block, H100, CUDA 12.8): the word kernel sums in the
+# same order and changes no bit
+K3_DIGESTS = {
+    torch.float32:
+        "81e0a27f04091f190c397d0a75dbe43317fa4160a9ad296a4addc58995c2ce77",
+    torch.float64:
+        "6d89bd152a1e7965b92205a26cb853c170a008ddaff351145938647f77e1791c",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bcsr_jtj_bits_unchanged(cuda, dtype):
+    assert k3_digest(dtype, cuda) == K3_DIGESTS[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
+                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("case", ["grid", (8, 8), (3, 5), (4, 8)])
+def test_jtj_kernel_instances(cuda, case, dtype, rtol):
+    """K3's two kernels against its plain version on the card, within rtol
+    of the largest entry: the grid model's J and random patterns with empty
+    block rows; an (8, 8) J also through values that are not 16-byte
+    aligned, which take the generic kernel and give the same bits. The
+    kernel that ran, read from a profiler trace, is the one jtj_instance
+    names for aligned values, and jtj_blocks for the unaligned ones."""
+    from libdogleg_tpu_torch.models import grid_mrf
+    from libdogleg_tpu_torch.ops import bcsr_kernels as tk
+    from libdogleg_tpu_torch.ops.bcsr import BCSRJacobian
+    if case == "grid":
+        g = grid_mrf.make_grid_mrf(9, 7, 8, coupling="dense", dtype=dtype,
+                                   device=cuda)
+        J = BCSRJacobian(g.structure, g.problem(jtj="dense").f(g.p_true)[1])
+    else:
+        J = _random_bcsr(61, 13, *case, seed=sum(case) + 1, dtype=dtype,
+                         device=cuda)
+    s = J.structure
+    want = tk.bcsr_jtj_blocks_reference(J, tk.build_jtj_schedule(s))
+    before = tk.launch_counts["bcsr_jtj_blocks_kernel"]
+    got, sched = tk.bcsr_jtj_blocks_kernel(J)
+    torch.cuda.synchronize()
+    assert tk.launch_counts["bcsr_jtj_blocks_kernel"] == before + 1
+    torch.testing.assert_close(got, want, rtol=rtol,
+                               atol=rtol * float(want.abs().max()))
+    kernels = {"words": "jtj_words", "entries": "jtj_blocks"}
+    instance = tk.jtj_instance(s.block_rows, s.block_cols, dtype)
+    assert instance == ("words" if (s.block_rows, s.block_cols) == (8, 8)
+                        else "entries")
+    ran = _kernels_run(lambda: tk.bcsr_jtj_blocks_kernel(J, sched),
+                       kernels.values(), {kernels[instance]})
+    assert ran == {kernels[instance]}
+    if instance == "words":
+        buf = torch.empty(J.values.numel() + 1, dtype=dtype, device=cuda)
+        shifted = buf[1:].view(J.values.shape)
+        shifted.copy_(J.values)
+        assert shifted.data_ptr() % 16
+        Js = BCSRJacobian(s, shifted)
+        other, _ = tk.bcsr_jtj_blocks_kernel(Js, sched)
+        torch.cuda.synchronize()
+        assert torch.equal(other, got)
+        ran = _kernels_run(lambda: tk.bcsr_jtj_blocks_kernel(Js, sched),
+                           kernels.values(), {"jtj_blocks"})
+        assert ran == {"jtj_blocks"}
 
 
 def _midsize(nstate, batch, dtype, device):
