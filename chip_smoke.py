@@ -124,7 +124,24 @@ Phases, each printing its own lines:
      recovered_frac >= 0.99; CUDA-event times of the kernel with its
      wrapper (in turns with phase 6's general K1), alone (profiler), its
      twin, the statistics transform, the whole call, and a profiler split;
-     and the attempts a problem took.
+     and the attempts a problem took;
+ 18. bundle adjustment through Schur elimination, no kernel of K1-K7 on its
+     path: in float64 at a small size (linear BA nc 8, n_points 50, flat
+     and tree; pinhole ncam 4, npts 60; sparse visibility ncam 8, npts 80)
+     the card against the CPU (identical decisions and History step types,
+     p within 1e-9); then bench_all.py's configs 4 (linear, nc 64,
+     n_points 20000, flat SchurNewtonSolver, gate norm2_x < 1e-3, also
+     with refine_iters=2), 7 (pinhole, ncam 32, npts 20000, 640000
+     observations, the grid path, TreeSchurNewtonSolver, start p_true +
+     0.02 N(0, 1), gate reason > 0 and norm2_x < 2 nobs) and 7s (sparse
+     visibility, ncam 128, npts 50000, k_obs 4, SparseWSchurNewtonSolver
+     with its chunked S and camera reductions, gate norm2_x < 2 nobs, also
+     with refine_iters=2 and cam_gather) in float32 under the benchmark
+     rule: each gate, the host wall and CUDA-event time of a solve, its
+     host synchronizations, a profiler split of each config's plain leg
+     (device time, device events, host and idle share), the camera-axis
+     reductions and a second solve bit for bit, and the float64 solve of
+     the same instance from the same start (costs, max |p32 - p64|).
 Then one JSON line about the kernels (time, plain version's time, the
 library call's where one exists, and the bound from this run's shapes; K1
 once per instance), the card line again, and a last JSON
@@ -1666,6 +1683,308 @@ def phase17_factored(dev, bench) -> dict:
 F64_BATCHES = (1, 31, 1000, 8193)  # no multiple of a group, warp or block
 
 
+# bench_all.py's bundle-adjustment workloads at their full width: config 4
+# (:282-308), 7 (:377-400) and 7s (:403-445)
+BA_LINEAR = dict(seed=0, nc=64, n_points=20000, block_size=3, k_obs=4)
+BA_PINHOLE = dict(seed=0, ncam=32, npts=20000)
+BA_SPARSE = dict(seed=0, ncam=128, npts=50000, k_obs=4)
+BA_GROUPS = (("matmul", ("gemm", "gemv", "cutlass", "xmma", "bmm",
+                         "dot_kernel", "splitk")),
+             ("cholesky", ("potrf", "potf", "chol", "trsm", "trsv", "syrk")),
+             ("gather/index", ("index", "gather", "scatter")),
+             ("reduce", ("reduce",)))
+
+
+def kernel_launch_counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel."""
+    from libdogleg_tpu_torch.ops import (batchchol, bcsr_kernels, mega,
+                                         panelchol, tilechol)
+    return {"K1": mega.launch_count, "K1 factored": mega.factored_launch_count,
+            "K2": panelchol.launch_count, **bcsr_kernels.launch_counts,
+            "K5": batchchol.launch_count, **tilechol.launch_counts}
+
+
+def host_syncs(fn) -> tuple:
+    """(the host synchronizations one call of fn makes, its result), counted
+    as the warnings of torch.cuda's sync debug mode; None where the mode
+    gives none to count."""
+    import warnings
+
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    n = sum("synchroniz" in str(w.message).lower() for w in caught)
+    return (n or None), out
+
+
+def ba_small(name, device):
+    """(products, strategy, start) of a small float64 instance, the same on
+    every device: linear BA nc 8, n_points 50 (flat or tree), pinhole ncam 4,
+    npts 60 (full visibility), sparse visibility ncam 8, npts 80, k_obs 3;
+    the pinhole starts drawn from one CPU generator."""
+    import torch
+
+    from libdogleg_tpu_torch.models import bundle_adjustment as lba
+    from libdogleg_tpu_torch.models import pinhole_ba as pba
+    if name.startswith("linear"):
+        ba = lba.make_synthetic(seed=3, nc=8, n_points=50,
+                                dtype=torch.float64, device=device)
+        if name == "linear-tree":
+            return ba.products_tree, ba.tree_newton_solver(), ba.p0_tree()
+        return (ba.products, ba.newton_solver(),
+                torch.zeros(ba.nstate, dtype=torch.float64, device=device))
+    ba = (pba.make_synthetic(seed=0, ncam=4, npts=60, device=device)
+          if name == "dense" else
+          pba.make_synthetic_sparse(seed=0, ncam=8, npts=80, k_obs=3,
+                                    device=device))
+    return (ba.products, ba.newton_solver(),
+            ba.p0(torch.Generator().manual_seed(2), jitter=0.02))
+
+
+def flat_p(p):
+    """A state as one float64 vector."""
+    import torch
+    if isinstance(p, dict):
+        return torch.cat([p["c"].reshape(-1), p["q"].reshape(-1)]).double()
+    return p.double()
+
+
+def same_bits(a, b) -> bool:
+    """Whether two float tensors hold the same bits (NaN included)."""
+    import torch
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype])))
+
+
+def ba_deterministic(label, products_fn, ns, p) -> str:
+    """Two evaluations of the products and two factorizations at p (at
+    lambda 0 and 1e-3): every camera-axis reduction (the camera gradient,
+    U, the reduced system S and its factor) must give the same bits."""
+    import torch
+    pr = [products_fn(p) for _ in range(2)]
+    gc = [q.Jt_x["c"] if isinstance(q.Jt_x, dict) else q.Jt_x for q in pr]
+    check(same_bits(gc[0], gc[1]), f"{label}: the camera gradient bit for "
+          f"bit on a second run")
+    check(same_bits(pr[0].JtJ.U, pr[1].JtJ.U),
+          f"{label}: U bit for bit on a second run")
+    oks = []
+    for lam in (0.0, 1e-3):
+        lam = torch.tensor(lam, dtype=pr[0].norm2_x.dtype,
+                           device=pr[0].norm2_x.device)
+        fac = [ns.factor(q.JtJ, lam) for q in pr]
+        check(all(same_bits(x, y) for x, y in zip(fac[0][0], fac[1][0]))
+              and bool(fac[0][1]) == bool(fac[1][1]),
+              f"{label}: the point and reduced-system factors at lambda "
+              f"{float(lam):g} bit for bit")
+        oks.append(f"{float(lam):g}: {bool(fac[0][1])}")
+    return (f"camera gradient, U, Lv and Ls bit for bit on two runs (factor "
+            f"ok at lambda {', '.join(oks)})")
+
+
+def ba_leg(label, products_fn, ns, p0, bench, gate, gate_text, card,
+           profile=True):
+    """One config's solve at full width: the first call, the gate, the host
+    wall of single calls, CUDA-event time, the host synchronizations a
+    solve, the bits of two solves, and (profile) a profiler split. Returns
+    the result."""
+    import torch
+
+    from libdogleg_tpu_torch import solve_products
+    from libdogleg_tpu_torch.utils.benchtime import measure_ms
+
+    def solve():
+        return solve_products(products_fn, p0, bench, newton_solver=ns)
+    before = kernel_launch_counts()
+    t0 = time.perf_counter()
+    r = solve()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    check(kernel_launch_counts() == before,
+          f"{label}: the path launches none of K1-K7")
+    p = flat_p(r.p)
+    check(bool(torch.isfinite(p).all()) and bool(torch.isfinite(r.norm2_x)),
+          f"{label}: finite result")
+    check(gate(r), f"{label}: gate {gate_text}: norm2_x "
+          f"{float(r.norm2_x):.6g}, reason {int(r.reason)}")
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r2 = solve()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    check(torch.equal(flat_p(r2.p), p), f"{label}: p bit for bit on a "
+          f"second solve")
+    ms = measure_ms(solve, warmup=0, reps=2)
+    syncs, _ = host_syncs(solve)
+    attempts = int(r.n_attempts)
+    sync_text = ("not measured (no sync warnings)" if syncs is None else
+                 f"{syncs} ({syncs / attempts:.1f} an attempt)")
+    print(f"[18 {label}] gate {gate_text}: norm2_x {float(r.norm2_x):.6g}, "
+          f"reason {int(r.reason)}, steps {int(r.step_count)}, attempts "
+          f"{attempts}, lambda {float(r.lam):.3g}; no kernel of K1-K7 "
+          f"launched; first call {first:.3f} s; host wall ms "
+          f"{', '.join(f'{w:.2f}' for w in walls)}; CUDA events "
+          f"{ms:.2f} ms a solve; host synchronizations a solve {sync_text}; "
+          f"card {card}", flush=True)
+    if profile:
+        print(f"[18 {label} profile] "
+              f"{device_split(solve, groups=BA_GROUPS)}; {attempts} "
+              f"attempts", flush=True)
+    return r
+
+
+def ba_f64_accuracy(label, products_fn, ns, p0, r32, since) -> None:
+    """The same instance cast up to float64, solved on the card from the
+    same start under the reference's default (tight) thresholds, as
+    bench_all.py's f64_accuracy_cols: the costs and the largest difference
+    in p from the float32 result."""
+    import torch
+
+    from libdogleg_tpu_torch import DoglegParameters, solve_products
+    from libdogleg_tpu_torch.ops import treevec as tv
+    t0 = time.perf_counter()
+    r64 = solve_products(products_fn, tv.tree_map(lambda x: x.double(), p0),
+                         DoglegParameters(), newton_solver=ns)
+    torch.cuda.synchronize()
+    dp = float((flat_p(r32.p) - flat_p(r64.p)).abs().max())
+    print(f"[18 {label} f64] from the same start, default thresholds: "
+          f"reason {int(r64.reason)}, attempts {int(r64.n_attempts)}, "
+          f"norm2_x f64 {float(r64.norm2_x):.9g}, f32 "
+          f"{float(r32.norm2_x):.9g} (ratio "
+          f"{float(r32.norm2_x) / float(r64.norm2_x):.6g}); max |p32 - p64| "
+          f"{dp:.3e}; {time.perf_counter() - t0:.2f} s; the config's "
+          f"checks and timing {time.perf_counter() - since:.1f} s in all",
+          flush=True)
+
+
+def phase18_ba(dev, bench) -> None:
+    """Bundle adjustment through Schur elimination: float64 decisions on
+    the card against the CPU at a small size, then bench_all.py's configs
+    4, 7 and 7s at full width in float32 (gates, timing, determinism,
+    float64 accuracy)."""
+    import dataclasses
+
+    import torch
+
+    from libdogleg_tpu_torch import DoglegParameters, solve_products
+    from libdogleg_tpu_torch.models import bundle_adjustment as lba
+    from libdogleg_tpu_torch.models import pinhole_ba as pba
+    from libdogleg_tpu_torch.ops import newton
+
+    card = card_line()
+    decisions = ("step_count", "n_attempts", "reason")
+    for name in ("linear", "linear-tree", "dense", "sparse"):
+        out = []
+        for device in (dev, torch.device("cpu")):
+            fn, ns, p0 = ba_small(name, device)
+            out.append(solve_products(fn, p0, DoglegParameters(),
+                                      newton_solver=ns, record_history=True))
+        r_d, r_c = out
+        for field in decisions:
+            check(int(getattr(r_d, field)) == int(getattr(r_c, field)),
+                  f"BA {name} f64 card vs CPU {field} identical")
+        check(torch.equal(r_d.history.step_type.cpu(), r_c.history.step_type),
+              f"BA {name} f64 card vs CPU History step types identical")
+        dp = float((flat_p(r_d.p).cpu() - flat_p(r_c.p)).abs().max())
+        check(torch.allclose(flat_p(r_d.p).cpu(), flat_p(r_c.p), rtol=1e-9,
+                             atol=1e-9),
+              f"BA {name} f64 card vs CPU p within 1e-9: {dp:.3e}")
+        print(f"[18 decisions {name} f64] card vs CPU: step_count, "
+              f"n_attempts, reason and History step types identical "
+              f"({int(r_c.step_count)} steps, {int(r_c.n_attempts)} "
+              f"attempts, reason {int(r_c.reason)}); max |dp| {dp:.3e}",
+              flush=True)
+
+    # config 4: linear BA, flat state, from zeros
+    since = time.perf_counter()
+    ba = lba.make_synthetic(dtype=torch.float32, device=dev, **BA_LINEAR)
+    p0 = torch.zeros(ba.nstate, dtype=torch.float32, device=dev)
+    ns = ba.newton_solver()
+    print(f"[18 config 4] nc {ba.nc}, n_points {ba.n_points}, nstate "
+          f"{ba.nstate}, nmeas {ba.nmeasurements}, B "
+          f"{nbytes_of(ba.B) / 1e6:.1f} MB; "
+          f"{ba_deterministic('config 4', ba.products, ns, p0)}", flush=True)
+    legs = (("config 4", ns),
+            ("config 4 refine_iters=2",
+             dataclasses.replace(ns, refine_iters=2)))
+    for label, strategy in legs:
+        r4 = ba_leg(label, ba.products, strategy, p0, bench,
+                    lambda r: float(r.norm2_x) < 1e-3, "norm2_x < 1e-3",
+                    card, profile=strategy is ns)
+        if strategy is ns:
+            r4_plain = r4
+    ba64 = ba._replace(A=ba.A.double(), B=ba.B.double(), obs=ba.obs.double(),
+                       p_true=ba.p_true.double())
+    ba_f64_accuracy("config 4", ba64.products, ba64.newton_solver(), p0,
+                    r4_plain, since)
+    del ba, ba64
+
+    # config 7: pinhole BA, the full-visibility grid, tree state
+    since = time.perf_counter()
+    ba = pba.make_synthetic(dtype=torch.float32, device=dev, **BA_PINHOLE)
+    check(ba.dense_grid, "config 7 takes the grid path")
+    p0 = ba.p0(torch.Generator(device=dev).manual_seed(2), jitter=0.02)
+    ns = ba.newton_solver()
+    nobs = ba.nobs
+    print(f"[18 config 7] ncam {ba.ncam}, npts {ba.npts}, nobs {nobs}, "
+          f"nstate {ba.nstate}, W {ba.ncam * 6 * ba.npts * 3 * 4 / 1e6:.1f} "
+          f"MB; {ba_deterministic('config 7', ba.products, ns, p0)}",
+          flush=True)
+    r7 = ba_leg("config 7", ba.products, ns, p0, bench,
+                lambda r: int(r.reason) > 0 and float(r.norm2_x) < 2 * nobs,
+                "reason > 0, norm2_x < 2 nobs", card)
+    ba64 = dataclasses.replace(
+        ba, obs=ba.obs.double(), cam0_prior=ba.cam0_prior.double(),
+        pts_prior=ba.pts_prior.double(),
+        p_true={k: v.double() for k, v in ba.p_true.items()})
+    ba_f64_accuracy("config 7", ba64.products, ba64.newton_solver(), p0, r7,
+                    since)
+    del ba, ba64
+
+    # config 7s: sparse visibility, the chunked S and camera reductions
+    since = time.perf_counter()
+    ba = pba.make_synthetic_sparse(dtype=torch.float32, device=dev,
+                                   **BA_SPARSE)
+    p0 = ba.p0(torch.Generator(device=dev).manual_seed(2), jitter=0.02)
+    ns = ba.newton_solver()
+    nobs = ba.nobs
+    onehot = ba.npts * ba.k_obs * ba.ncam
+    check(onehot > ns.s_chunk_limit
+          and ba.npts * ns.nc * 3 > ns.s_chunk_limit,
+          "config 7s takes the chunked S and camera reductions")
+    print(f"[18 config 7s] ncam {ba.ncam}, npts {ba.npts}, k_obs "
+          f"{ba.k_obs}, nobs {nobs}, nstate {ba.nstate}, Wv "
+          f"{ba.npts * ba.k_obs * 18 * 4 / 1e6:.1f} MB, one-hot elements "
+          f"{onehot} > {ns.s_chunk_limit} (chunked); "
+          f"{ba_deterministic('config 7s', ba.products, ns, p0)}",
+          flush=True)
+    legs = (("config 7s", ns),
+            ("config 7s refine_iters=2 cam_gather",
+             dataclasses.replace(ns, refine_iters=2,
+                                 cam_gather=newton.build_cam_gather(
+                                     ba.cam_of, ba.ncam))))
+    for label, strategy in legs:
+        r7s = ba_leg(label, ba.products, strategy, p0, bench,
+                     lambda r: float(r.norm2_x) < 2 * nobs,
+                     "norm2_x < 2 nobs", card, profile=strategy is ns)
+        if strategy is ns:
+            r7s_plain = r7s
+    ba64 = dataclasses.replace(
+        ba, obs=ba.obs.double(), cam0_prior=ba.cam0_prior.double(),
+        pts_prior=ba.pts_prior.double(),
+        p_true={k: v.double() for k, v in ba.p_true.items()})
+    ba_f64_accuracy("config 7s", ba64.products, ba64.newton_solver(), p0,
+                    r7s_plain, since)
+
+
 def ptxas_k1(log: str) -> list:
     """ptxas's registers and spills of each K1 solve kernel in an nvcc log,
     one short line each."""
@@ -1932,6 +2251,7 @@ def main() -> int:
     k5 = {"launches": mid["launches"], "max_abs_err": 0.0}
     phase16_timing(dev, bench, card, mid, k5)
     k1f = phase17_factored(dev, bench)
+    phase18_ba(dev, bench)
 
     def entry(name, source, replaces, d):
         return {"name": name, "route": "cuda", "source": source,

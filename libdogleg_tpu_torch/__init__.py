@@ -29,6 +29,8 @@ from libdogleg_tpu_torch.solver import (
 from libdogleg_tpu_torch.ops.newton import (
     BlockedDenseNewtonSolver,
     DenseNewtonSolver,
+    SchurJtJ,
+    SchurNewtonSolver,
     SparseNewtonSolver,
 )
 from libdogleg_tpu_torch.problems import (
@@ -59,6 +61,8 @@ __all__ = [
     "result_from_batched_state",
     "BlockedDenseNewtonSolver",
     "DenseNewtonSolver",
+    "SchurJtJ",
+    "SchurNewtonSolver",
     "SparseNewtonSolver",
     "DenseProblem",
     "FactoredBasisProblem",

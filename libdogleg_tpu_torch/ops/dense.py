@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from libdogleg_tpu_torch.ops import treevec as tv
+
 
 def build_jtj(J: torch.Tensor) -> torch.Tensor:
     """J^T J for a dense (..., Nmeasurements, Nstate) Jacobian (reference
@@ -57,7 +59,7 @@ def cauchy_step(Jt_x: torch.Tensor, JtJ: torch.Tensor) -> CauchyStep:
 
 
 class InterpolatedStep(NamedTuple):
-    step: torch.Tensor        # (..., Nstate)
+    step: torch.Tensor        # (..., Nstate), or a tree of tensors
     norm2_step: torch.Tensor  # (...)
     k: torch.Tensor           # (...): cauchy -> gn interpolation factor
 
@@ -69,16 +71,22 @@ def interpolated_step(cauchy: torch.Tensor,
     """The point on the segment cauchy -> gn that crosses the trust-region
     sphere: the + root of norm2(a + k (b - a)) = tr^2, with a numerically
     negative discriminant clamped to zero (reference dogleg.c:936-987). The
-    clamp keeps a NaN discriminant NaN, as jnp.maximum does."""
-    d = cauchy - gn
-    l2 = norm2(d)
-    neg_c = dot(d, cauchy)
+    clamp keeps a NaN discriminant NaN, as jnp.maximum does. The steps are
+    (..., n) tensors or, for one problem, trees of tensors
+    (ops/treevec.py)."""
+    d = tv.tree_sub(cauchy, gn)
+    l2 = tv.tree_dot(d, d)
+    neg_c = tv.tree_dot(d, cauchy)
     dsq = trustregion * trustregion
     discriminant = torch.clamp(neg_c * neg_c - l2 * (norm2_cauchy - dsq),
                                min=0.0)
     k = (neg_c + torch.sqrt(discriminant)) / l2
-    step = cauchy + k[..., None] * (gn - cauchy)
-    return InterpolatedStep(step=step, norm2_step=norm2(step), k=k)
+    if isinstance(cauchy, torch.Tensor):   # k (...) scales (..., n) rows
+        step = cauchy + k[..., None] * (gn - cauchy)
+    else:
+        step = tv.tree_add(cauchy, tv.tree_scale(k, tv.tree_sub(gn, cauchy)))
+    return InterpolatedStep(step=step, norm2_step=tv.tree_dot(step, step),
+                            k=k)
 
 
 def expected_improvement(Jt_x: torch.Tensor,

@@ -1,5 +1,4 @@
-"""Newton-system strategies (counterpart of libdogleg_tpu/ops/newton.py:31-163
-and 373-488).
+"""Newton-system strategies (counterpart of libdogleg_tpu/ops/newton.py).
 
 The trust-region iteration needs two operations on Products.JtJ:
 
@@ -11,17 +10,29 @@ reference's LAPACK path); BlockedDenseNewtonSolver through the blocked
 Cholesky of ops/blockchol.py (kernel K5) for 17 <= n <= 256 and the panel
 Cholesky of ops/largechol.py (kernel K2) above; SparseNewtonSolver serves
 the stored lower blocks of a block-sparse JtJ through the level-scheduled
-sparse Cholesky (sparse_cholesky.py, supernodal.py; kernels K6 and K7). All
-keep the reference's permanent escalating lambda (dogleg.c:137-138,
-670-676); the dense ones take the `active` mask of the masked batched solver.
-refine_iters > 0 adds iterative-refinement passes whose residual is
-accumulated in compensated arithmetic (ops/compensated.py).
+sparse Cholesky (sparse_cholesky.py, supernodal.py; kernels K6 and K7).
+The Schur strategies serve the arrow systems of bundle adjustment,
+JtJ = [[U, W], [W^T, V]] with V block-diagonal, by eliminating the point
+blocks: SchurNewtonSolver on a flat state, TreeSchurNewtonSolver on a
+{"c", "q"} tree state, SparseWSchurNewtonSolver when each point couples to
+k_obs cameras only. They are plain torch ops (the unrolled smallchol for
+the point blocks, torch.linalg.cholesky_ex for the reduced camera system,
+matmuls with TF32 off) and one problem at a time. All keep the reference's
+permanent escalating lambda (dogleg.c:137-138, 670-676); the dense ones take
+the `active` mask of the masked batched solver. refine_iters > 0 adds
+iterative-refinement passes whose residual is accumulated in compensated
+arithmetic (ops/compensated.py).
+
+Every camera-axis reduction is deterministic on the card: a matmul (a
+one-hot product where the coupling is sparse) or a sum over a gathered
+table, never an index_add_, whose float atomics on CUDA may sum in any
+order.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -29,23 +40,26 @@ import torch
 from libdogleg_tpu_torch.ops import cholesky as chol
 from libdogleg_tpu_torch.ops import compensated as comp
 from libdogleg_tpu_torch.ops import dense as dops
+from libdogleg_tpu_torch.ops import smallchol
+from libdogleg_tpu_torch.ops import treevec as tv
 
 
 class GNResult(NamedTuple):
-    step: torch.Tensor        # (..., Nstate) the negated Newton solution
+    step: Any                 # (..., Nstate) the negated Newton solution,
+                              # or a tree of tensors
     norm2_step: torch.Tensor  # (...)
     lam: torch.Tensor         # (...) possibly escalated permanent lambda
     ok: torch.Tensor          # (...) bool: factorization succeeded
 
 
-def _refine(u: torch.Tensor, solve_fn: Callable, resid_fn: Callable,
-            iters: int) -> torch.Tensor:
+def _refine(u, solve_fn: Callable, resid_fn: Callable, iters: int):
     """Classical iterative refinement against the computed factor:
     u <- u + A^{-1} r(u), with r from resid_fn (compensated) and the
     correction solved with the existing factor (one matvec and one factor
-    solve per pass, no refactorization)."""
+    solve per pass, no refactorization). u is a tensor or a tree of tensors,
+    such as the (cameras, points) pair of the Schur strategies."""
     for _ in range(iters):
-        u = u + solve_fn(resid_fn(u))
+        u = tv.tree_add(u, solve_fn(resid_fn(u)))
     return u
 
 
@@ -264,3 +278,405 @@ class SparseNewtonSolver:
         step = -u
         return GNResult(step=step, norm2_step=dops.norm2(step), lam=lam,
                         ok=ok)
+
+
+# ---------------------------------------------------------------------------
+# Schur elimination of the point blocks (libdogleg_tpu/ops/newton.py:166-370,
+# 491-782)
+# ---------------------------------------------------------------------------
+
+
+class SchurJtJ(NamedTuple):
+    """Arrow-structured Gauss-Newton system of bundle adjustment: state
+    p = [dense block (nc) | n_points blocks of bs], JtJ = [[U, W], [W^T, V]]
+    with V block-diagonal. The reference hands such systems whole to
+    CHOLMOD."""
+    U: torch.Tensor   # (nc, nc) dense camera/global block
+    W: torch.Tensor   # (nc, n_points, bs) coupling blocks
+    V: torch.Tensor   # (n_points, bs, bs) point diagonal blocks
+
+
+def schur_split(v: torch.Tensor, nc: int, n_points: int, bs: int):
+    """A flat (nc + n_points * bs,) vector as (camera part, (n_points, bs))."""
+    return v[:nc], v[nc:].reshape(n_points, bs)
+
+
+def block_diag(blocks: torch.Tensor) -> torch.Tensor:
+    """The (m b, m b) block-diagonal matrix of (m, b, b) blocks, written
+    through a diagonal view of a zero (m, b, m, b) tensor."""
+    m, b, _ = blocks.shape
+    out = blocks.new_zeros((m, b, m, b))
+    idx = torch.arange(m, device=blocks.device)
+    out[idx, :, idx, :] = blocks
+    return out.reshape(m * b, m * b)
+
+
+def _cholesky_ok(A: torch.Tensor):
+    """cholesky_ex of (..., n, n) A, with ok (a 0-d bool) = every matrix
+    factored with positive finite pivots. A matrix that is not SPD gives ok
+    False, never an exception (hazard F3)."""
+    L, info = torch.linalg.cholesky_ex(A)
+    ok = ((info == 0).all() & torch.isfinite(L).all()
+          & (torch.diagonal(L, dim1=-2, dim2=-1) > 0).all())
+    return L, ok
+
+
+def _block_quad(V: torch.Tensor, vp: torch.Tensor) -> torch.Tensor:
+    """sum_p vp_p^T V_p vp_p for (n_points, bs, bs) blocks."""
+    return (vp[:, :, None] * V * vp[:, None, :]).sum()
+
+
+@dataclasses.dataclass(frozen=True)
+class SchurNewtonSolver:
+    """Gauss-Newton on a SchurJtJ by Schur elimination of the point blocks,
+    over a flat state.
+
+    factor: Vhat_p = V_p + lam I (batched small Cholesky);
+            S = U + lam I - sum_p W_p Vhat_p^{-1} W_p^T (one matmul);
+            the dense Cholesky of S.
+    solve:  y_p = Vhat_p^{-1} rp_p; dc = S^{-1}(rc - sum_p W_p y_p);
+            dp_p = Vhat_p^{-1}(rp_p - W_p^T dc).
+
+    point_solver, for block_size <= 16: "unrolled" (smallchol's unrolled
+    factor and substitutions) or "lax" (torch.linalg.cholesky_ex and
+    solve_triangular, the library path; the JAX package's lax.linalg).
+    Larger blocks always take the library path. refine_iters > 0 runs that
+    many refinement passes against the factors, with a compensated
+    residual."""
+    nc: int
+    n_points: int
+    block_size: int
+    point_solver: str = "unrolled"
+    refine_iters: int = 0
+
+    def _unrolled(self) -> bool:
+        return (self.block_size <= smallchol.SMALL_N_MAX
+                and self.point_solver == "unrolled")
+
+    def _split(self, v):
+        return schur_split(v, self.nc, self.n_points, self.block_size)
+
+    def quad_form(self, JtJ: SchurJtJ, v):
+        vc, vp = self._split(v)
+        return _schur_quad(JtJ, vc, vp)
+
+    def factor(self, JtJ: SchurJtJ, lam):
+        """Factorize JtJ + lam I once at a fixed lambda (no escalation).
+
+        Returns ((Lv, Ls), ok): Lv (n_points, bs, bs) the lower Cholesky
+        factors of the damped point blocks, Ls (nc, nc) that of the Schur
+        complement S, ok a 0-d bool. The public cached-factor handle, whose
+        tuple layout the analysis passes rely on (the JAX package's
+        contract)."""
+        bs = self.block_size
+        dt, dev = JtJ.V.dtype, JtJ.V.device
+        Vhat = JtJ.V + lam * torch.eye(bs, dtype=dt, device=dev)
+        Wt = JtJ.W.permute(1, 2, 0)                        # (np, bs, nc)
+        if self._unrolled():
+            Lv, okb = smallchol.small_cholesky(Vhat)
+            ok_v = okb.all()
+        else:
+            Lv, ok_v = _cholesky_ok(Vhat)
+        Y = self._vsolve(Lv, Wt)
+        W2 = JtJ.W.reshape(self.nc, -1)
+        S = (JtJ.U + lam * torch.eye(self.nc, dtype=dt, device=dev)
+             - W2 @ Y.reshape(-1, self.nc))
+        Ls, ok_s = _cholesky_ok(S)
+        return (Lv, Ls), ok_v & ok_s
+
+    def _vsolve(self, Lv, b):
+        """(n_points, bs, k) right-hand sides solved with the point-block
+        factors."""
+        if self._unrolled():
+            return smallchol.small_cho_solve_mat(Lv, b)
+        y = torch.linalg.solve_triangular(Lv, b, upper=False)
+        return torch.linalg.solve_triangular(Lv.mT, y, upper=True)
+
+    def _gn_core(self, JtJ: SchurJtJ, rc, rp, lam, lambda_initial,
+                 lambda_max_tries):
+        """Factor (with the escalating lambda) and solve for the camera and
+        point parts (dc, dp) of the Newton step."""
+        (Lv, Ls), lam, ok = chol.escalating_lambda(
+            lambda lm: self.factor(JtJ, lm),
+            torch.as_tensor(lam, dtype=rc.dtype, device=rc.device),
+            lambda_initial=lambda_initial, lambda_max_tries=lambda_max_tries)
+        W2 = JtJ.W.reshape(self.nc, -1)
+
+        def solve_pair(bc, bp):
+            # the exact inverse given the factors
+            y = self._vsolve(Lv, bp[..., None])[..., 0]        # (np, bs)
+            sc = chol.cholesky_solve(Ls, bc - W2 @ y.reshape(-1))
+            sp = self._vsolve(
+                Lv, (bp - (sc @ W2).reshape(bp.shape))[..., None])[..., 0]
+            return sc, sp
+
+        dc, dp = solve_pair(rc, rp)
+        if self.refine_iters:
+            def resid(v):
+                vc, vp = v
+                # camera rows: U vc + lam vc + sum_pb W[c, p, b] vp[p, b]
+                hc, lc = comp.comp_matvec(JtJ.U, vc)
+                hc, lc = comp.pair_add_prod(hc, lc, lam, vc)
+                hw, lw = comp.comp_contract(
+                    JtJ.W, vp, reduce_axes=(1, 2),
+                    broadcast=lambda x: x[None, :, :])
+                hc, lc = comp.pair_add(hc, lc, hw, lw)
+                # point rows: W^T vc + V vp + lam vp
+                h1, l1 = comp.comp_contract(
+                    JtJ.W, vc, reduce_axes=(0,),
+                    broadcast=lambda x: x[:, None, None])
+                h2, l2 = comp.comp_contract(
+                    JtJ.V, vp, reduce_axes=(2,),
+                    broadcast=lambda x: x[:, None, :])
+                hp, lp = comp.pair_add(h1, l1, h2, l2)
+                hp, lp = comp.pair_add_prod(hp, lp, lam, vp)
+                return comp.residual(rc, hc, lc), comp.residual(rp, hp, lp)
+
+            dc, dp = _refine((dc, dp), lambda r: solve_pair(*r), resid,
+                             self.refine_iters)
+        return dc, dp, lam, ok
+
+    def gauss_newton(self, JtJ: SchurJtJ, Jt_x, lam, *, lambda_initial,
+                     lambda_max_tries) -> GNResult:
+        rc, rp = self._split(Jt_x)
+        dc, dp, lam, ok = self._gn_core(JtJ, rc, rp, lam, lambda_initial,
+                                        lambda_max_tries)
+        step = -torch.cat([dc, dp.reshape(-1)])
+        return GNResult(step=step, norm2_step=dops.norm2(step), lam=lam,
+                        ok=ok)
+
+
+def _schur_quad(JtJ: SchurJtJ, vc, vp) -> torch.Tensor:
+    """v^T JtJ v for the arrow system, v = (vc, vp)."""
+    uv = dops.dot(vc, JtJ.U @ vc)
+    wv = JtJ.W.reshape(vc.shape[0], -1) @ vp.reshape(-1)
+    return uv + 2.0 * dops.dot(vc, wv) + _block_quad(JtJ.V, vp)
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeSchurNewtonSolver(SchurNewtonSolver):
+    """SchurNewtonSolver over tree states {"c": (nc,), "q": (n_points,
+    bs)} in place of one flat vector (the JAX package gives each leaf its
+    own sharding; the mesh layer is not ported yet)."""
+
+    def quad_form(self, JtJ: SchurJtJ, v):
+        return _schur_quad(JtJ, v["c"], v["q"])
+
+    def gauss_newton(self, JtJ: SchurJtJ, Jt_x, lam, *, lambda_initial,
+                     lambda_max_tries) -> GNResult:
+        dc, dp, lam, ok = self._gn_core(JtJ, Jt_x["c"], Jt_x["q"], lam,
+                                        lambda_initial, lambda_max_tries)
+        n2 = dops.dot(dc, dc) + (dp * dp).sum()
+        return GNResult(step={"c": -dc, "q": -dp}, norm2_step=n2, lam=lam,
+                        ok=ok)
+
+
+def schur_to_dense(JtJ: SchurJtJ) -> torch.Tensor:
+    """The arrow system as a dense matrix (a test oracle)."""
+    nc = JtJ.U.shape[0]
+    W = JtJ.W.reshape(nc, -1)
+    return torch.cat([torch.cat([JtJ.U, W], 1),
+                      torch.cat([W.mT, block_diag(JtJ.V)], 1)], 0)
+
+
+class SparseWSchurJtJ(NamedTuple):
+    """Arrow system whose camera-point coupling is sparse: each point
+    couples to k_obs cameras, and only those (cb, bs) blocks are stored.
+    The dense SchurJtJ.W would be (nc, n_points, bs): 460 MB in float32 at
+    ncam = 128, n_points = 50000. Camera-axis reductions are one-hot
+    products and camera-axis broadcasts gathers, both deterministic."""
+    U: torch.Tensor       # (nc, nc) dense camera block (nc = ncam * cb)
+    Wv: torch.Tensor      # (n_points, k_obs, cb, bs) nonzero W blocks
+    cam_of: torch.Tensor  # (n_points, k_obs) int: each block's camera
+    V: torch.Tensor       # (n_points, bs, bs) point diagonal blocks
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseWSchurNewtonSolver:
+    """Schur elimination of the point blocks for a SparseWSchurJtJ, over
+    tree states {"c": (nc,), "q": (n_points, bs)}.
+
+    S = U + lam I - sum_p F_p F_p^T with
+    F[p, c cb + i, j] = sum_k onehot(cam_of[p, k], c) (Wv[p, k] Lv_p^{-T}),
+    one one-hot product and one matmul, no scatter. Where F would exceed
+    s_chunk_limit elements, S accumulates over chunks of points (a Python
+    loop in place of the JAX package's lax.scan), and so does every camera
+    reduction (onehot_cam_reduce). cam_gather, from build_cam_gather, makes
+    the refinement's camera rows fully compensated; without it they are a
+    plain product in the working precision (TF32 off)."""
+    nc: int
+    n_points: int
+    block_size: int
+    k_obs: int
+    cam_block: int = 6
+    s_chunk_limit: int = 1 << 24
+    refine_iters: int = 0
+    cam_gather: Any = None
+
+    @property
+    def ncam(self) -> int:
+        return self.nc // self.cam_block
+
+    def _cam_reduce(self, JtJ: SparseWSchurJtJ, vals):
+        return onehot_cam_reduce(JtJ.cam_of, vals, self.ncam,
+                                 chunk_limit=self.s_chunk_limit
+                                 ).reshape(self.nc)
+
+    def _gather_cams(self, JtJ: SparseWSchurJtJ, vc):
+        """(n_points, k_obs, cb): each block's camera slice of vc."""
+        return vc.reshape(self.ncam, self.cam_block)[JtJ.cam_of]
+
+    def quad_form(self, JtJ: SparseWSchurJtJ, v):
+        vc, vp = v["c"], v["q"]
+        uv = dops.dot(vc, JtJ.U @ vc)
+        vcg = self._gather_cams(JtJ, vc)
+        wv = (vcg[..., :, None] * JtJ.Wv * vp[:, None, None, :]).sum()
+        return uv + 2.0 * wv + _block_quad(JtJ.V, vp)
+
+    def factor(self, JtJ: SparseWSchurJtJ, lam):
+        """Factorize JtJ + lam I once at a fixed lambda (no escalation):
+        ((Lv, Ls), ok), SchurNewtonSolver.factor's contract."""
+        dt, dev = JtJ.U.dtype, JtJ.U.device
+        bs, nc = self.block_size, self.nc
+        Vhat = JtJ.V + lam * torch.eye(bs, dtype=dt, device=dev)
+        Lv, okb = smallchol.small_cholesky(Vhat)            # (np, bs, bs)
+        # B[p, k] = Wv[p, k] Lv_p^{-T}: solve Lv Y = Wv^T per block, Lv
+        # broadcast over the k_obs axis
+        B = smallchol.small_fwd_solve_mat(
+            Lv[:, None], JtJ.Wv.transpose(-1, -2)).transpose(-1, -2)
+        S = JtJ.U + lam * torch.eye(nc, dtype=dt, device=dev)
+        # F whole is (np, nc, bs), the size of the dense W this form
+        # avoids: accumulate S over chunks of points whose F is bounded
+        chunk = (self.n_points if self.n_points * nc * bs
+                 <= self.s_chunk_limit
+                 else max(1, self.s_chunk_limit // (nc * bs)))
+        cams = torch.arange(self.ncam, device=dev)
+        for lo in range(0, self.n_points, chunk):
+            Bc = B[lo:lo + chunk]
+            E = (JtJ.cam_of[lo:lo + chunk, :, None] == cams).to(dt)
+            n = Bc.shape[0]
+            F = (E.transpose(1, 2) @ Bc.reshape(n, self.k_obs, -1))
+            F2 = (F.reshape(n, nc, bs).transpose(0, 1).reshape(nc, n * bs))
+            S = S - F2 @ F2.mT
+        Ls, ok_s = _cholesky_ok(S)
+        return (Lv, Ls), okb.all() & ok_s
+
+    def gauss_newton(self, JtJ: SparseWSchurJtJ, Jt_x, lam, *,
+                     lambda_initial, lambda_max_tries) -> GNResult:
+        rc, rp = Jt_x["c"], Jt_x["q"]
+        (Lv, Ls), lam, ok = chol.escalating_lambda(
+            lambda lm: self.factor(JtJ, lm),
+            torch.as_tensor(lam, dtype=rc.dtype, device=rc.device),
+            lambda_initial=lambda_initial, lambda_max_tries=lambda_max_tries)
+        Wv = JtJ.Wv
+
+        def vsolve(b):                                    # (np, bs)
+            return smallchol.small_cho_solve_mat(Lv, b[..., None])[..., 0]
+
+        def w_times(vp):                                  # (np, k, cb)
+            return (Wv * vp[:, None, None, :]).sum(-1)
+
+        def solve_pair(bc, bp):
+            y = vsolve(bp)
+            sc = chol.cholesky_solve(Ls, bc - self._cam_reduce(JtJ,
+                                                               w_times(y)))
+            scg = self._gather_cams(JtJ, sc)
+            sp = vsolve(bp - (Wv * scg[..., None]).sum((1, 2)))
+            return sc, sp
+
+        dc, dp = solve_pair(rc, rp)
+        if self.refine_iters:
+            # Point rows are fully compensated. Camera rows are compensated
+            # through the static gather table when one is given; otherwise
+            # their one-hot reduction rounds in the working precision.
+            cg = self.cam_gather
+
+            def resid(v):
+                vc, vp = v
+                if cg is not None:
+                    tbl, msk = cg
+                    hw, lw = comp.comp_contract(      # (np, k, cb) pairs
+                        Wv, vp, reduce_axes=(3,),
+                        broadcast=lambda x: x[:, None, None, :])
+                    cb = hw.shape[-1]
+                    zero = hw.new_zeros(())
+                    H = torch.where(msk, hw.reshape(-1, cb)[tbl], zero)
+                    E = torch.where(msk, lw.reshape(-1, cb)[tbl], zero)
+                    hc, lc = comp.comp_reduce(H, E, axis=1)
+                    hc, lc = hc.reshape(-1), lc.reshape(-1)
+                    h1, l1 = comp.comp_matvec(JtJ.U, vc)
+                    hc, lc = comp.pair_add(hc, lc, h1, l1)
+                    hc, lc = comp.pair_add_prod(hc, lc, lam, vc)
+                    mc = comp.residual(rc, hc, lc)
+                else:
+                    mc = rc - (JtJ.U @ vc + lam * vc
+                               + self._cam_reduce(JtJ, w_times(vp)))
+                h1, l1 = comp.comp_contract(
+                    Wv, self._gather_cams(JtJ, vc), reduce_axes=(1, 2),
+                    broadcast=lambda x: x[..., None])
+                h2, l2 = comp.comp_contract(
+                    JtJ.V, vp, reduce_axes=(2,),
+                    broadcast=lambda x: x[:, None, :])
+                hp, lp = comp.pair_add(h1, l1, h2, l2)
+                hp, lp = comp.pair_add_prod(hp, lp, lam, vp)
+                return mc, comp.residual(rp, hp, lp)
+
+            dc, dp = _refine((dc, dp), lambda r: solve_pair(*r), resid,
+                             self.refine_iters)
+        n2 = dops.dot(dc, dc) + (dp * dp).sum()
+        return GNResult(step={"c": -dc, "q": -dp}, norm2_step=n2, lam=lam,
+                        ok=ok)
+
+
+def build_cam_gather(cam_of, ncam: int, device=None):
+    """A static per-camera gather table over the flattened (n_points *
+    k_obs) observation axis, for SparseWSchurNewtonSolver.cam_gather: the
+    refinement's camera reduction then runs as a gather and a compensated
+    pairwise sum. cam_of is read on the host (numpy or a tensor); slots
+    padded out must name a valid camera and carry zero Wv blocks. Returns
+    (tbl (ncam, width) int64, mask (ncam, width, 1) bool) on `device`
+    (None: cam_of's device if it is a tensor, else the CUDA device)."""
+    from libdogleg_tpu_torch.device import resolve_device
+    if device is None and isinstance(cam_of, torch.Tensor):
+        device = cam_of.device
+    device = resolve_device(device)
+    cam = (cam_of.cpu().numpy() if isinstance(cam_of, torch.Tensor)
+           else np.asarray(cam_of)).reshape(-1)
+    if not np.all((cam >= 0) & (cam < ncam)):
+        raise ValueError(
+            "build_cam_gather: cam_of entries must be in [0, ncam); pad "
+            "invalid observation slots with a valid camera id and zero Wv "
+            "blocks")
+    order = np.argsort(cam, kind="stable")
+    counts = np.bincount(cam, minlength=ncam)
+    width = max(1, int(counts.max()))
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    col = np.arange(cam.size) - np.repeat(starts, counts)
+    tbl = np.zeros((ncam, width), np.int64)
+    msk = np.zeros((ncam, width), bool)
+    tbl[cam[order], col] = order
+    msk[cam[order], col] = True
+    return (torch.as_tensor(tbl, device=device),
+            torch.as_tensor(msk[..., None], device=device))
+
+
+def onehot_cam_reduce(cam_of: torch.Tensor, vals: torch.Tensor, ncam: int,
+                      chunk_limit: int = 1 << 24) -> torch.Tensor:
+    """out[c] = sum over (p, k) with cam_of[p, k] == c of vals[p, k], for
+    vals (n_points, k_obs, ...): a one-hot matmul (deterministic, no
+    atomics), over chunks of points so that the (n_points, k_obs, ncam)
+    selector never exceeds chunk_limit elements."""
+    dt = vals.dtype
+    n_points, k_obs = cam_of.shape
+    trailing = vals.shape[2:]
+    v2 = vals.reshape(n_points * k_obs, -1)
+    cams = torch.arange(ncam, device=cam_of.device)
+    flat = cam_of.reshape(-1)
+    rows = (n_points if n_points * k_obs * ncam <= chunk_limit
+            else max(1, chunk_limit // (k_obs * ncam))) * k_obs
+    out = None
+    for lo in range(0, n_points * k_obs, rows):
+        E = (flat[lo:lo + rows, None] == cams).to(dt)
+        part = E.mT @ v2[lo:lo + rows]
+        out = part if out is None else out + part
+    return out.reshape((ncam,) + trailing)

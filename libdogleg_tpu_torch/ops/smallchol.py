@@ -44,6 +44,38 @@ def small_cholesky(A: torch.Tensor):
     return torch.stack(rows, dim=-2), ok
 
 
+def small_fwd_solve_mat(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve L Y = B for (..., n, k) right-hand sides: unrolled forward
+    substitution, each step a (..., k) vector op dividing by the diagonal
+    (as the JAX package does; small_cho_solve multiplies by a
+    reciprocal). L's batch axes broadcast against B's."""
+    n = L.shape[-1]
+    Y = [None] * n
+    for i in range(n):
+        s = B[..., i, :]
+        for m in range(i):
+            s = s - L[..., i, m, None] * Y[m]
+        Y[i] = s / L[..., i, i, None]
+    return torch.stack(Y, dim=-2)
+
+
+def small_bwd_solve_mat(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve L^T Z = B for (..., n, k) right-hand sides."""
+    n = L.shape[-1]
+    Z = [None] * n
+    for i in reversed(range(n)):
+        s = B[..., i, :]
+        for m in range(i + 1, n):
+            s = s - L[..., m, i, None] * Z[m]
+        Z[i] = s / L[..., i, i, None]
+    return torch.stack(Z, dim=-2)
+
+
+def small_cho_solve_mat(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve (L L^T) Z = B for (..., n, k) right-hand sides."""
+    return small_bwd_solve_mat(L, small_fwd_solve_mat(L, B))
+
+
 def small_cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Unrolled forward and back substitution: solve (L L^T) z = b for one
     (..., n) right-hand side."""

@@ -1,0 +1,85 @@
+"""Vector operations on solver states that are trees of tensors
+(counterpart of libdogleg_tpu/ops/treevec.py).
+
+A state (p, Jt_x, a step) is a tensor, or a dict, tuple or list of tensors:
+{"c": cameras, "q": points} for bundle adjustment. Dict leaves are visited in
+sorted key order, as jax.tree_util does, so tree_dot sums its leaves in the
+JAX package's order. A bare tensor is one leaf, and on one the functions run
+exactly the flat ops the solver ran before states became trees:
+(a * b).sum(-1), (|v| > t).any(-1), a + b.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List
+
+import torch
+
+
+def tree_leaves(t) -> List[torch.Tensor]:
+    """The tensors of `t` in visiting order (dicts by sorted key)."""
+    if isinstance(t, torch.Tensor):
+        return [t]
+    if isinstance(t, dict):
+        return [x for k in sorted(t) for x in tree_leaves(t[k])]
+    if isinstance(t, (tuple, list)):
+        return [x for item in t for x in tree_leaves(item)]
+    raise TypeError(f"not a tree of tensors: {type(t).__name__}")
+
+
+def tree_map(f: Callable, t, *rest):
+    """f applied leaf by leaf to `t` and the trees in `rest`, which have
+    t's structure; the result has that structure too."""
+    if isinstance(t, torch.Tensor):
+        return f(t, *rest)
+    if isinstance(t, dict):
+        return {k: tree_map(f, t[k], *(r[k] for r in rest)) for k in t}
+    if isinstance(t, (tuple, list)):
+        items = [tree_map(f, *parts) for parts in zip(t, *rest)]
+        if isinstance(t, list):
+            return items
+        return type(t)(*items) if hasattr(t, "_fields") else tuple(items)
+    raise TypeError(f"not a tree of tensors: {type(t).__name__}")
+
+
+def tree_dot(a, b) -> torch.Tensor:
+    """Inner product of two trees: the sum over leaves of sum(x * y)."""
+    if isinstance(a, torch.Tensor):
+        return (a * b).sum(-1)
+    parts = [(x * y).sum() for x, y in zip(tree_leaves(a), tree_leaves(b))]
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
+
+
+def tree_scale(k, a):
+    return tree_map(lambda x: k * x, a)
+
+
+def tree_add(a, b):
+    return tree_map(lambda x, y: x + y, a, b)
+
+
+def tree_sub(a, b):
+    return tree_map(lambda x, y: x - y, a, b)
+
+
+def tree_zeros_like(a):
+    return tree_map(torch.zeros_like, a)
+
+
+def tree_where(pred, a, b):
+    return tree_map(lambda x, y: torch.where(pred, x, y), a, b)
+
+
+def tree_any_exceeds(a, threshold: float) -> torch.Tensor:
+    """Whether any element of any leaf exceeds `threshold` in absolute
+    value (a NaN exceeds nothing)."""
+    if isinstance(a, torch.Tensor):
+        return (a.abs() > threshold).any(-1)
+    flags = [(x.abs() > threshold).any() for x in tree_leaves(a)]
+    out = flags[0]
+    for flag in flags[1:]:
+        out = out | flag
+    return out

@@ -101,6 +101,11 @@ def _prepare(products_fn, p0_batch, parameters, mesh, problem_data,
     elements idx (their problem_data gathered), and newton_solver is the
     given or auto-selected strategy."""
     _check_layout(layout)
+    if not isinstance(p0_batch, torch.Tensor):
+        raise ValueError(
+            "p0_batch must be a (B, Nstate) tensor: tree states such as "
+            "{'c', 'q'} are taken by the single solve (solve_products); "
+            "the batched Schur solve is not ported yet")
     if mesh is not None:
         raise NotImplementedError("mesh= is not ported yet")
     if record_history:

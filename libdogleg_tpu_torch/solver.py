@@ -39,6 +39,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from libdogleg_tpu_torch.ops import dense as dops
+from libdogleg_tpu_torch.ops import treevec as tv
 from libdogleg_tpu_torch.ops.newton import DenseNewtonSolver
 from libdogleg_tpu_torch.params import DoglegParameters
 
@@ -95,10 +96,10 @@ class History(NamedTuple):
 
 
 class SolveResult(NamedTuple):
-    p: torch.Tensor            # (..., Nstate) final state
+    p: Any                     # (..., Nstate) final state, or a tree
     norm2_x: torch.Tensor      # (...) cost at the final state
-    Jt_x: torch.Tensor         # (..., Nstate) gradient at the final state
-    JtJ: torch.Tensor          # (..., Nstate, Nstate) at the final state
+    Jt_x: Any                  # (..., Nstate) gradient at the final state
+    JtJ: Any                   # (..., Nstate, Nstate), or the strategy's form
     step_count: torch.Tensor   # (...) int32: accepted steps
     n_attempts: torch.Tensor   # (...) int32: attempts incl. rejects
     reason: torch.Tensor       # (...) int32 StopReason
@@ -109,7 +110,9 @@ class SolveResult(NamedTuple):
 
 class SolverState(NamedTuple):
     """The single-problem solve state between attempts (the JAX package's
-    _Carry). Flags and counters are Python values."""
+    _Carry). Flags and counters are Python values. The state vectors (p,
+    Jt_x, the cached steps) are (Nstate,) tensors or trees of tensors
+    (ops/treevec.py), such as {"c": cameras, "q": points}."""
     p: torch.Tensor
     norm2_x: torch.Tensor
     Jt_x: torch.Tensor
@@ -166,14 +169,15 @@ def init_solver_state(products_fn: ProductsFn,
     including the initial convergence test (reference dogleg.c:1364-1371)."""
     prm = parameters if parameters is not None else DoglegParameters()
     init = products_fn(p0)
-    zero = torch.zeros((), dtype=p0.dtype, device=p0.device)
-    zvec = torch.zeros_like(p0)
-    converged0 = not bool(_any_exceeds(init.Jt_x, prm.Jt_x_threshold))
+    first = tv.tree_leaves(p0)[0]
+    zero = torch.zeros((), dtype=first.dtype, device=first.device)
+    zvec = tv.tree_zeros_like(p0)
+    converged0 = not bool(tv.tree_any_exceeds(init.Jt_x, prm.Jt_x_threshold))
     history = None
     if record_history:
         history = _empty_history(
-            history_capacity or prm.resolved_max_attempts(), p0.dtype,
-            p0.device)
+            history_capacity or prm.resolved_max_attempts(), first.dtype,
+            first.device)
     return SolverState(
         p=p0, norm2_x=init.norm2_x, Jt_x=init.Jt_x, JtJ=init.JtJ,
         cauchy=zvec, norm2_cauchy=zero, have_cauchy=False,
@@ -194,7 +198,7 @@ def _record(c: SolverState, step, norm2_step, step_type, norm2_cauchy,
     idx = min(c.n_attempts, h.iteration.shape[0] - 1)
     inf = math.inf
     if c.have_prev_step:
-        cos_dc = float(dops.dot(step, c.prev_step)
+        cos_dc = float(tv.tree_dot(step, c.prev_step)
                        / torch.sqrt(norm2_step * c.norm2_prev_step))
         dc_deg = (0.0 if cos_dc >= 1.0 else 180.0 if cos_dc <= -1.0
                   else math.degrees(math.acos(cos_dc)))
@@ -236,9 +240,9 @@ def _attempt(products_fn: ProductsFn, c: SolverState,
     if c.have_cauchy:
         cauchy, norm2_cauchy = c.cauchy, c.norm2_cauchy
     else:
-        n2_jtx = dops.norm2(c.Jt_x)
+        n2_jtx = tv.tree_dot(c.Jt_x, c.Jt_x)
         k = -n2_jtx / ns.quad_form(c.JtJ, c.Jt_x)
-        cauchy, norm2_cauchy = k * c.Jt_x, k * k * n2_jtx
+        cauchy, norm2_cauchy = tv.tree_scale(k, c.Jt_x), k * k * n2_jtx
     use_cauchy = bool(norm2_cauchy >= tr_sq)
 
     # Gauss-Newton step, lazily (dogleg.c:822-908, called at dogleg.c:1218).
@@ -257,7 +261,7 @@ def _attempt(products_fn: ProductsFn, c: SolverState,
     use_gn = not use_cauchy and bool(norm2_gn <= tr_sq)
     interp = None
     if use_cauchy:
-        step = (tr / torch.sqrt(norm2_cauchy)) * cauchy
+        step = tv.tree_scale(tr / torch.sqrt(norm2_cauchy), cauchy)
         # the reference records the UNCLAMPED Cauchy length (dogleg.c:1200)
         norm2_step, step_type = norm2_cauchy, StepType.CAUCHY
     elif use_gn:
@@ -267,11 +271,11 @@ def _attempt(products_fn: ProductsFn, c: SolverState,
         step, norm2_step = interp.step, interp.norm2_step
         step_type = StepType.INTERPOLATED
 
-    expected = -2.0 * dops.dot(c.Jt_x, step) - ns.quad_form(c.JtJ, step)
-    small_step = not bool(_any_exceeds(step, prm.update_threshold))
+    expected = -2.0 * tv.tree_dot(c.Jt_x, step) - ns.quad_form(c.JtJ, step)
+    small_step = not bool(tv.tree_any_exceeds(step, prm.update_threshold))
 
     # Evaluate the trial point (dogleg.c:1411) unless the attempt ends here.
-    p_new = c.p + step
+    p_new = tv.tree_add(c.p, step)
     if small_step or not fac_ok:
         trial = Products(c.norm2_x, c.Jt_x, c.JtJ)
     else:
@@ -303,7 +307,7 @@ def _attempt(products_fn: ProductsFn, c: SolverState,
         return kept._replace(done=True, reason=int(StopReason.SMALL_STEP))
     if accept:
         step_count = c.step_count + 1
-        if not bool(_any_exceeds(trial.Jt_x, prm.Jt_x_threshold)):
+        if not bool(tv.tree_any_exceeds(trial.Jt_x, prm.Jt_x_threshold)):
             reason = StopReason.GRADIENT_CONVERGED
         elif step_count >= prm.max_iterations:
             reason = StopReason.MAX_ITERATIONS
@@ -344,7 +348,7 @@ def run_solver(products_fn: ProductsFn,
 
 def result_from_state(state: SolverState) -> SolveResult:
     """Package a single-problem solve state as a SolveResult."""
-    dev = state.p.device
+    dev = tv.tree_leaves(state.p)[0].device
 
     def i32(v):
         return torch.tensor(v, dtype=torch.int32, device=dev)
@@ -365,8 +369,11 @@ def solve_products(products_fn: ProductsFn,
     """Run the dog-leg trust-region optimization of one problem.
 
     products_fn: p (Nstate,) -> Products, the counterpart of the reference's
-    callback (dogleg.c:1016). history_capacity defaults to the attempt cap;
-    attempts past capacity overwrite the last row.
+    callback (dogleg.c:1016). p0 may be a tree of tensors instead, such as
+    {"c": (nc,), "q": (n_points, bs)}, with Jt_x the same tree and a
+    newton_solver for it (TreeSchurNewtonSolver, SparseWSchurNewtonSolver).
+    history_capacity defaults to the attempt cap; attempts past capacity
+    overwrite the last row.
     """
     state = init_solver_state(products_fn, p0, parameters,
                               record_history=record_history,

@@ -848,3 +848,109 @@ def test_public_call_does_not_wait_for_the_card(cuda):
         batched_optimize(qs.products, p0, BENCH, problem_data=meas)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+# ---------------------------------------------------------------------------
+# bundle adjustment through Schur elimination (no kernel of K1-K7 on its
+# path): float64 decisions on the card against the CPU, and the camera-axis
+# reductions deterministic
+# ---------------------------------------------------------------------------
+
+def _ba_small(name, device):
+    """(products, strategy, start) of a small float64 BA instance, the same
+    on every device (the pinhole starts from one CPU generator)."""
+    from libdogleg_tpu_torch.models import bundle_adjustment as lba
+    from libdogleg_tpu_torch.models import pinhole_ba as pba
+    if name.startswith("linear"):
+        ba = lba.make_synthetic(seed=3, nc=8, n_points=50,
+                                dtype=torch.float64, device=device)
+        if name == "linear-tree":
+            return ba.products_tree, ba.tree_newton_solver(), ba.p0_tree()
+        return (ba.products, ba.newton_solver(),
+                torch.zeros(ba.nstate, dtype=torch.float64, device=device))
+    ba = (pba.make_synthetic(seed=0, ncam=4, npts=60, device=device)
+          if name == "dense" else
+          pba.make_synthetic_sparse(seed=0, ncam=8, npts=80, k_obs=3,
+                                    device=device))
+    return (ba.products, ba.newton_solver(),
+            ba.p0(torch.Generator().manual_seed(2), jitter=0.02))
+
+
+def _flat_p(p):
+    if isinstance(p, dict):
+        return torch.cat([p["c"].reshape(-1), p["q"].reshape(-1)]).cpu()
+    return p.cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["linear", "linear-tree", "dense",
+                                  "sparse"])
+def test_ba_f64_decisions_card_equal_cpu(cuda, name):
+    from libdogleg_tpu_torch import solve_products
+    out = []
+    for device in (cuda, torch.device("cpu")):
+        fn, ns, p0 = _ba_small(name, device)
+        out.append(solve_products(fn, p0, DoglegParameters(),
+                                  newton_solver=ns, record_history=True))
+    r_d, r_c = out
+    for field in ("step_count", "n_attempts", "reason"):
+        assert int(getattr(r_d, field)) == int(getattr(r_c, field)), field
+    assert torch.equal(r_d.history.step_type.cpu(), r_c.history.step_type)
+    np.testing.assert_allclose(_flat_p(r_d.p).numpy(), _flat_p(r_c.p).numpy(),
+                               rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_ba_camera_reductions_deterministic(cuda):
+    """The one-hot camera reduction (chunked at 25.6M one-hot elements),
+    the sparse and generic pinhole products and the Schur factor give the
+    same bits on two runs, and the reduction agrees with float64 on the
+    CPU."""
+    import dataclasses
+
+    from libdogleg_tpu_torch.models import pinhole_ba as pba
+    from libdogleg_tpu_torch.ops import newton
+    rng = np.random.default_rng(0)
+    cam_of = torch.as_tensor(rng.integers(0, 128, size=(50000, 4)),
+                             device=cuda)
+    vals = torch.as_tensor(rng.normal(size=(50000, 4, 6)),
+                           dtype=torch.float32, device=cuda)
+    a = newton.onehot_cam_reduce(cam_of, vals, 128)
+    b = newton.onehot_cam_reduce(cam_of, vals, 128)
+    assert torch.equal(a, b)
+    want = newton.onehot_cam_reduce(cam_of.cpu(), vals.double().cpu(), 128)
+    np.testing.assert_allclose(a.double().cpu().numpy(), want.numpy(),
+                               rtol=0, atol=1e-4 * float(want.abs().max()))
+
+    ba = pba.make_synthetic_sparse(seed=1, ncam=16, npts=4000, k_obs=4,
+                                   dtype=torch.float32, device=cuda)
+    dense = pba.make_synthetic(seed=1, ncam=4, npts=300, dtype=torch.float32,
+                               device=cuda)
+    perm = torch.as_tensor(np.random.default_rng(2).permutation(dense.nobs),
+                           device=cuda)
+    generic = dataclasses.replace(dense, cam_idx=dense.cam_idx[perm],
+                                  pt_idx=dense.pt_idx[perm],
+                                  obs=dense.obs[perm])
+    assert not generic.dense_grid
+    for model in (ba, dense, generic):
+        p = model.p0(torch.Generator().manual_seed(3), jitter=0.02)
+        ns = model.newton_solver()
+        pr = [model.products(p) for _ in range(2)]
+        assert torch.equal(pr[0].Jt_x["c"], pr[1].Jt_x["c"])
+        assert torch.equal(pr[0].Jt_x["q"], pr[1].Jt_x["q"])
+        assert torch.equal(pr[0].JtJ.U, pr[1].JtJ.U)
+        assert torch.equal(pr[0].JtJ.V, pr[1].JtJ.V)
+        lam = torch.tensor(1e-3, device=cuda)
+        (Lv1, Ls1), ok1 = ns.factor(pr[0].JtJ, lam)
+        (Lv2, Ls2), ok2 = ns.factor(pr[1].JtJ, lam)
+        assert bool(ok1) and bool(ok2)
+        assert torch.equal(Lv1, Lv2) and torch.equal(Ls1, Ls2)
+
+
+@pytest.mark.cuda
+def test_ba_constructors_default_to_the_card(cuda):
+    from libdogleg_tpu_torch.models import bundle_adjustment as lba
+    from libdogleg_tpu_torch.models import pinhole_ba as pba
+    assert lba.make_synthetic(nc=4, n_points=5).A.is_cuda
+    assert pba.make_synthetic(ncam=2, npts=5).obs.is_cuda
+    assert pba.make_synthetic_sparse(ncam=4, npts=5, k_obs=2).cam_of.is_cuda
