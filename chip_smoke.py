@@ -23,7 +23,8 @@ Phases, each printing its own lines:
      host wall, alone and over a loop of calls ended by one synchronize,
      and a call that must not wait for the card;
   5. the single-solve CLI, `sample --check --device cuda <mode>`, in every
-     ported mode (float64), `factored` among them;
+     ported mode (float64), `factored` among them, and its diagnostic
+     streams `--diag vnlog dense` and `--test-gradients dense`;
   6. CUDA-event timing of K1 and of the twin at B=8192 float32, and the
      attempts a problem took;
   7. K2 (csrc/panelchol.cu) against its twin: panels p in {16, 32, 64, 128,
@@ -141,7 +142,20 @@ Phases, each printing its own lines:
      host synchronizations, a profiler split of each config's plain leg
      (device time, device events, host and idle share), the camera-axis
      reductions and a second solve bit for bit, and the float64 solve of
-     the same instance from the same start (costs, max |p32 - p64|).
+     the same instance from the same start (costs, max |p32 - p64|);
+ 19. the analysis layer, no kernel of K1-K7 on its path: bench_all.py's
+     config 5 (get_outlierness_factors, nmeas 100000, nstate 64,
+     feature_size 2: float64 card vs CPU within rtol 1e-9, float32 vs
+     float64, CUDA-event time of the float32 pass with its factorization,
+     features/s, a per-op profile) and config 7o
+     (get_outlierness_factors_ba on phase 18's config 7s float32 solution,
+     the factorization taken once and reused: ok, every factor finite,
+     two passes the same bits, float32 vs float64 at the same point,
+     the pass's time and observations/s, its S^-1 T products alone, a
+     per-op profile; at ncam 6, npts 60 float64 card vs CPU within rtol
+     1e-7), and windowed query traces (256 queries, fs 2, w 16) on the
+     32x32x8 grid's supernodal factor against its dense factor (float64,
+     rtol 1e-9).
 Then one JSON line about the kernels (time, plain version's time, the
 library call's where one exists, and the bound from this run's shapes; K1
 once per instance), the card line again, and a last JSON
@@ -151,6 +165,8 @@ does a machine without a CUDA device, or a directory without the package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import platform
 import subprocess
@@ -1983,6 +1999,226 @@ def phase18_ba(dev, bench) -> None:
         p_true={k: v.double() for k, v in ba.p_true.items()})
     ba_f64_accuracy("config 7s", ba64.products, ba64.newton_solver(), p0,
                     r7s_plain, since)
+    return ba, r7s_plain
+
+
+# config 5 of bench_all.py:311-327 (nmeas, nstate, feature_size) and the
+# windowed queries on the grid's supernodal factor (queries, fs, w)
+CONFIG5 = (100000, 64, 2)
+QUERIES = (256, 2, 16)
+
+
+def op_summary_line(fn, *args, top: int = 6) -> str:
+    """diagnostics.profile_op_summary of one call, its rows (ms, calls,
+    op) on one line."""
+    from libdogleg_tpu_torch.diagnostics import profile_op_summary
+    rows = profile_op_summary(fn, *args, top=top).split("\n")[1:]
+    return "ms, calls, op: " + "; ".join(" ".join(r.split()) for r in rows)
+
+
+def rel_diff_text(lo, hi) -> str:
+    """Max and median of |lo - hi| / |hi|."""
+    d = ((lo.double() - hi.double()).abs() / hi.double().abs()).cpu().numpy()
+    return f"max {d.max():.3e}, median {np.median(d):.3e}"
+
+
+def phase19_analysis(dev, card, ba7s, r7s) -> None:
+    """The analysis layer (no kernel of K1-K7 on its path): bench_all.py's
+    config 5 (dense outlierness factors) and config 7o (the bundle-
+    adjustment pass on phase 18's config 7s solve) at full width, the
+    windowed query traces on the grid's supernodal factor, each gated."""
+    import dataclasses
+
+    import torch
+
+    from libdogleg_tpu_torch import (DoglegParameters, SparseProblem,
+                                     solve_products)
+    from libdogleg_tpu_torch.analysis import (
+        get_outlierness_factors, get_outlierness_factors_ba,
+        outlierness_trace_new_features_windowed)
+    from libdogleg_tpu_torch.models import grid_mrf
+    from libdogleg_tpu_torch.models import pinhole_ba as pba
+    from libdogleg_tpu_torch.ops.cholesky import cholesky_solve, factorize_jtj
+    from libdogleg_tpu_torch.utils.benchtime import measure_ms
+
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "phase 19: torch.backends.cuda.matmul.allow_tf32 is False")
+
+    # config 5: J, x from numpy's default_rng(0), JtJ = J^T J; the pass
+    # factorizes inside, as bench_all.py times it
+    nmeas, nstate, fs = CONFIG5
+    rng = np.random.default_rng(0)
+    J_np, x_np = rng.normal(size=(nmeas, nstate)), rng.normal(size=nmeas)
+
+    def inputs(dtype, device):
+        J = torch.as_tensor(J_np, dtype=dtype, device=device)
+        return J, torch.as_tensor(x_np, dtype=dtype, device=device), J.T @ J
+
+    def pass5(J, x, JtJ):
+        L = factorize_jtj(JtJ, torch.zeros((), dtype=J.dtype,
+                                           device=J.device)).L
+        return get_outlierness_factors(x, J, L, feature_size=fs)[0]
+    since = time.perf_counter()
+    f64 = pass5(*inputs(torch.float64, dev))
+    f64_cpu = pass5(*inputs(torch.float64, "cpu"))
+    args32 = inputs(torch.float32, dev)
+    f32 = pass5(*args32)
+    check(f64.shape == (nmeas // fs,) and bool(torch.isfinite(f64).all())
+          and bool(torch.isfinite(f32).all()), "config 5: finite factors")
+    err = float(((f64.cpu() - f64_cpu).abs() / f64_cpu.abs()).max())
+    check(torch.allclose(f64.cpu(), f64_cpu, rtol=1e-9, atol=0.0),
+          f"config 5: f64 card vs CPU within rtol 1e-9: {err:.3e}")
+    ms = measure_ms(pass5, *args32, warmup=2, reps=10)
+    print(f"[19 config 5] nmeas {nmeas}, nstate {nstate}, feature_size "
+          f"{fs}: f64 card vs CPU max rel {err:.3e} (rtol 1e-9); f32 vs f64 "
+          f"{rel_diff_text(f32, f64)}; factors > 1: f32 "
+          f"{int((f32 > 1).sum())}, f64 {int((f64 > 1).sum())} of "
+          f"{nmeas // fs}; f32 pass (factorization included) {ms:.4f} ms by "
+          f"CUDA events, {nmeas // fs / ms * 1e3:.4g} features/s; "
+          f"{time.perf_counter() - since:.1f} s; card {card}", flush=True)
+    print(f"[19 config 5 profile] {op_summary_line(pass5, *args32)}; "
+          f"{device_split(pass5, *args32, groups=BA_GROUPS)}", flush=True)
+    del f64, f64_cpu, f32, args32
+
+    # config 7o: phase 18's config 7s float32 solve, its factorization
+    # taken once and reused by every pass (bench_all.py:448-483)
+    since = time.perf_counter()
+    ba, r = ba7s, r7s
+    ns = ba.newton_solver()
+    nmeas7 = 2 * ba.nobs + 6 + 3 * ba.npts
+    fac = ns.factor(ba.products(r.p).JtJ, r.lam)
+    check(bool(fac[1]), "config 7o: the factorization at the solution is ok")
+
+    ba64 = dataclasses.replace(
+        ba, obs=ba.obs.double(), cam0_prior=ba.cam0_prior.double(),
+        pts_prior=ba.pts_prior.double(),
+        p_true={k: v.double() for k, v in ba.p_true.items()})
+
+    def pass7o(p, lam, n2, fac):
+        model = ba64 if p["c"].dtype == torch.float64 else ba
+        robs, Jc, Jq = model.observation_jacobians(p)
+        return get_outlierness_factors_ba(robs, Jc, Jq, model.products(p).JtJ,
+                                          lam, n2, nmeas7, ns,
+                                          factorization=fac)[0]
+
+    f1 = pass7o(r.p, r.lam, r.norm2_x, fac)
+    f2 = pass7o(r.p, r.lam, r.norm2_x, fac)
+    check(f1.shape == (ba.npts, ba.k_obs) and bool(torch.isfinite(f1).all()),
+          "config 7o: every factor finite")
+    check(same_bits(f1, f2), "config 7o: two passes give the same bits")
+    p64 = {k: v.double() for k, v in r.p.items()}
+    pr64 = ba64.products(p64)
+    lam64 = r.lam.double()
+    fac64 = ns.factor(pr64.JtJ, lam64)
+    check(bool(fac64[1]), "config 7o f64: the factorization is ok")
+    f64 = pass7o(p64, lam64, pr64.norm2_x, fac64)
+    check(bool(torch.isfinite(f64).all()), "config 7o f64: finite factors")
+    ms = measure_ms(pass7o, r.p, r.lam, r.norm2_x, fac, warmup=1, reps=5)
+    # the factors alone, from the Jacobians and JtJ computed once
+    robs, Jc, Jq = ba.observation_jacobians(r.p)
+    JtJ = ba.products(r.p).JtJ
+
+    def factors7o():
+        return get_outlierness_factors_ba(robs, Jc, Jq, JtJ, r.lam,
+                                          r.norm2_x, nmeas7, ns,
+                                          factorization=fac)[0]
+    ms_f = measure_ms(factors7o, warmup=1, reps=5)
+    # the pass's dense S^-1 T products alone, at its shapes: one
+    # (nc, nc) x (nc, 3 chunk) product a chunk of 4096 points
+    Sinv = cholesky_solve(fac[0][1], torch.eye(ns.nc, dtype=torch.float32,
+                                                 device=dev))
+    Ts = [torch.randn(ns.nc, 3 * min(4096, ba.npts - lo), device=dev)
+          for lo in range(0, ba.npts, 4096)]
+
+    def sinv_t():
+        return [Sinv @ T for T in Ts]
+    ms_st = measure_ms(sinv_t, warmup=1, reps=5)
+    st_ops = 2.0 * ns.nc * ns.nc * 3 * ba.npts
+    print(f"[19 config 7o] ncam {ba.ncam}, npts {ba.npts}, k_obs {ba.k_obs}, "
+          f"nobs {ba.nobs}, nmeas {nmeas7}: factorization ok, reused; "
+          f"every factor finite, two passes the same bits; f32 vs f64 at the "
+          f"same point {rel_diff_text(f1, f64)}; candidates (> 1) f32 "
+          f"{int((f1 > 1).sum())}, f64 {int((f64 > 1).sum())} of {ba.nobs}; "
+          f"f32 pass (Jacobians, JtJ and factors) {ms:.3f} ms by CUDA "
+          f"events, {ba.nobs / ms * 1e3:.4g} observations/s; the factors "
+          f"alone (Jacobians and JtJ given) {ms_f:.3f} ms; the S^-1 T "
+          f"products alone {ms_st:.3f} ms ({100 * ms_st / ms:.1f}% of the "
+          f"pass, {100 * ms_st / ms_f:.1f}% of the factors; {st_ops:.3g} "
+          f"operations, {st_ops / ms_st / 1e9:.3g} TFLOP/s, bound "
+          f"{st_ops / PEAK_F32_FLOP_PER_S * 1e3:.3f} ms); "
+          f"{time.perf_counter() - since:.1f} s; card {card}", flush=True)
+    args7o = (r.p, r.lam, r.norm2_x, fac)
+    print(f"[19 config 7o profile] {op_summary_line(pass7o, *args7o)}; "
+          f"{device_split(pass7o, *args7o, groups=BA_GROUPS)}", flush=True)
+    print(f"[19 config 7o factors profile] "
+          f"{device_split(factors7o, groups=BA_GROUPS)}", flush=True)
+    del f1, f2, f64, fac64, pr64, Sinv, Ts, robs, Jc, Jq, JtJ
+
+    # the BA pass at a small size, float64, card against CPU: the factors
+    # of this instance amplify rounding ~1e8 times (S's condition number
+    # under the camera-0 prior), so two orders of summation agree to
+    # ~2e-8, the JAX package's own tolerance for them 1e-7
+    out = []
+    small = None
+    for device in (torch.device("cpu"), dev):
+        b = pba.make_synthetic_sparse(seed=3, ncam=6, npts=60, k_obs=3,
+                                      dtype=torch.float64, device=device)
+        if small is None:
+            small = solve_products(
+                b.products, b.p0(torch.Generator().manual_seed(2),
+                                 jitter=0.02),
+                DoglegParameters(), newton_solver=b.newton_solver())
+        p = {k: v.to(device) for k, v in small.p.items()}
+        robs, Jc, Jq = b.observation_jacobians(p)
+        out.append(get_outlierness_factors_ba(
+            robs, Jc, Jq, b.products(p).JtJ, small.lam.to(device),
+            small.norm2_x.to(device), 2 * b.nobs + 6 + 3 * b.npts,
+            b.newton_solver(), chunk=16)[0].cpu())
+    f_cpu, f_card = out
+    err = float(((f_card - f_cpu).abs() / f_cpu.abs()).max())
+    check(torch.allclose(f_card, f_cpu, rtol=1e-7, atol=1e-10),
+          f"BA outlierness small f64 card vs CPU within rtol 1e-7: {err:.3e}")
+    print(f"[19 config 7o small f64] ncam 6, npts 60, k_obs 3, chunk 16: "
+          f"card vs CPU max rel {err:.3e} (rtol 1e-7)", flush=True)
+
+    # windowed query traces on the 32x32x8 grid's supernodal factor
+    # (config 6's rcm, amalgamate=16) against its dense factor, f64
+    since = time.perf_counter()
+    nq, qfs, w = QUERIES
+    g = grid_mrf.make_grid_mrf(*GRID, dtype=torch.float64, device=dev)
+    prob = SparseProblem(f=g.problem(jtj="dense").f, structure=g.structure,
+                         jtj="sparse", ordering="rcm", amalgamate=16)
+    p = torch.zeros(g.nstate, dtype=torch.float64, device=dev)
+    pr = prob.products(p)
+    sn = prob.default_newton_solver()
+    be = sn._backend()
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    Lb, ok = be.factorize(sn.symbolic, pr.JtJ, zero)
+    check(bool(ok), "the grid's supernodal factor is ok")
+    Ld = factorize_jtj(g.problem(jtj="dense").products(p).JtJ, zero)
+    check(bool(Ld.ok) and float(Ld.lam) == 0.0,
+          "the grid's dense factor is ok at lambda 0")
+    qrng = np.random.default_rng(19)
+    Jq_win = torch.as_tensor(qrng.normal(size=(nq, qfs, w)), device=dev)
+    starts = qrng.integers(0, g.nstate - w, size=nq)
+    starts[:2] = -w // 2, g.nstate - w // 2   # past either end
+    starts = torch.as_tensor(starts, device=dev)
+    nmeas_g = prob.f(p)[0].numel()
+    t_sp = outlierness_trace_new_features_windowed(
+        Jq_win, starts, None, pr.norm2_x, nmeas_g, nstate=g.nstate,
+        solve_fn=lambda rhs: be.solve(sn.symbolic, Lb, rhs))
+    t_d = outlierness_trace_new_features_windowed(
+        Jq_win, starts, Ld.L, pr.norm2_x, nmeas_g)
+    err = float(((t_sp - t_d).abs() / t_d.abs()).max())
+    check(bool(torch.isfinite(t_sp).all()) and torch.allclose(
+        t_sp, t_d, rtol=1e-9, atol=0.0),
+        f"windowed traces: supernodal vs dense factor within rtol 1e-9: "
+        f"{err:.3e}")
+    print(f"[19 windowed traces] grid {GRID}, nstate {g.nstate}: {nq} "
+          f"queries, fs {qfs}, w {w}, starts from {int(starts.min())} to "
+          f"{int(starts.max())}; supernodal factor vs dense factor max rel "
+          f"{err:.3e} (rtol 1e-9); {time.perf_counter() - since:.1f} s",
+          flush=True)
 
 
 def ptxas_k1(log: str) -> list:
@@ -2208,6 +2444,20 @@ def main() -> int:
         check(rc == 0, f"sample --check --device cuda {mode}")
         print(f"[5 sample {mode}] rc 0 in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
+    # the diagnostic streams: the vnlog table and the gradient check, their
+    # standard output kept and counted
+    for argv, first in ((["--diag", "vnlog", "dense"], "# iteration "),
+                        (["--test-gradients", "dense"], "# ivar ")):
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = sample.main(["--device", "cuda"] + argv)
+        lines = out.getvalue().splitlines()
+        check(rc == 0 and lines and lines[0].startswith(first),
+              f"sample --device cuda {' '.join(argv)}: rc {rc}")
+        print(f"[5 sample {' '.join(argv)}] rc 0 in "
+              f"{time.perf_counter() - t0:.2f} s; {len(lines)} lines on "
+              f"stdout, the first {lines[0][:40]!r}", flush=True)
 
     # 6. timing at the main path's shapes
     ms = measure_ms(mega.megakernel_optimize, *args32, bench, warmup=3,
@@ -2251,7 +2501,9 @@ def main() -> int:
     k5 = {"launches": mid["launches"], "max_abs_err": 0.0}
     phase16_timing(dev, bench, card, mid, k5)
     k1f = phase17_factored(dev, bench)
-    phase18_ba(dev, bench)
+    ba7s, r7s = phase18_ba(dev, bench)
+    phase19_analysis(dev, card, ba7s, r7s)
+    del ba7s, r7s
 
     def entry(name, source, replaces, d):
         return {"name": name, "route": "cuda", "source": source,

@@ -89,8 +89,23 @@ def factorize_jtj(JtJ: torch.Tensor,
 
 
 def cholesky_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve (L L^T) z = b for a (..., n) right-hand side given the lower
-    factor L (reference dpptrs_ / cholmod_solve, dogleg.c:853-897)."""
+    """Solve (L L^T) z = b given the lower factor L (..., n, n) (reference
+    dpptrs_ / cholmod_solve, dogleg.c:853-897).
+
+    The rank of b against L's decides the case: b of L.dim() - 1 dimensions
+    is one (..., n) right-hand side per matrix; b of L.dim() dimensions is a
+    (..., n, k) matrix of k right-hand sides, as the JAX package's
+    (Nstate, k) form. n <= 16 takes the unrolled substitutions, larger n
+    two triangular solves (torch.cholesky_solve for a vector)."""
+    if b.dim() == L.dim():
+        if L.shape[-1] <= smallchol.SMALL_N_MAX:
+            return smallchol.small_cho_solve_mat(L, b)
+        y = torch.linalg.solve_triangular(L, b, upper=False)
+        return torch.linalg.solve_triangular(L.mT, y, upper=True)
+    if b.dim() != L.dim() - 1:
+        raise ValueError(f"cholesky_solve: b of shape {tuple(b.shape)} is "
+                         f"neither a vector nor a matrix right-hand side "
+                         f"for L of shape {tuple(L.shape)}")
     if L.shape[-1] <= smallchol.SMALL_N_MAX:
         return smallchol.small_cho_solve(L, b)
     return torch.cholesky_solve(b[..., None], L)[..., 0]

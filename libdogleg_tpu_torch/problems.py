@@ -246,12 +246,14 @@ def optimize(problem,
              *,
              newton_solver=None,
              record_history: bool = False,
-             history_capacity: Optional[int] = None) -> SolveResult:
+             history_capacity: Optional[int] = None,
+             debug: bool = False) -> SolveResult:
     """Top-level single solve, the counterpart of dogleg_optimize2 /
     dogleg_optimize_dense2 / dogleg_optimize_dense_products (reference
     dogleg.c:1755-1818), dispatching through the adapter's `products`.
     Without a newton_solver it takes the problem's default_newton_solver(),
-    where the problem has one."""
+    where the problem has one. debug=True prints one line an attempt
+    (solve_products)."""
     if newton_solver is None:
         default = getattr(problem, "default_newton_solver", None)
         if default is not None:
@@ -259,4 +261,4 @@ def optimize(problem,
     return solve_products(problem.products, p0, parameters,
                           newton_solver=newton_solver,
                           record_history=record_history,
-                          history_capacity=history_capacity)
+                          history_capacity=history_capacity, debug=debug)

@@ -2,13 +2,19 @@
 libdogleg_tpu/sample.py).
 
 Usage:
-    python -m libdogleg_tpu_torch.sample [--check] [--f32]
-        [--device cuda|cpu] sparse|dense|dense-products-packed-upper|
+    python -m libdogleg_tpu_torch.sample [--check] [--diag vnlog|human]
+        [--test-gradients] [--f32] [--device cuda|cpu]
+        sparse|dense|dense-products-packed-upper|
         dense-products-unpacked|residual|factored
 
 Solves the 6-parameter quadratic-surface fit in the chosen mode; --check
 asserts convergence within 8 accepted steps and per-parameter recovery
-within 5e-2 (reference sample.c:364-365, 424-457). `sparse` goes through
+within 5e-2 (reference sample.c:364-365, 424-457). --diag vnlog prints the
+per-attempt vnlog table to stdout; --diag human prints one line an attempt
+(the solve's debug=True) and a summary on stderr. --test-gradients prints
+the gradient-check table of every variable and solves nothing (reference
+sample.c:392-405; the dense-products modes check Jt_x against norm2x); it
+excludes --check. `sparse` goes through
 the block-CSR SparseProblem with every block stored. The two dense-products
 spellings exercise the packed-upper and unpacked JtJ layouts. `residual` is
 the autodiff mode. `factored` is the sufficient-statistics form
@@ -39,6 +45,10 @@ def main(argv=None) -> int:
                     "problem)")
     ap.add_argument("--check", action="store_true",
                     help="self-check mode: assert convergence + recovery")
+    ap.add_argument("--diag", choices=("vnlog", "human"),
+                    help="diagnostic stream")
+    ap.add_argument("--test-gradients", action="store_true",
+                    help="print gradient-check tables and exit")
     ap.add_argument("--f32", action="store_true",
                     help="solve in float32 instead of float64")
     ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
@@ -46,10 +56,18 @@ def main(argv=None) -> int:
     ap.add_argument("mode", choices=MODES)
     args = ap.parse_args(argv)
 
+    if args.check and args.test_gradients:
+        print("--check and --test-gradients are exclusive", file=sys.stderr)
+        return 1
+
     import torch
 
     import libdogleg_tpu_torch.sample_problem as sp
     from libdogleg_tpu_torch import DoglegParameters, ProductsProblem, optimize
+    from libdogleg_tpu_torch.analysis import (check_gradients,
+                                              check_gradients_products,
+                                              format_gradient_table)
+    from libdogleg_tpu_torch.diagnostics import explain_result, print_vnlog
     from libdogleg_tpu_torch.utils.packed import full_to_packed, packed_to_full
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -90,9 +108,32 @@ def main(argv=None) -> int:
         for i, v in enumerate(p0.tolist()):
             print(f"  p[{i}] = {v:f}", file=sys.stderr)
 
+    if args.test_gradients:
+        if args.mode.startswith("dense-products"):
+            print("# ivar gradient_reported gradient_observed error "
+                  "error_relative")
+            for ivar in range(sp.NSTATE):
+                rep, obs, err, rel = check_gradients_products(
+                    problem, p0, ivar)
+                print(f"{ivar} {float(rep):.6g} {float(obs):.6g} "
+                      f"{float(err):.6g} {float(rel):.6g}")
+        else:
+            for ivar in range(sp.NSTATE):
+                print(f"checking gradients for variable {ivar}",
+                      file=sys.stderr)
+                print(format_gradient_table(
+                    check_gradients(problem, p0, ivar)), end="")
+        return 0
+
     # An easy problem, solvable in this many iterations (sample.c:364-365).
     prm = DoglegParameters(max_iterations=8)
-    result = optimize(problem, p0, prm)
+    record = args.diag == "vnlog"
+    result = optimize(problem, p0, prm, record_history=record,
+                      debug=args.diag == "human")
+    if record:
+        print_vnlog(result)
+    if args.diag == "human":
+        print(explain_result(result), file=sys.stderr)
     optimum = float(result.norm2_x)
 
     if args.check:

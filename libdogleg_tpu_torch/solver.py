@@ -36,6 +36,7 @@ import enum
 import math
 from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from libdogleg_tpu_torch.ops import dense as dops
@@ -229,8 +230,35 @@ def _record(c: SolverState, step, norm2_step, step_type, norm2_cauchy,
         getattr(h, name)[idx] = value
 
 
+# The human diagnostic stream of debug=True, one line an attempt, in the
+# JAX package's text (its jax.debug.print, solver.py:463-476): the
+# reference's SAY_IF_VERBOSE narration at each solver decision (reference
+# dogleg.c:1182, 611, 900, 1314, 1432, 1456).
+_DEBUG_LINE = ("libdogleg-tpu: attempt {a}: trustregion {tr:.6} | "
+               "cauchy {lc:.6} gn {lg} | step type {st} len {ls:.6} | "
+               "expected/observed {e:.6}/{o:.6} rho {r:.6} | "
+               "accept {acc} -> trustregion {tr2:.6}")
+
+
+def _debug_print(c: SolverState, tr, norm2_cauchy, norm2_gn, have_gn,
+                 step_type, norm2_step, expected, observed, rho, accept,
+                 tr_new) -> None:
+    """Print this attempt's debug line to stdout. Each value is a numpy
+    scalar of the solve's dtype, so it formats as jax.debug.print's do."""
+    def host(v):
+        return np.asarray(torch.as_tensor(v).detach().cpu())[()]
+    lg = torch.sqrt(norm2_gn) if have_gn else torch.full_like(norm2_gn,
+                                                              math.nan)
+    print(_DEBUG_LINE.format(
+        a=c.n_attempts, tr=host(tr), lc=host(torch.sqrt(norm2_cauchy)),
+        lg=host(lg), st=int(step_type), ls=host(torch.sqrt(norm2_step)),
+        e=host(expected), o=host(observed), r=host(rho), acc=accept,
+        tr2=host(tr_new)))
+
+
 def _attempt(products_fn: ProductsFn, c: SolverState,
-             prm: DoglegParameters, ns, max_attempts: int) -> SolverState:
+             prm: DoglegParameters, ns, max_attempts: int,
+             debug: bool = False) -> SolverState:
     """One step attempt: the body of the reference's retry loop
     (dogleg.c:1380-1468)."""
     tr = c.trustregion
@@ -292,6 +320,10 @@ def _attempt(products_fn: ProductsFn, c: SolverState,
     n_attempts = c.n_attempts + 1
     exhausted = n_attempts >= max_attempts
 
+    if debug:
+        _debug_print(c, tr, norm2_cauchy, norm2_gn, have_gn, step_type,
+                     norm2_step, expected, observed, rho,
+                     accept and not small_step, tr_new)
     if c.history is not None:
         _record(c, step, norm2_step, step_type, norm2_cauchy, norm2_gn,
                 use_cauchy, interp, expected, small_step, accept,
@@ -336,13 +368,15 @@ def run_solver(products_fn: ProductsFn,
                state: SolverState,
                parameters: Optional[DoglegParameters] = None,
                *,
-               newton_solver=None) -> SolverState:
-    """Advance a single-problem solve until it terminates."""
+               newton_solver=None,
+               debug: bool = False) -> SolverState:
+    """Advance a single-problem solve until it terminates. debug=True
+    prints one line an attempt to stdout (the human diagnostic stream)."""
     prm = parameters if parameters is not None else DoglegParameters()
     ns = newton_solver if newton_solver is not None else DenseNewtonSolver()
     max_attempts = prm.resolved_max_attempts()
     while not state.done:
-        state = _attempt(products_fn, state, prm, ns, max_attempts)
+        state = _attempt(products_fn, state, prm, ns, max_attempts, debug)
     return state
 
 
@@ -365,7 +399,8 @@ def solve_products(products_fn: ProductsFn,
                    *,
                    newton_solver=None,
                    record_history: bool = False,
-                   history_capacity: Optional[int] = None) -> SolveResult:
+                   history_capacity: Optional[int] = None,
+                   debug: bool = False) -> SolveResult:
     """Run the dog-leg trust-region optimization of one problem.
 
     products_fn: p (Nstate,) -> Products, the counterpart of the reference's
@@ -373,13 +408,16 @@ def solve_products(products_fn: ProductsFn,
     {"c": (nc,), "q": (n_points, bs)}, with Jt_x the same tree and a
     newton_solver for it (TreeSchurNewtonSolver, SparseWSchurNewtonSolver).
     history_capacity defaults to the attempt cap; attempts past capacity
-    overwrite the last row.
+    overwrite the last row. debug=True prints one line an attempt to
+    stdout, with the JAX package's text (its jax.debug.print); it reads
+    each value on the host, so it is for diagnosis, not for timing.
     """
     state = init_solver_state(products_fn, p0, parameters,
                               record_history=record_history,
                               history_capacity=history_capacity)
     return result_from_state(run_solver(products_fn, state, parameters,
-                                        newton_solver=newton_solver))
+                                        newton_solver=newton_solver,
+                                        debug=debug))
 
 
 # ---------------------------------------------------------------------------

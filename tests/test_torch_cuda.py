@@ -954,3 +954,145 @@ def test_ba_constructors_default_to_the_card(cuda):
     assert lba.make_synthetic(nc=4, n_points=5).A.is_cuda
     assert pba.make_synthetic(ncam=2, npts=5).obs.is_cuda
     assert pba.make_synthetic_sparse(ncam=4, npts=5, k_obs=2).cam_of.is_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(8, 5), (8, 8), (64, 10), (64, 64)])
+def test_cholesky_solve_matrix_rhs_on_card(cuda, n, k):
+    """cholesky_solve's (n, k) right-hand sides on the card against the
+    CPU, float64, both branches."""
+    from libdogleg_tpu_torch.ops.cholesky import cholesky_solve
+    rng = np.random.default_rng(n + k)
+    L = torch.linalg.cholesky(torch.as_tensor(_spd(n, rng)))
+    b = torch.as_tensor(rng.normal(size=(n, k)))
+    got = cholesky_solve(L.to(cuda), b.to(cuda)).cpu()
+    want = cholesky_solve(L, b)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-12 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feature_size", [1, 2, 4])
+def test_outlierness_factors_card_equal_cpu(cuda, feature_size):
+    """get_outlierness_factors on the card, float64, against the CPU
+    (rtol 1e-9), and in float32 finite and within 1e-3 of float64."""
+    from libdogleg_tpu_torch.analysis import get_outlierness_factors
+    from libdogleg_tpu_torch.ops.cholesky import factorize_jtj
+    rng = np.random.default_rng(5)
+    J_np, x_np = rng.normal(size=(4000, 64)), rng.normal(size=4000)
+    out = {}
+    for device, dtype in ((cuda, torch.float64), ("cpu", torch.float64),
+                          (cuda, torch.float32)):
+        J = torch.as_tensor(J_np, dtype=dtype, device=device)
+        x = torch.as_tensor(x_np, dtype=dtype, device=device)
+        L = factorize_jtj(J.T @ J, torch.zeros((), dtype=dtype,
+                                               device=device)).L
+        out[(str(device), dtype)] = get_outlierness_factors(
+            x, J, L, feature_size=feature_size)[0].cpu()
+    f_card, f_cpu = out[("cuda", torch.float64)], out[("cpu", torch.float64)]
+    f32 = out[("cuda", torch.float32)]
+    np.testing.assert_allclose(f_card.numpy(), f_cpu.numpy(), rtol=1e-9)
+    assert bool(torch.isfinite(f32).all())
+    np.testing.assert_allclose(f32.double().numpy(), f_cpu.numpy(),
+                               rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_ba_outlierness_on_card(cuda):
+    """get_outlierness_factors_ba at a small size in float64: the card
+    against the CPU (rtol 1e-7: the factors of this instance amplify
+    rounding ~1e8 times), two passes the same bits, the factorization
+    passed in the bits of the fresh one, NaN everywhere when it fails."""
+    from libdogleg_tpu_torch import solve_products
+    from libdogleg_tpu_torch.analysis import get_outlierness_factors_ba
+    from libdogleg_tpu_torch.models import pinhole_ba as pba
+
+    def same_bits(a, b):
+        return torch.equal(a.view(torch.int64), b.view(torch.int64))
+
+    out, r = [], None
+    for device in (torch.device("cpu"), cuda):
+        ba = pba.make_synthetic_sparse(seed=3, ncam=6, npts=60, k_obs=3,
+                                       dtype=torch.float64, device=device)
+        if r is None:
+            r = solve_products(ba.products, ba.p0(
+                torch.Generator().manual_seed(2), jitter=0.02),
+                DoglegParameters(), newton_solver=ba.newton_solver())
+        p = {k: v.to(device) for k, v in r.p.items()}
+        robs, Jc, Jq = ba.observation_jacobians(p)
+        JtJ, ns = ba.products(p).JtJ, ba.newton_solver()
+        lam, n2 = r.lam.to(device), r.norm2_x.to(device)
+        nmeas = 2 * ba.nobs + 6 + 3 * ba.npts
+
+        def run(**kw):
+            return get_outlierness_factors_ba(robs, Jc, Jq, JtJ, lam, n2,
+                                              nmeas, ns, chunk=16, **kw)[0]
+        f = run()
+        assert same_bits(f, run())
+        assert same_bits(f, run(factorization=ns.factor(JtJ, lam)))
+        bad = get_outlierness_factors_ba(
+            robs, Jc, Jq, JtJ, torch.full_like(lam, -1e6), n2, nmeas, ns)[0]
+        assert bool(torch.isnan(bad).all())
+        out.append(f.cpu())
+    np.testing.assert_allclose(out[1].numpy(), out[0].numpy(), rtol=1e-7,
+                               atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_windowed_traces_on_card_sparse_factor(cuda):
+    """Windowed query traces on the card off a small grid's supernodal
+    factor (kernels K6, K7) against its dense factor, float64, windows
+    past both ends."""
+    from libdogleg_tpu_torch import SparseProblem
+    from libdogleg_tpu_torch.analysis import (
+        outlierness_trace_new_features_windowed)
+    from libdogleg_tpu_torch.models import grid_mrf
+    from libdogleg_tpu_torch.ops.cholesky import factorize_jtj
+    g = grid_mrf.make_grid_mrf(6, 5, 3, dtype=torch.float64, device=cuda)
+    prob = SparseProblem(f=g.problem(jtj="dense").f, structure=g.structure,
+                         jtj="sparse", ordering="rcm", amalgamate=4)
+    p = torch.zeros(g.nstate, dtype=torch.float64, device=cuda)
+    pr = prob.products(p)
+    sn = prob.default_newton_solver()
+    be = sn._backend()
+    zero = torch.zeros((), dtype=torch.float64, device=cuda)
+    Lb, ok = be.factorize(sn.symbolic, pr.JtJ, zero)
+    assert bool(ok)
+    Ld = factorize_jtj(g.problem(jtj="dense").products(p).JtJ, zero).L
+    rng = np.random.default_rng(4)
+    Jq = torch.as_tensor(rng.normal(size=(20, 2, 6)), device=cuda)
+    starts = torch.as_tensor(rng.integers(-4, g.nstate - 2, size=20),
+                             device=cuda)
+    t_sp = outlierness_trace_new_features_windowed(
+        Jq, starts, None, pr.norm2_x, 500, nstate=g.nstate,
+        solve_fn=lambda r: be.solve(sn.symbolic, Lb, r))
+    t_d = outlierness_trace_new_features_windowed(Jq, starts, Ld,
+                                                  pr.norm2_x, 500)
+    assert t_sp.is_cuda
+    np.testing.assert_allclose(t_sp.cpu().numpy(), t_d.cpu().numpy(),
+                               rtol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("argv", [["--diag", "vnlog", "dense"],
+                                  ["--diag", "human", "sparse"],
+                                  ["--test-gradients", "residual"],
+                                  ["--test-gradients",
+                                   "dense-products-unpacked"]])
+def test_sample_diagnostic_streams_on_card(cuda, argv, capsys):
+    from libdogleg_tpu_torch import sample
+    assert sample.main(["--device", "cuda"] + argv) == 0
+    out = capsys.readouterr().out
+    assert out.startswith({"vnlog": "# iteration step_accepted",
+                           "human": "libdogleg-tpu: attempt 0:"}.get(
+        argv[1], "# ivar "))
+
+
+@pytest.mark.cuda
+def test_profile_op_summary_sums_device_events(cuda):
+    from libdogleg_tpu_torch.diagnostics import profile_op_summary
+    a = torch.ones(512, 512, device=cuda)
+    lines = profile_op_summary(lambda: a @ a, top=4).split("\n")
+    assert lines[0].split() == ["ms", "calls", "op"] and len(lines) >= 2
+    assert not any(row.split(None, 2)[2].startswith("aten::")
+                   for row in lines[1:])
