@@ -155,7 +155,25 @@ Phases, each printing its own lines:
      per-op profile; at ncam 6, npts 60 float64 card vs CPU within rtol
      1e-7), and windowed query traces (256 queries, fs 2, w 16) on the
      32x32x8 grid's supernodal factor against its dense factor (float64,
-     rtol 1e-9).
+     rtol 1e-9);
+ 20. batched structured solves, no kernel of K1-K7 on their path
+     (batched_optimize over {"c", "q"} tree starts with
+     TreeSchurNewtonSolver, each element with its own observations as
+     problem_data): in float64 (B 8, ncam 4, npts 64) the card against the
+     CPU (identical decisions, lambda and History step types, p within
+     1e-9) and each element against its own single solve; bench_all.py's
+     config 9 at full width (B 64, ncam 4, npts 2048, obs + 0.5 N(0, 1),
+     starts p_true + 0.02 N(0, 1), float32): converged_frac (norm2_x < 2
+     nobs) >= 0.95 and every reason > 0, solves/s by CUDA events with a
+     dependent fetch, host walls, wavefronts, device events and host
+     synchronizations a wavefront, the lambda histogram, a profiler split,
+     two runs the same bits, batched_optimize_compacted in turns with it
+     (the same decisions and bits on every element), the
+     History on the batch (same bits otherwise) and, in float64 at npts
+     256, four elements' History rows against their single solves; then
+     config 7xl once (sparse visibility, ncam 256, npts 200000, k_obs 4,
+     float32: gate norm2_x < 2 nobs, attempts, wall, device split,
+     max_memory_allocated). Each phase prints its seconds.
 Then one JSON line about the kernels (time, plain version's time, the
 library call's where one exists, and the bound from this run's shapes; K1
 once per instance), the card line again, and a last JSON
@@ -1771,6 +1789,15 @@ def flat_p(p):
     return p.double()
 
 
+def flat_batch(p):
+    """A batch of states as one (B, n) float64 tensor."""
+    import torch
+    if isinstance(p, dict):
+        return torch.cat([p["c"].reshape(p["c"].shape[0], -1),
+                          p["q"].reshape(p["q"].shape[0], -1)], 1).double()
+    return p.double()
+
+
 def same_bits(a, b) -> bool:
     """Whether two float tensors hold the same bits (NaN included)."""
     import torch
@@ -2221,6 +2248,323 @@ def phase19_analysis(dev, card, ba7s, r7s) -> None:
           flush=True)
 
 
+# config 9 of bench_all.py:486-512: (batch, ncam, npts), with the
+# observation noise and the start jitter its instances are drawn with;
+# config 7xl of bench_all.py:573-575
+CONFIG9 = (64, 4, 2048)
+CONFIG9_NOISE, CONFIG9_JITTER = 0.5, 0.02
+CONFIG7XL = dict(seed=0, ncam=256, npts=200000, k_obs=4)
+
+
+def config9_inputs(ba, batch, obs_gen, p0_gen):
+    """Per-element observations obs + 0.5 N(0, 1) and starts p_true + 0.02
+    N(0, 1), drawn from the two generators on their own devices and moved
+    to the instance's, so CPU generators give one batch on every device."""
+    import torch
+    dev, dt = ba.obs.device, ba.obs.dtype
+
+    def draw(shape, gen):
+        return torch.randn(shape, generator=gen, dtype=dt,
+                           device=gen.device).to(dev)
+    obs_b = ba.obs[None] + CONFIG9_NOISE * draw(
+        (batch,) + tuple(ba.obs.shape), obs_gen)
+    p0 = {k: v[None] + CONFIG9_JITTER * draw((batch,) + tuple(v.shape),
+                                             p0_gen)
+          for k, v in sorted(ba.p_true.items())}
+    return obs_b, p0
+
+
+def schur_batch(ba, p0, obs_b, bench, compacted=False, **kw):
+    """The batch through the public entry point, each element with its own
+    observations, TreeSchurNewtonSolver."""
+    from libdogleg_tpu_torch.parallel import (batched_optimize,
+                                              batched_optimize_compacted)
+    fn = batched_optimize_compacted if compacted else batched_optimize
+    return fn(ba.products_obs, p0, bench, problem_data=obs_b,
+              newton_solver=ba.newton_solver(), **kw)
+
+
+def same_result_bits(a, b) -> list:
+    """Per element, whether every leaf of two batch-leading results (p,
+    Jt_x, the SchurJtJ, History) holds the same bits."""
+    import torch
+
+    from libdogleg_tpu_torch.ops import treevec as tv
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    per = None
+    for x, y in zip(tv.tree_leaves(a), tv.tree_leaves(b)):
+        if x.dtype in ints:
+            x, y = x.view(ints[x.dtype]), y.view(ints[y.dtype])
+        eq = (x == y).reshape(x.shape[0], -1).all(-1)
+        per = eq if per is None else per & eq
+    return per.tolist()
+
+
+def history_rows_agree(hb, hs, n, what) -> float:
+    """One element's batched History rows (hb, fields (cap,)) against its
+    single solve's (hs): integer columns identical, float columns inf in
+    the same places and within 1e-8 of the column's largest finite entry
+    (1e-5 for rho and the direction change, ratios of near-equal
+    differences and angles between steps; tests/test_torch_batched_schur.py
+    measures why). Returns the largest relative difference."""
+    import torch
+    loose = {"rho", "step_direction_change_deg"}
+    worst = 0.0
+    for name in hb._fields:
+        a, b = getattr(hb, name)[:n + 1].cpu(), getattr(hs, name)[:n + 1].cpu()
+        if not a.dtype.is_floating_point:
+            check(torch.equal(a, b), f"{what}: History {name} identical")
+            continue
+        fin = torch.isfinite(b)
+        check(torch.equal(torch.isfinite(a), fin)
+              and torch.equal(a[~fin], b[~fin]),
+              f"{what}: History {name} inf in the same rows")
+        if bool(fin.any()):
+            err = float((a[fin] - b[fin]).abs().max()
+                        / b[fin].abs().max().clamp(min=1e-300))
+            tol = 1e-5 if name in loose else 1e-8
+            check(err <= tol, f"{what}: History {name} within {tol}: "
+                  f"{err:.3e}")
+            if name not in loose:
+                worst = max(worst, err)
+    return worst
+
+
+def phase20_batched_schur(dev, bench, card) -> None:
+    """Batched structured solves: config 9 (bench_all.py:486-512), a fleet
+    of pinhole bundle adjustments each solved by Schur elimination in one
+    masked batched program; then config 7xl once."""
+    import torch
+
+    from libdogleg_tpu_torch import solve_products
+    from libdogleg_tpu_torch.models import pinhole_ba as pba
+    from libdogleg_tpu_torch.utils.benchtime import measure_ms
+
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "F1: torch.backends.cuda.matmul.allow_tf32 is False")
+    decisions = ("step_count", "n_attempts", "reason")
+    cpu = torch.device("cpu")
+
+    # float64, small: the card against the CPU on one batch, then each
+    # element against its own single solve on the card
+    since = time.perf_counter()
+    runs = []
+    for device in (dev, cpu):
+        ba = pba.make_synthetic(seed=0, ncam=4, npts=64, device=device)
+        obs_b, p0 = config9_inputs(ba, 8, torch.Generator().manual_seed(8),
+                                   torch.Generator().manual_seed(7))
+        runs.append((ba, obs_b, p0, schur_batch(ba, p0, obs_b, bench,
+                                                record_history=True)))
+    (ba_d, obs_d, p0_d, r_d), (_, _, _, r_c) = runs
+    for field in decisions:
+        check(torch.equal(getattr(r_d, field).cpu(), getattr(r_c, field)),
+              f"config 9 f64 card vs CPU {field} identical")
+    check(torch.equal(r_d.history.step_type.cpu(), r_c.history.step_type),
+          "config 9 f64 card vs CPU History step types identical")
+    check(torch.equal(r_d.lam.cpu(), r_c.lam), "config 9 f64 card vs CPU "
+          "lambda identical")
+    dp = float((flat_batch(r_d.p).cpu() - flat_batch(r_c.p)).abs().max())
+    check(torch.allclose(flat_batch(r_d.p).cpu(), flat_batch(r_c.p),
+                         rtol=1e-9, atol=1e-9),
+          f"config 9 f64 card vs CPU p within 1e-9: {dp:.3e}")
+    worst_h, dps = 0.0, 0.0
+    for i in range(8):
+        ri = solve_products(
+            lambda p, o=obs_d[i]: ba_d.products_obs(p, o),
+            {k: v[i] for k, v in p0_d.items()}, bench,
+            newton_solver=ba_d.newton_solver(), record_history=True)
+        for field in decisions:
+            check(int(getattr(ri, field)) == int(getattr(r_d, field)[i]),
+                  f"config 9 f64 element {i}: {field} of its single solve")
+        pi = flat_p(ri.p)
+        pb = flat_batch(r_d.p)[i]
+        dps = max(dps, float((pi - pb).abs().max()))
+        check(torch.allclose(pb, pi, rtol=1e-9, atol=1e-9),
+              f"config 9 f64 element {i}: p within 1e-9 of its single solve")
+        hb = type(ri.history)(*(h[i] for h in r_d.history))
+        worst_h = max(worst_h, history_rows_agree(
+            hb, ri.history, int(ri.n_attempts), f"config 9 f64 element {i}"))
+    print(f"[20 decisions f64 B=8 ncam 4 npts 64] card vs CPU: step_count, "
+          f"n_attempts, reason, lambda and History step types identical "
+          f"(attempts {r_c.n_attempts.tolist()}, reasons "
+          f"{r_c.reason.tolist()}); max |dp| {dp:.3e}; each element "
+          f"against its own single solve on the card: decisions and "
+          f"History step types identical, max |dp| {dps:.3e}, History "
+          f"columns within {worst_h:.2e}; "
+          f"{time.perf_counter() - since:.1f} s", flush=True)
+    del runs, ba_d, obs_d, p0_d, r_d, r_c
+
+    # config 9 at full width, float32
+    since = time.perf_counter()
+    batch, ncam, npts = CONFIG9
+    ba = pba.make_synthetic(seed=0, ncam=ncam, npts=npts,
+                            dtype=torch.float32, device=dev)
+    obs_b, p0 = config9_inputs(ba, batch,
+                               torch.Generator(device=dev).manual_seed(8),
+                               torch.Generator(device=dev).manual_seed(7))
+    nobs = ba.nobs
+
+    def solve():
+        return schur_batch(ba, p0, obs_b, bench)
+
+    def compacted():
+        return schur_batch(ba, p0, obs_b, bench, compacted=True)
+    before = kernel_launch_counts()
+    t0 = time.perf_counter()
+    r = solve()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    check(kernel_launch_counts() == before,
+          "config 9: the path launches none of K1-K7")
+    check(bool(torch.isfinite(flat_batch(r.p)).all())
+          and bool(torch.isfinite(r.norm2_x).all()),
+          "config 9: finite result")
+    check(r.p["q"].shape == (batch, npts, 3) and r.norm2_x.shape == (batch,),
+          "config 9: the result's shapes")
+    conv = float((r.norm2_x < 2.0 * nobs).float().mean())
+    check(conv >= 0.95, f"config 9: converged_frac {conv} >= 0.95")
+    check(bool((r.reason > 0).all()), "config 9: every reason > 0")
+    wavefronts = int(r.n_attempts.max())
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r2 = solve()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    same = same_result_bits(r2, r)
+    check(all(same), f"config 9: two runs the same bits on every element "
+          f"({sum(same)} of {batch})")
+    ms = measure_ms(lambda: float(solve().norm2_x.sum()), warmup=0, reps=3)
+    syncs, _ = host_syncs(solve)
+    events = sum(ev.count for ev in device_events(solve, (), reps=1))
+    lams, counts = torch.unique(r.lam.cpu(), return_counts=True)
+    hist = ", ".join(f"{float(v):g}: {int(c)}" for v, c in zip(lams, counts))
+    sync_text = ("not measured (no sync warnings)" if syncs is None else
+                 f"{syncs} ({syncs / wavefronts:.1f} a wavefront)")
+    event_text = ("not measured (the profiler returned no events)"
+                  if not events else
+                  f"{events} ({events / wavefronts:.0f} a wavefront)")
+    print(f"[20 config 9 B={batch} ncam {ncam} npts {npts} f32] "
+          f"converged_frac {conv:.4f} (>= 0.95, norm2_x < 2 nobs = "
+          f"{2 * nobs}); reasons "
+          f"{torch.bincount(r.reason.cpu(), minlength=7).tolist()}; "
+          f"{wavefronts} wavefronts, {attempts_text(r.n_attempts)}"
+          f"; no kernel of K1-K7 launched; first call {first:.3f} s; host "
+          f"wall ms {', '.join(f'{w:.2f}' for w in walls)}; CUDA events "
+          f"{ms:.2f} ms a batch with a dependent fetch "
+          f"({batch / ms * 1e3:.1f} solves/s); device events a solve "
+          f"{event_text}; host synchronizations a solve {sync_text}; "
+          f"lambda histogram {{{hist}}}; two runs the same bits; card "
+          f"{card}", flush=True)
+    print(f"[20 config 9 profile] {device_split(solve, groups=BA_GROUPS)}; "
+          f"{wavefronts} wavefronts", flush=True)
+
+    # the compacted entry point beside the plain one, in turns
+    rc = compacted()
+    for field in decisions:
+        check(torch.equal(getattr(rc, field), getattr(r, field)),
+              f"config 9 compacted: {field} of batched_optimize")
+    same = same_result_bits(rc, r)
+    check(all(same), f"config 9 compacted: batched_optimize's bits on every "
+          f"element ({sum(same)} of {batch})")
+    dpc = float((flat_batch(rc.p) - flat_batch(r.p)).abs().max())
+    turns = {"batched_optimize": [], "compacted": []}
+    for order in (("batched_optimize", "compacted"),
+                  ("compacted", "batched_optimize")):
+        for name in order:
+            fn = solve if name == "batched_optimize" else compacted
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            turns[name].append((time.perf_counter() - t0) * 1e3)
+    print(f"[20 config 9 compacted] decisions and bits of batched_optimize "
+          f"on all {batch} elements (max |dp| {dpc:.3e}); host wall ms in "
+          f"turns: "
+          + "; ".join(f"{k} {', '.join(f'{w:.2f}' for w in v)}"
+                      for k, v in turns.items()), flush=True)
+
+    # the History on the same batch: the same result, and its cost
+    t0 = time.perf_counter()
+    rh = schur_batch(ba, p0, obs_b, bench, record_history=True)
+    torch.cuda.synchronize()
+    wall_h = (time.perf_counter() - t0) * 1e3
+    same = same_result_bits(rh._replace(history=None), r)
+    check(all(same), "config 9 record_history: the result's bits unchanged")
+    check(bool((rh.history.step_type[:, 0] != 4).sum()
+               == (r.n_attempts > 0).sum()),
+          "config 9 record_history: a first row for every element that "
+          "took an attempt")
+    print(f"[20 config 9 record_history] the same bits as without on every "
+          f"element; host wall {wall_h:.2f} ms (without: "
+          f"{min(walls):.2f}-{max(walls):.2f})", flush=True)
+    del r, r2, rc, rh, obs_b, p0, ba
+
+    # the batched History against single solves, float64, npts 256
+    ba = pba.make_synthetic(seed=0, ncam=ncam, npts=256, device=dev)
+    obs_b, p0 = config9_inputs(ba, batch,
+                               torch.Generator(device=dev).manual_seed(8),
+                               torch.Generator(device=dev).manual_seed(7))
+    rh = schur_batch(ba, p0, obs_b, bench, record_history=True)
+    worst = 0.0
+    picked = (0, batch // 3, 2 * batch // 3, batch - 1)
+    for i in picked:
+        ri = solve_products(
+            lambda p, o=obs_b[i]: ba.products_obs(p, o),
+            {k: v[i] for k, v in p0.items()}, bench,
+            newton_solver=ba.newton_solver(), record_history=True)
+        check(int(ri.n_attempts) == int(rh.n_attempts[i]),
+              f"config 9 History f64 element {i}: attempts")
+        hb = type(ri.history)(*(h[i] for h in rh.history))
+        worst = max(worst, history_rows_agree(
+            hb, ri.history, int(ri.n_attempts),
+            f"config 9 History f64 element {i}"))
+    print(f"[20 config 9 History f64 B={batch} npts 256] the rows of "
+          f"elements {picked} equal their single solves' (integer "
+          f"columns identical, float columns within {worst:.2e}); "
+          f"{time.perf_counter() - since:.1f} s for config 9", flush=True)
+    del ba, obs_b, p0, rh
+
+    # config 7xl, once: sparse visibility at ncam 256, npts 200000
+    since = time.perf_counter()
+    ba = pba.make_synthetic_sparse(dtype=torch.float32, device=dev,
+                                   **CONFIG7XL)
+    p0 = ba.p0(torch.Generator(device=dev).manual_seed(2), jitter=0.02)
+    ns = ba.newton_solver()
+    nobs = ba.nobs
+
+    def solve7xl():
+        return solve_products(ba.products, p0, bench, newton_solver=ns)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = solve7xl()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(flat_p(r.p)).all())
+          and bool(torch.isfinite(r.norm2_x)), "config 7xl: finite result")
+    check(float(r.norm2_x) < 2 * nobs,
+          f"config 7xl: gate norm2_x < 2 nobs: {float(r.norm2_x):.6g}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solve7xl()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    print(f"[20 config 7xl ncam {ba.ncam} npts {ba.npts} k_obs {ba.k_obs} "
+          f"f32] gate norm2_x < 2 nobs: {float(r.norm2_x):.6g} < "
+          f"{2 * nobs}; reason {int(r.reason)}, steps {int(r.step_count)}, "
+          f"attempts {int(r.n_attempts)}, lambda {float(r.lam):.3g}; first "
+          f"call {first:.2f} s, host wall {wall:.1f} ms; "
+          f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; card {card}",
+          flush=True)
+    print(f"[20 config 7xl profile] "
+          f"{device_split(solve7xl, groups=BA_GROUPS)}; "
+          f"{int(r.n_attempts)} attempts; "
+          f"{time.perf_counter() - since:.1f} s for config 7xl", flush=True)
+
+
 def ptxas_k1(log: str) -> list:
     """ptxas's registers and spills of each K1 solve kernel in an nvcc log,
     one short line each."""
@@ -2322,6 +2666,7 @@ def ragged_f64_decisions(dev, factored: bool) -> str:
 
 
 def main() -> int:
+    started = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2485,25 +2830,35 @@ def main() -> int:
           f"({evals / BATCH:.2f} products evaluations a problem); "
           f"{attempts_text(r_b.n_attempts)}; card {card}", flush=True)
 
-    k2 = phase7_panel(dev)
-    k2.update(phase8_slice(dev, bench))
-    k34 = phase9_bcsr(dev)
-    dense_walls = phase10_timing(dev, bench, card, k2, k34)
-    tiles = phase11_tiles(dev)
-    sparse = phase12_sparse(dev, bench)
+    print(f"[1-6 seconds] {time.perf_counter() - started:.1f}", flush=True)
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[{label} seconds] {time.perf_counter() - t0:.1f}",
+              flush=True)
+        return out
+    k2 = timed("7", phase7_panel, dev)
+    k2.update(timed("8", phase8_slice, dev, bench))
+    k34 = timed("9", phase9_bcsr, dev)
+    dense_walls = timed("10", phase10_timing, dev, bench, card, k2, k34)
+    tiles = timed("11", phase11_tiles, dev)
+    sparse = timed("12", phase12_sparse, dev, bench)
     tiles["K6"]["launches"] = sparse["launches"]["tile_cholesky"]
     tiles["K7"]["launches"] = sparse["launches"]["tri_solve_right"]
-    phase13_timing(dev, bench, card, sparse, tiles, dense_walls)
+    timed("13", phase13_timing, dev, bench, card, sparse, tiles, dense_walls)
     del sparse
-    phase14_batchchol(dev)
-    mid = phase15_midsize(dev, bench)
+    timed("14", phase14_batchchol, dev)
+    mid = timed("15", phase15_midsize, dev, bench)
     # K5's error is taken in phase 16, on the JtJ the main path gives it
     k5 = {"launches": mid["launches"], "max_abs_err": 0.0}
-    phase16_timing(dev, bench, card, mid, k5)
-    k1f = phase17_factored(dev, bench)
-    ba7s, r7s = phase18_ba(dev, bench)
-    phase19_analysis(dev, card, ba7s, r7s)
+    timed("16", phase16_timing, dev, bench, card, mid, k5)
+    k1f = timed("17", phase17_factored, dev, bench)
+    ba7s, r7s = timed("18", phase18_ba, dev, bench)
+    timed("19", phase19_analysis, dev, card, ba7s, r7s)
     del ba7s, r7s
+    timed("20", phase20_batched_schur, dev, bench, card)
+    print(f"[all seconds] {time.perf_counter() - started:.1f}", flush=True)
 
     def entry(name, source, replaces, d):
         return {"name": name, "route": "cuda", "source": source,

@@ -52,15 +52,15 @@ class BAProblem(NamedTuple):
         return (p[:self.nc],
                 p[self.nc:].reshape(self.n_points, self.block_size))
 
-    def _residuals(self, c, q):
+    def _residuals(self, c, q, obs):
         B2 = self.B.reshape(-1, self.nc)
         return ((self.A * q[:, None, :]).sum(-1)
-                + (B2 @ c).reshape(self.obs.shape) - self.obs)
+                + (B2 @ c).reshape(obs.shape) - obs)
 
-    def _core(self, c, q):
+    def _core(self, c, q, obs):
         """Residual, structured gradient and arrow JtJ, shared by the flat
         and tree product forms."""
-        r = self._residuals(c, q)
+        r = self._residuals(c, q, obs)
         B2 = self.B.reshape(-1, self.nc)
         gc = B2.mT @ r.reshape(-1)
         gq = (self.A * r[..., None]).sum(1)
@@ -71,12 +71,20 @@ class BAProblem(NamedTuple):
         return r, gc, gq, JtJ
 
     def residuals(self, p):
-        return self._residuals(*self.split(p))
+        return self._residuals(*self.split(p), self.obs)
 
     def products(self, p) -> Products:
         """One reduction over all observations into the arrow system (the
         dense-products form, reference dogleg.h:34-45)."""
-        r, gc, gq, JtJ = self._core(*self.split(p))
+        return self.products_obs(p, self.obs)
+
+    def products_obs(self, p, obs) -> Products:
+        """products at the observations obs (n_points, k_obs) in place of
+        the instance's: the form torch.func.vmap batches over per-element
+        observations (batched_optimize(ba.products_obs, p0,
+        problem_data=obs_b, newton_solver=ba.newton_solver()))."""
+        c, q = self.split(p)
+        r, gc, gq, JtJ = self._core(c, q, obs)
         return Products(norm2_x=(r * r).sum(),
                         Jt_x=torch.cat([gc, gq.reshape(-1)]), JtJ=JtJ)
 
@@ -87,10 +95,14 @@ class BAProblem(NamedTuple):
     # the tree form: p = {"c": (nc,), "q": (n_points, bs)}
 
     def residuals_tree(self, p):
-        return self._residuals(p["c"], p["q"])
+        return self._residuals(p["c"], p["q"], self.obs)
 
     def products_tree(self, p) -> Products:
-        r, gc, gq, JtJ = self._core(p["c"], p["q"])
+        return self.products_tree_obs(p, self.obs)
+
+    def products_tree_obs(self, p, obs) -> Products:
+        """products_tree at the observations obs, as products_obs."""
+        r, gc, gq, JtJ = self._core(p["c"], p["q"], obs)
         return Products(norm2_x=(r * r).sum(), Jt_x={"c": gc, "q": gq},
                         JtJ=JtJ)
 

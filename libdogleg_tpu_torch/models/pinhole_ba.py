@@ -171,7 +171,7 @@ class PinholeBA:
         proj = project(cams[self.cam_idx], p["q"][self.pt_idx], self.focal)
         return (proj - self.obs).reshape(-1)
 
-    def _products_grid(self, p) -> Products:
+    def _products_grid(self, p, obs) -> Products:
         """The arrow system over the (ncam, npts) grid of full visibility:
         every (camera, point) pair exists, so every reduction is an einsum
         and W a transpose."""
@@ -180,7 +180,7 @@ class PinholeBA:
         r, Jc, Jq = observation_terms(
             cams[:, None, :].expand(ncam, npts, 6).reshape(-1, 6),
             p["q"][None].expand(ncam, npts, 3).reshape(-1, 3),
-            self.obs, self.focal)
+            obs, self.focal)
         r = r.reshape(ncam, npts, 2)
         Jc = Jc.reshape(ncam, npts, 2, 6)
         Jq = Jq.reshape(ncam, npts, 2, 3)
@@ -197,12 +197,19 @@ class PinholeBA:
         """Per-observation Jacobians summed into the arrow system; the
         full-visibility grid takes _products_grid, any other observation
         list the segment sums."""
+        return self.products_obs(p, self.obs)
+
+    def products_obs(self, p, obs) -> Products:
+        """products at the observations obs (nobs, 2) in place of the
+        instance's, with the layout decided at construction: the form
+        torch.func.vmap batches over per-element observations
+        (batched_optimize(ba.products_obs, p0, problem_data=obs_b)), as the
+        JAX package's ba._replace(obs=obs_i).products does."""
         if self.dense_grid:
-            return self._products_grid(p)
+            return self._products_grid(p, obs)
         cams = p["c"].reshape(self.ncam, 6)
         r, Jc, Jq = observation_terms(cams[self.cam_idx],
-                                      p["q"][self.pt_idx], self.obs,
-                                      self.focal)
+                                      p["q"][self.pt_idx], obs, self.focal)
         by_cam, by_pt, by_pair = self._gathers
         Wc = _segment_sum(torch.einsum('oij,oik->ojk', Jc, Jq), by_pair)
         W = Wc.reshape(self.ncam, self.npts, 6, 3).permute(0, 2, 1, 3)

@@ -72,11 +72,14 @@ def interpolated_step(cauchy: torch.Tensor,
     sphere: the + root of norm2(a + k (b - a)) = tr^2, with a numerically
     negative discriminant clamped to zero (reference dogleg.c:936-987). The
     clamp keeps a NaN discriminant NaN, as jnp.maximum does. The steps are
-    (..., n) tensors or, for one problem, trees of tensors
-    (ops/treevec.py)."""
+    (..., n) tensors or trees of tensors (ops/treevec.py): of one problem
+    where norm2_cauchy is 0-d, of a batch (every leaf (B, ...)) where it is
+    (B,)."""
+    batched = not isinstance(cauchy, torch.Tensor) and norm2_cauchy.dim() > 0
+    dot = tv.batch_dot if batched else tv.tree_dot
     d = tv.tree_sub(cauchy, gn)
-    l2 = tv.tree_dot(d, d)
-    neg_c = tv.tree_dot(d, cauchy)
+    l2 = dot(d, d)
+    neg_c = dot(d, cauchy)
     dsq = trustregion * trustregion
     discriminant = torch.clamp(neg_c * neg_c - l2 * (norm2_cauchy - dsq),
                                min=0.0)
@@ -84,9 +87,9 @@ def interpolated_step(cauchy: torch.Tensor,
     if isinstance(cauchy, torch.Tensor):   # k (...) scales (..., n) rows
         step = cauchy + k[..., None] * (gn - cauchy)
     else:
-        step = tv.tree_add(cauchy, tv.tree_scale(k, tv.tree_sub(gn, cauchy)))
-    return InterpolatedStep(step=step, norm2_step=tv.tree_dot(step, step),
-                            k=k)
+        scale = tv.batch_scale if batched else tv.tree_scale
+        step = tv.tree_add(cauchy, scale(k, tv.tree_sub(gn, cauchy)))
+    return InterpolatedStep(step=step, norm2_step=dot(step, step), k=k)
 
 
 def expected_improvement(Jt_x: torch.Tensor,

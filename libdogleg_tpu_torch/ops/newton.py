@@ -17,11 +17,12 @@ blocks: SchurNewtonSolver on a flat state, TreeSchurNewtonSolver on a
 {"c", "q"} tree state, SparseWSchurNewtonSolver when each point couples to
 k_obs cameras only. They are plain torch ops (the unrolled smallchol for
 the point blocks, torch.linalg.cholesky_ex for the reduced camera system,
-matmuls with TF32 off) and one problem at a time. All keep the reference's
-permanent escalating lambda (dogleg.c:137-138, 670-676); the dense ones take
-the `active` mask of the masked batched solver. refine_iters > 0 adds
-iterative-refinement passes whose residual is accumulated in compensated
-arithmetic (ops/compensated.py).
+matmuls with TF32 off). All keep the reference's permanent escalating
+lambda (dogleg.c:137-138, 670-676) and take the `active` mask of the masked
+batched solver; SchurNewtonSolver and TreeSchurNewtonSolver also take a
+leading batch axis, SparseWSchurNewtonSolver one problem only.
+refine_iters > 0 adds iterative-refinement passes whose residual is
+accumulated in compensated arithmetic (ops/compensated.py).
 
 Every camera-axis reduction is deterministic on the card: a matmul (a
 one-hot product where the coupling is sparse) or a sum over a gathered
@@ -290,40 +291,67 @@ class SchurJtJ(NamedTuple):
     """Arrow-structured Gauss-Newton system of bundle adjustment: state
     p = [dense block (nc) | n_points blocks of bs], JtJ = [[U, W], [W^T, V]]
     with V block-diagonal. The reference hands such systems whole to
-    CHOLMOD."""
-    U: torch.Tensor   # (nc, nc) dense camera/global block
-    W: torch.Tensor   # (nc, n_points, bs) coupling blocks
-    V: torch.Tensor   # (n_points, bs, bs) point diagonal blocks
+    CHOLMOD. A batch of systems carries a leading batch axis on every
+    field."""
+    U: torch.Tensor   # (..., nc, nc) dense camera/global block
+    W: torch.Tensor   # (..., nc, n_points, bs) coupling blocks
+    V: torch.Tensor   # (..., n_points, bs, bs) point diagonal blocks
 
 
 def schur_split(v: torch.Tensor, nc: int, n_points: int, bs: int):
-    """A flat (nc + n_points * bs,) vector as (camera part, (n_points, bs))."""
-    return v[:nc], v[nc:].reshape(n_points, bs)
+    """A flat (..., nc + n_points * bs) vector as (camera part (..., nc),
+    point part (..., n_points, bs))."""
+    return v[..., :nc], v[..., nc:].reshape(v.shape[:-1] + (n_points, bs))
 
 
 def block_diag(blocks: torch.Tensor) -> torch.Tensor:
-    """The (m b, m b) block-diagonal matrix of (m, b, b) blocks, written
-    through a diagonal view of a zero (m, b, m, b) tensor."""
-    m, b, _ = blocks.shape
-    out = blocks.new_zeros((m, b, m, b))
-    idx = torch.arange(m, device=blocks.device)
-    out[idx, :, idx, :] = blocks
-    return out.reshape(m * b, m * b)
+    """The (..., m b, m b) block-diagonal matrix of (..., m, b, b) blocks,
+    selected out of place from the blocks by an identity mask over the
+    (m, b, m, b) layout, so that torch.func.vmap can batch it."""
+    m, b = blocks.shape[-3], blocks.shape[-1]
+    eye = torch.eye(m, dtype=torch.bool, device=blocks.device)
+    out = torch.where(eye[:, None, :, None], blocks[..., :, :, None, :],
+                      blocks.new_zeros(()))
+    return out.reshape(blocks.shape[:-3] + (m * b, m * b))
 
 
-def _cholesky_ok(A: torch.Tensor):
-    """cholesky_ex of (..., n, n) A, with ok (a 0-d bool) = every matrix
-    factored with positive finite pivots. A matrix that is not SPD gives ok
-    False, never an exception (hazard F3)."""
+def _cholesky_ok(A: torch.Tensor, batch_shape=()):
+    """cholesky_ex of (..., n, n) A, with ok (batch_shape) = every matrix
+    of the element factored with positive finite pivots: the reduction
+    runs over the axes after batch_shape only, so one element's failure
+    fails no other. A matrix that is not SPD gives ok False, never an
+    exception (hazard F3)."""
     L, info = torch.linalg.cholesky_ex(A)
-    ok = ((info == 0).all() & torch.isfinite(L).all()
-          & (torch.diagonal(L, dim1=-2, dim2=-1) > 0).all())
-    return L, ok
+    good = ((info == 0) & torch.isfinite(L).all(-1).all(-1)
+            & (torch.diagonal(L, dim1=-2, dim2=-1) > 0).all(-1))
+    return L, good.reshape(tuple(batch_shape) + (-1,)).all(-1)
+
+
+def _sum_last(x: torch.Tensor, nd: int) -> torch.Tensor:
+    """The sum of x over its last nd axes: over all of them for one
+    problem, per element for a batch."""
+    return x.sum() if x.dim() == nd else x.flatten(-nd).sum(-1)
+
+
+# A batch's matrix-vector products are products and sums over one axis: a
+# batched matmul with one column is a gemv at batch 1 and a gemm above, so
+# an element's bits would depend on how many others share its call (the
+# compacted solve runs the stragglers in a smaller batch).
+
+
+def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A x for (..., m, n) A and (..., n) x."""
+    return A @ x if x.dim() == 1 else (A * x[..., None, :]).sum(-1)
+
+
+def _vm(x: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """x^T A for (..., m) x and (..., m, n) A."""
+    return x @ A if x.dim() == 1 else (x[..., :, None] * A).sum(-2)
 
 
 def _block_quad(V: torch.Tensor, vp: torch.Tensor) -> torch.Tensor:
-    """sum_p vp_p^T V_p vp_p for (n_points, bs, bs) blocks."""
-    return (vp[:, :, None] * V * vp[:, None, :]).sum()
+    """sum_p vp_p^T V_p vp_p for (..., n_points, bs, bs) blocks."""
+    return _sum_last(vp[..., :, :, None] * V * vp[..., :, None, :], 3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -337,12 +365,17 @@ class SchurNewtonSolver:
     solve:  y_p = Vhat_p^{-1} rp_p; dc = S^{-1}(rc - sum_p W_p y_p);
             dp_p = Vhat_p^{-1}(rp_p - W_p^T dc).
 
+    One problem (a 0-d lam) or a batch of B independent ones (lam (B,),
+    every JtJ and state field with a leading B axis): factor, quad_form and
+    gauss_newton(active=) then return a per-element ok and lam, and each
+    element escalates lambda on its own (the masked batched solver).
+
     point_solver, for block_size <= 16: "unrolled" (smallchol's unrolled
     factor and substitutions) or "lax" (torch.linalg.cholesky_ex and
     solve_triangular, the library path; the JAX package's lax.linalg).
     Larger blocks always take the library path. refine_iters > 0 runs that
     many refinement passes against the factors, with a compensated
-    residual."""
+    residual (one problem only)."""
     nc: int
     n_points: int
     block_size: int
@@ -363,51 +396,60 @@ class SchurNewtonSolver:
     def factor(self, JtJ: SchurJtJ, lam):
         """Factorize JtJ + lam I once at a fixed lambda (no escalation).
 
-        Returns ((Lv, Ls), ok): Lv (n_points, bs, bs) the lower Cholesky
-        factors of the damped point blocks, Ls (nc, nc) that of the Schur
-        complement S, ok a 0-d bool. The public cached-factor handle, whose
-        tuple layout the analysis passes rely on (the JAX package's
-        contract)."""
+        Returns ((Lv, Ls), ok): Lv (..., n_points, bs, bs) the lower
+        Cholesky factors of the damped point blocks, Ls (..., nc, nc) that
+        of the Schur complement S, ok (lam's shape) bool. The public
+        cached-factor handle, whose tuple layout the analysis passes rely
+        on (the JAX package's contract)."""
         bs = self.block_size
         dt, dev = JtJ.V.dtype, JtJ.V.device
-        Vhat = JtJ.V + lam * torch.eye(bs, dtype=dt, device=dev)
-        Wt = JtJ.W.permute(1, 2, 0)                        # (np, bs, nc)
+        lam = torch.as_tensor(lam, dtype=dt, device=dev)
+        Vhat = JtJ.V + lam[..., None, None, None] * torch.eye(
+            bs, dtype=dt, device=dev)
+        Wt = JtJ.W.movedim(-3, -1)                    # (..., np, bs, nc)
         if self._unrolled():
             Lv, okb = smallchol.small_cholesky(Vhat)
-            ok_v = okb.all()
+            ok_v = okb.reshape(lam.shape + (-1,)).all(-1)
         else:
-            Lv, ok_v = _cholesky_ok(Vhat)
+            Lv, ok_v = _cholesky_ok(Vhat, lam.shape)
         Y = self._vsolve(Lv, Wt)
-        W2 = JtJ.W.reshape(self.nc, -1)
-        S = (JtJ.U + lam * torch.eye(self.nc, dtype=dt, device=dev)
-             - W2 @ Y.reshape(-1, self.nc))
-        Ls, ok_s = _cholesky_ok(S)
+        S = (JtJ.U + lam[..., None, None] * torch.eye(self.nc, dtype=dt,
+                                                      device=dev)
+             - JtJ.W.flatten(-2) @ Y.flatten(-3, -2))
+        Ls, ok_s = _cholesky_ok(S, lam.shape)
         return (Lv, Ls), ok_v & ok_s
 
     def _vsolve(self, Lv, b):
-        """(n_points, bs, k) right-hand sides solved with the point-block
-        factors."""
+        """(..., n_points, bs, k) right-hand sides solved with the
+        point-block factors."""
         if self._unrolled():
             return smallchol.small_cho_solve_mat(Lv, b)
         y = torch.linalg.solve_triangular(Lv, b, upper=False)
         return torch.linalg.solve_triangular(Lv.mT, y, upper=True)
 
     def _gn_core(self, JtJ: SchurJtJ, rc, rp, lam, lambda_initial,
-                 lambda_max_tries):
-        """Factor (with the escalating lambda) and solve for the camera and
-        point parts (dc, dp) of the Newton step."""
+                 lambda_max_tries, active=None):
+        """Factor (with the escalating lambda, limited to `active` elements
+        of a batch) and solve for the camera and point parts (dc, dp) of
+        the Newton step."""
+        batched = rc.dim() > 1
+        if batched and self.refine_iters:
+            raise NotImplementedError(
+                "refine_iters with a batch axis is not ported yet (ROADMAP "
+                "queue 1)")
         (Lv, Ls), lam, ok = chol.escalating_lambda(
             lambda lm: self.factor(JtJ, lm),
             torch.as_tensor(lam, dtype=rc.dtype, device=rc.device),
-            lambda_initial=lambda_initial, lambda_max_tries=lambda_max_tries)
-        W2 = JtJ.W.reshape(self.nc, -1)
+            lambda_initial=lambda_initial, lambda_max_tries=lambda_max_tries,
+            active=active)
+        W2 = JtJ.W.flatten(-2)                        # (..., nc, np bs)
 
         def solve_pair(bc, bp):
             # the exact inverse given the factors
-            y = self._vsolve(Lv, bp[..., None])[..., 0]        # (np, bs)
-            sc = chol.cholesky_solve(Ls, bc - W2 @ y.reshape(-1))
+            y = self._vsolve(Lv, bp[..., None])[..., 0]   # (..., np, bs)
+            sc = chol.cholesky_solve(Ls, bc - _mv(W2, y.flatten(-2)))
             sp = self._vsolve(
-                Lv, (bp - (sc @ W2).reshape(bp.shape))[..., None])[..., 0]
+                Lv, (bp - _vm(sc, W2).reshape(bp.shape))[..., None])[..., 0]
             return sc, sp
 
         dc, dp = solve_pair(rc, rp)
@@ -437,36 +479,40 @@ class SchurNewtonSolver:
         return dc, dp, lam, ok
 
     def gauss_newton(self, JtJ: SchurJtJ, Jt_x, lam, *, lambda_initial,
-                     lambda_max_tries) -> GNResult:
+                     lambda_max_tries,
+                     active: Optional[torch.Tensor] = None) -> GNResult:
         rc, rp = self._split(Jt_x)
         dc, dp, lam, ok = self._gn_core(JtJ, rc, rp, lam, lambda_initial,
-                                        lambda_max_tries)
-        step = -torch.cat([dc, dp.reshape(-1)])
+                                        lambda_max_tries, active)
+        step = -torch.cat([dc, dp.flatten(-2)], -1)
         return GNResult(step=step, norm2_step=dops.norm2(step), lam=lam,
                         ok=ok)
 
 
 def _schur_quad(JtJ: SchurJtJ, vc, vp) -> torch.Tensor:
-    """v^T JtJ v for the arrow system, v = (vc, vp)."""
-    uv = dops.dot(vc, JtJ.U @ vc)
-    wv = JtJ.W.reshape(vc.shape[0], -1) @ vp.reshape(-1)
+    """v^T JtJ v for the arrow system, v = (vc, vp), per element of a
+    batch."""
+    uv = dops.dot(vc, _mv(JtJ.U, vc))
+    wv = _mv(JtJ.W.flatten(-2), vp.flatten(-2))
     return uv + 2.0 * dops.dot(vc, wv) + _block_quad(JtJ.V, vp)
 
 
 @dataclasses.dataclass(frozen=True)
 class TreeSchurNewtonSolver(SchurNewtonSolver):
-    """SchurNewtonSolver over tree states {"c": (nc,), "q": (n_points,
-    bs)} in place of one flat vector (the JAX package gives each leaf its
-    own sharding; the mesh layer is not ported yet)."""
+    """SchurNewtonSolver over tree states {"c": (..., nc), "q": (...,
+    n_points, bs)} in place of one flat vector (the JAX package gives each
+    leaf its own sharding; the mesh layer is not ported yet)."""
 
     def quad_form(self, JtJ: SchurJtJ, v):
         return _schur_quad(JtJ, v["c"], v["q"])
 
     def gauss_newton(self, JtJ: SchurJtJ, Jt_x, lam, *, lambda_initial,
-                     lambda_max_tries) -> GNResult:
+                     lambda_max_tries,
+                     active: Optional[torch.Tensor] = None) -> GNResult:
         dc, dp, lam, ok = self._gn_core(JtJ, Jt_x["c"], Jt_x["q"], lam,
-                                        lambda_initial, lambda_max_tries)
-        n2 = dops.dot(dc, dc) + (dp * dp).sum()
+                                        lambda_initial, lambda_max_tries,
+                                        active)
+        n2 = dops.dot(dc, dc) + _sum_last(dp * dp, 2)
         return GNResult(step={"c": -dc, "q": -dp}, norm2_step=n2, lam=lam,
                         ok=ok)
 
@@ -526,8 +572,17 @@ class SparseWSchurNewtonSolver:
         """(n_points, k_obs, cb): each block's camera slice of vc."""
         return vc.reshape(self.ncam, self.cam_block)[JtJ.cam_of]
 
+    @staticmethod
+    def _one_problem(vc) -> None:
+        if vc.dim() != 1:
+            raise NotImplementedError(
+                "SparseWSchurNewtonSolver solves one problem: the batched "
+                "sparse-W Schur solve (a leading batch axis) is not ported "
+                "yet (ROADMAP queue 1)")
+
     def quad_form(self, JtJ: SparseWSchurJtJ, v):
         vc, vp = v["c"], v["q"]
+        self._one_problem(vc)
         uv = dops.dot(vc, JtJ.U @ vc)
         vcg = self._gather_cams(JtJ, vc)
         wv = (vcg[..., :, None] * JtJ.Wv * vp[:, None, None, :]).sum()
@@ -562,12 +617,15 @@ class SparseWSchurNewtonSolver:
         return (Lv, Ls), okb.all() & ok_s
 
     def gauss_newton(self, JtJ: SparseWSchurJtJ, Jt_x, lam, *,
-                     lambda_initial, lambda_max_tries) -> GNResult:
+                     lambda_initial, lambda_max_tries,
+                     active: Optional[torch.Tensor] = None) -> GNResult:
         rc, rp = Jt_x["c"], Jt_x["q"]
+        self._one_problem(rc)
         (Lv, Ls), lam, ok = chol.escalating_lambda(
             lambda lm: self.factor(JtJ, lm),
             torch.as_tensor(lam, dtype=rc.dtype, device=rc.device),
-            lambda_initial=lambda_initial, lambda_max_tries=lambda_max_tries)
+            lambda_initial=lambda_initial, lambda_max_tries=lambda_max_tries,
+            active=active)
         Wv = JtJ.Wv
 
         def vsolve(b):                                    # (np, bs)

@@ -6,7 +6,15 @@ A state (p, Jt_x, a step) is a tensor, or a dict, tuple or list of tensors:
 sorted key order, as jax.tree_util does, so tree_dot sums its leaves in the
 JAX package's order. A bare tensor is one leaf, and on one the functions run
 exactly the flat ops the solver ran before states became trees:
-(a * b).sum(-1), (|v| > t).any(-1), a + b.
+(a * b).sum(-1), (|v| > t).any(-1), a + b. None is an empty tree (a state
+field that is not carried).
+
+The batch_* functions are the batched form, for trees whose every leaf has
+a leading batch axis of the same size B (the masked batched solver's
+states, and NamedTuples such as SchurJtJ, Products or History): each leaf
+is reduced over every axis except the leading one, and the leaves are
+summed in visiting order, so no reduction crosses the batch axis. On a
+bare (B, n) tensor they are the flat batched solver's ops as well.
 """
 
 from __future__ import annotations
@@ -20,6 +28,8 @@ def tree_leaves(t) -> List[torch.Tensor]:
     """The tensors of `t` in visiting order (dicts by sorted key)."""
     if isinstance(t, torch.Tensor):
         return [t]
+    if t is None:
+        return []
     if isinstance(t, dict):
         return [x for k in sorted(t) for x in tree_leaves(t[k])]
     if isinstance(t, (tuple, list)):
@@ -32,6 +42,8 @@ def tree_map(f: Callable, t, *rest):
     t's structure; the result has that structure too."""
     if isinstance(t, torch.Tensor):
         return f(t, *rest)
+    if t is None:
+        return None
     if isinstance(t, dict):
         return {k: tree_map(f, t[k], *(r[k] for r in rest)) for k in t}
     if isinstance(t, (tuple, list)):
@@ -79,6 +91,53 @@ def tree_any_exceeds(a, threshold: float) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return (a.abs() > threshold).any(-1)
     flags = [(x.abs() > threshold).any() for x in tree_leaves(a)]
+    out = flags[0]
+    for flag in flags[1:]:
+        out = out | flag
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the batched form: every leaf (B, ...)
+# ---------------------------------------------------------------------------
+
+
+def _per_element(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A (B,) tensor viewed to broadcast over x's trailing axes."""
+    return m.view(m.shape + (1,) * (x.dim() - m.dim()))
+
+
+def batch_dot(a, b) -> torch.Tensor:
+    """(B,) inner products of two batched trees, element by element."""
+    if isinstance(a, torch.Tensor):
+        return (a * b).sum(-1)
+    parts = [(x * y).reshape(x.shape[0], -1).sum(-1)
+             for x, y in zip(tree_leaves(a), tree_leaves(b))]
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
+
+
+def batch_scale(k: torch.Tensor, a):
+    """Each element of the batched tree `a` times its own k (B,)."""
+    return tree_map(lambda x: _per_element(k, x) * x, a)
+
+
+def batch_where(mask: torch.Tensor, a, b):
+    """torch.where with a (B,) mask broadcast over each leaf's trailing
+    axes: element i of every leaf from a where mask[i], else from b."""
+    return tree_map(lambda x, y: torch.where(_per_element(mask, x), x, y),
+                    a, b)
+
+
+def batch_any_exceeds(a, threshold: float) -> torch.Tensor:
+    """(B,): whether any entry of an element, over all leaves, exceeds
+    `threshold` in absolute value (a NaN exceeds nothing)."""
+    if isinstance(a, torch.Tensor):
+        return (a.abs() > threshold).any(-1)
+    flags = [(x.abs() > threshold).reshape(x.shape[0], -1).any(-1)
+             for x in tree_leaves(a)]
     out = flags[0]
     for flag in flags[1:]:
         out = out | flag

@@ -6,7 +6,9 @@ kernel K1 (ops/mega.py), in the instance whose device function the products
 function names, or to the masked batched solver of solver.py, with
 the per-element products function batched by torch.func.vmap. On the masked
 path a dense mid-size JtJ in a large batch takes BlockedDenseNewtonSolver
-by default (_auto_newton), whose factorization is kernel K5 on CUDA tensors.
+by default (_auto_newton), whose factorization is kernel K5 on CUDA tensors,
+and tree starts with a SchurJtJ (a batch of bundle adjustments, each with
+its own observations as problem_data) take TreeSchurNewtonSolver.
 batched_optimize_compacted is the same solve with straggler compaction.
 """
 
@@ -17,9 +19,9 @@ from typing import Any, Optional
 import torch
 from torch.utils import _pytree as pytree
 
+from libdogleg_tpu_torch.ops import treevec as tv
 from libdogleg_tpu_torch.params import DoglegParameters
-from libdogleg_tpu_torch.solver import (BatchedSolverState, SolveResult,
-                                        init_batched_state,
+from libdogleg_tpu_torch.solver import (SolveResult, init_batched_state,
                                         result_from_batched_state,
                                         run_batched_solver,
                                         solve_products_batched)
@@ -37,17 +39,17 @@ def _check_layout(layout: str) -> None:
             f"layout must be 'leading' or 'minor', got {layout!r}")
 
 
-def _kernel_takes(products_fn, p0_batch, newton_solver,
+def _kernel_takes(products_fn, p0_batch, newton_solver, record_history,
                   use_megakernel) -> bool:
     """The gate in front of kernel K1.
 
     The kernel takes the batch when the products function names a device
     function it has (in its `cuda_device_function` attribute: the general
     instance for quadratic_surface.products, the factored one for
-    quadratic_surface.factored_products_fn(G_pair)), the states are on
-    CUDA, and no custom Newton strategy is asked for (a history is refused
-    before the gate). use_megakernel=True raises where the kernel cannot
-    take the batch; False disables it. There is no
+    quadratic_surface.factored_products_fn(G_pair)), the states are one
+    tensor on CUDA, and neither a custom Newton strategy nor a History is
+    asked for. use_megakernel=True raises where the kernel cannot take the
+    batch; False disables it. There is no
     minimum batch (the JAX package's AUTO_MEGA_MIN_BATCH amortizes a Mosaic
     compile; here the build happens once per process and the kernel is the
     faster path at any batch), and no fallback: a batch the kernel takes
@@ -58,25 +60,29 @@ def _kernel_takes(products_fn, p0_batch, newton_solver,
     from libdogleg_tpu_torch.ops.mega import DEVICE_FUNCTIONS
     known = getattr(products_fn, "cuda_device_function",
                     None) in DEVICE_FUNCTIONS
+    flat = isinstance(p0_batch, torch.Tensor)
     if use_megakernel:
-        if not known:
+        if not known or not flat:
             raise ValueError(
-                "use_megakernel=True needs a products function the kernel "
-                f"computes on the device (one of {sorted(DEVICE_FUNCTIONS)})")
-        if newton_solver is not None:
+                "use_megakernel=True needs a (B, Nstate) start and a "
+                "products function the kernel computes on the device (one "
+                f"of {sorted(DEVICE_FUNCTIONS)})")
+        if newton_solver is not None or record_history:
             raise ValueError("use_megakernel=True is incompatible with "
-                             "newton_solver")
+                             "record_history and newton_solver")
         return True
-    return known and p0_batch.is_cuda and newton_solver is None
+    return (known and flat and p0_batch.is_cuda and newton_solver is None
+            and not record_history)
 
 
 def _auto_newton(products_fn, p0_batch, problem_data):
     """The batch-regime strategy default: BlockedDenseNewtonSolver for a
     dense square JtJ with BLOCKED_MIN_N <= Nstate <= AUTO_BLOCKED_MAX_N and
     a batch of at least AUTO_BLOCKED_MIN_BATCH; None (the solver default)
-    otherwise, and for structured JtJ representations. The JtJ's shape comes
-    from the products of the first element (the JAX package traces them
-    with eval_shape)."""
+    otherwise, and for structured JtJ representations. The JtJ's shape
+    comes from the products of the first element (the JAX package traces
+    them with eval_shape). A tree start never comes here: _check_start
+    requires its strategy."""
     from libdogleg_tpu_torch.ops.newton import (BLOCKED_MIN_N,
                                                 BlockedDenseNewtonSolver)
     if p0_batch.shape[0] < AUTO_BLOCKED_MIN_BATCH:
@@ -91,28 +97,48 @@ def _auto_newton(products_fn, p0_batch, problem_data):
     return None
 
 
+def _check_start(p0_batch, newton_solver) -> None:
+    """Refuse a start the masked solver cannot take: a tree whose leaves
+    differ in their leading (batch) size, a tree without a strategy for
+    tree states, and a strategy that solves one problem only."""
+    from libdogleg_tpu_torch.ops.newton import (SparseWSchurNewtonSolver,
+                                                TreeSchurNewtonSolver)
+    if isinstance(newton_solver, SparseWSchurNewtonSolver):
+        raise NotImplementedError(
+            "SparseWSchurNewtonSolver takes no batch: the batched sparse-W "
+            "Schur solve is not ported yet (ROADMAP queue 1)")
+    if isinstance(p0_batch, torch.Tensor):
+        return
+    sizes = {leaf.shape[0] if leaf.dim() else None
+             for leaf in tv.tree_leaves(p0_batch)}
+    if len(sizes) != 1 or None in sizes:
+        raise ValueError(
+            "every leaf of a tree start must have the same leading (batch) "
+            f"size; got {sorted(map(str, sizes))}")
+    if not isinstance(newton_solver, TreeSchurNewtonSolver):
+        raise ValueError(
+            "a tree start needs a newton_solver for batched tree states: "
+            "TreeSchurNewtonSolver")
+
+
 def _prepare(products_fn, p0_batch, parameters, mesh, problem_data,
              newton_solver, layout, record_history, use_megakernel):
-    """What both entry points do first: refuse what is not ported, resolve
-    the parameters, and pick the path. Returns (parameters, newton_solver,
+    """What both entry points do first: refuse what is not ported or what
+    the masked solver cannot take, resolve the parameters, and pick the
+    path. Returns (parameters, newton_solver,
     batched_of): batched_of is None when kernel K1 takes the batch;
     otherwise batched_of() is the batch-leading products function of the
     whole batch for the masked solver and batched_of(idx) that of the
     elements idx (their problem_data gathered), and newton_solver is the
     given or auto-selected strategy."""
     _check_layout(layout)
-    if not isinstance(p0_batch, torch.Tensor):
-        raise ValueError(
-            "p0_batch must be a (B, Nstate) tensor: tree states such as "
-            "{'c', 'q'} are taken by the single solve (solve_products); "
-            "the batched Schur solve is not ported yet")
     if mesh is not None:
         raise NotImplementedError("mesh= is not ported yet")
-    if record_history:
-        raise NotImplementedError("record_history=True is not ported yet")
     prm = parameters if parameters is not None else DoglegParameters()
-    if _kernel_takes(products_fn, p0_batch, newton_solver, use_megakernel):
+    if _kernel_takes(products_fn, p0_batch, newton_solver, record_history,
+                     use_megakernel):
         return prm, None, None
+    _check_start(p0_batch, newton_solver)
     if newton_solver is None:
         newton_solver = _auto_newton(products_fn, p0_batch, problem_data)
     vf = torch.func.vmap(products_fn)
@@ -151,7 +177,7 @@ def _run_megakernel(products_fn, p0_batch, problem_data,
 
 
 def batched_optimize(products_fn,
-                     p0_batch: torch.Tensor,
+                     p0_batch,
                      parameters: Optional[DoglegParameters] = None,
                      *,
                      mesh=None,
@@ -169,19 +195,23 @@ def batched_optimize(products_fn,
       products_fn: p -> Products (shared problem data, distinct starts), or
         (p, data_i) -> Products when problem_data is given, for one element;
         it must be batchable by torch.func.vmap.
-      p0_batch: (B, Nstate) initial states.
+      p0_batch: (B, Nstate) initial states, or a tree whose every leaf has
+        the leading batch axis, such as {"c": (B, nc), "q": (B, n_points,
+        bs)} (bundle adjustment; newton_solver=TreeSchurNewtonSolver).
       problem_data: a tensor (or tuple of tensors) with a leading batch axis.
       newton_solver: strategy override for the masked path; None
         auto-selects BlockedDenseNewtonSolver for a dense mid-size JtJ in
-        a large batch (see _auto_newton).
+        a large batch (see _auto_newton). A structured JtJ such as
+        SchurJtJ needs its strategy (SchurNewtonSolver for flat states).
+      record_history, history_capacity: keep the per-attempt History, one
+        (B, cap) buffer a field, cap defaulting to the attempt cap.
       layout, wavefront_unroll: accepted and ignored. In the JAX package they
         tune the XLA program's carry layout and fusion on a TPU; the masked
         solver's decisions do not depend on them.
       use_megakernel: None selects kernel K1 when it can take the batch (see
         _kernel_takes); True requires it; False disables it.
-      mesh, axis_name, record_history, history_capacity: sharding and the
-        batched History are not ported yet; mesh= and record_history=True
-        raise NotImplementedError.
+      mesh, axis_name: sharding is not ported yet; mesh= raises
+        NotImplementedError.
 
     Returns a SolveResult whose leaves carry the leading batch axis.
     """
@@ -191,11 +221,13 @@ def batched_optimize(products_fn,
     if batched_of is None:
         return _run_megakernel(products_fn, p0_batch, problem_data, prm)
     return solve_products_batched(batched_of(), p0_batch, prm,
-                                  newton_solver=newton_solver)
+                                  newton_solver=newton_solver,
+                                  record_history=record_history,
+                                  history_capacity=history_capacity)
 
 
 def batched_optimize_compacted(products_fn,
-                               p0_batch: torch.Tensor,
+                               p0_batch,
                                parameters: Optional[DoglegParameters] = None,
                                *,
                                mesh=None,
@@ -239,14 +271,17 @@ def batched_optimize_compacted(products_fn,
         layout, record_history, use_megakernel)
     if batched_of is None:
         return _run_megakernel(products_fn, p0_batch, problem_data, prm)
-    cap = compact_capacity or max(p0_batch.shape[0] // 16, 1)
+    batch = tv.tree_leaves(p0_batch)[0].shape[0]
+    cap = compact_capacity or max(batch // 16, 1)
     full = batched_of()
 
     def advance(st, k):
         return run_batched_solver(full, st, prm, newton_solver=newton_solver,
                                   max_new_attempts=k)
 
-    st = init_batched_state(full, p0_batch, prm)
+    st = init_batched_state(full, p0_batch, prm,
+                            record_history=record_history,
+                            history_capacity=history_capacity)
     if phase1_attempts is not None:
         st = advance(st, phase1_attempts)
     else:
@@ -254,9 +289,11 @@ def batched_optimize_compacted(products_fn,
             st = advance(st, 1)
     idx = torch.nonzero(~st.done)[:cap, 0]
     if idx.numel():
+        # every field of the state, trees, SchurJtJ and History included,
+        # gathered on its leading axis and scattered back
         sub = run_batched_solver(
-            batched_of(idx), BatchedSolverState(*(a[idx] for a in st)), prm,
+            batched_of(idx), tv.tree_map(lambda a: a[idx], st), prm,
             newton_solver=newton_solver)
-        st = BatchedSolverState(*(a.index_copy(0, idx, part)
-                                  for a, part in zip(st, sub)))
+        st = tv.tree_map(lambda a, part: a.index_copy(0, idx, part), st,
+                         sub)
     return result_from_batched_state(advance(st, None))

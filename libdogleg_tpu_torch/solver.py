@@ -15,7 +15,10 @@ Two solve loops carry the same decision rules (reference dogleg.c:1172-1476):
   batched with torch.func.vmap, hence the masks. It is the composition of
   `init_batched_state`, `run_batched_solver` (which can stop after a given
   number of attempts, for straggler compaction) and
-  `result_from_batched_state`.
+  `result_from_batched_state`. Its states are (B, n) tensors or trees of
+  (B, ...) leaves, its JtJ whatever the products return (a SchurJtJ of
+  (B, ...) fields for bundle adjustment), and it can record the History,
+  one (B, cap) buffer a field.
 
 Termination criteria and their placement match the reference:
   1. inf-norm(Jt_x) <= Jt_x_threshold on the initial point and on accepted
@@ -136,10 +139,6 @@ class SolverState(NamedTuple):
     done: bool
     reason: int
     history: Optional[History]
-
-
-def _any_exceeds(v: torch.Tensor, threshold: float) -> torch.Tensor:
-    return (v.abs() > threshold).any(-1)
 
 
 def _empty_history(cap: int, dtype, device) -> History:
@@ -427,15 +426,19 @@ def solve_products(products_fn: ProductsFn,
 
 class BatchedSolverState(NamedTuple):
     """The masked batched solve's state between attempts, every field with
-    a leading batch axis: SolverState's fields as tensors."""
-    p: torch.Tensor             # (B, n)
+    a leading batch axis: SolverState's fields as tensors. The state
+    vectors are (B, n) tensors or trees whose every leaf is (B, ...), such
+    as {"c": (B, nc), "q": (B, n_points, bs)}; JtJ is what the products
+    return, such as a SchurJtJ of (B, ...) fields. The last four fields
+    are carried only when the History is recorded (None otherwise)."""
+    p: Any                      # (B, n) or a tree
     norm2_x: torch.Tensor       # (B,)
-    Jt_x: torch.Tensor          # (B, n)
-    JtJ: torch.Tensor           # (B, n, n)
-    cauchy: torch.Tensor        # (B, n)
+    Jt_x: Any                   # (B, n) or a tree
+    JtJ: Any                    # (B, n, n) or the strategy's form
+    cauchy: Any                 # (B, n) or a tree
     norm2_cauchy: torch.Tensor  # (B,)
     have_cauchy: torch.Tensor   # (B,) bool
-    gn: torch.Tensor            # (B, n)
+    gn: Any                     # (B, n) or a tree
     norm2_gn: torch.Tensor      # (B,)
     have_gn: torch.Tensor       # (B,) bool
     lam: torch.Tensor           # (B,)
@@ -444,26 +447,73 @@ class BatchedSolverState(NamedTuple):
     n_attempts: torch.Tensor    # (B,) int32
     done: torch.Tensor          # (B,) bool
     reason: torch.Tensor        # (B,) int32
+    # the accepted step into the current point (the History's direction
+    # change)
+    prev_step: Any = None               # (B, n) or a tree
+    norm2_prev_step: Optional[torch.Tensor] = None  # (B,)
+    have_prev_step: Optional[torch.Tensor] = None   # (B,) bool
+    history: Optional[History] = None   # every field (B, cap)
 
 
-def _sel(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """torch.where with a (B,) mask broadcast over a's trailing axes."""
-    return torch.where(mask.view(mask.shape + (1,) * (a.dim() - mask.dim())),
-                       a, b)
+def _history_rows(c: BatchedSolverState, step, norm2_step, step_type,
+                  norm2_cauchy, norm2_gn, use_cauchy, use_gn, interp,
+                  expected, small_step, accept, trial_norm2, observed, rho,
+                  tr_new) -> History:
+    """The History with this attempt's row written for every element, at
+    row min(n_attempts, cap - 1) of each (JAX solver.py:478-536; _record's
+    row), on tensors: no value is read on the host. The caller keeps the
+    old History of the elements that are frozen."""
+    h = c.history
+    cap = h.iteration.shape[1]
+    idx = torch.clamp(c.n_attempts, max=cap - 1).long()[:, None]
+    inf = torch.full_like(norm2_step, math.inf)
+    cos_dc = tv.batch_dot(step, c.prev_step) / torch.sqrt(
+        norm2_step * c.norm2_prev_step)
+    dc_deg = torch.where(
+        cos_dc >= 1.0, torch.zeros_like(cos_dc),
+        torch.where(cos_dc <= -1.0, torch.full_like(cos_dc, 180.0),
+                    torch.rad2deg(torch.arccos(cos_dc.clamp(-1.0, 1.0)))))
+    interpolated = ~use_cauchy & ~use_gn
+    row = History(
+        iteration=c.step_count,
+        # the small-step termination row is recorded as accepted, matching
+        # the reference's emit at dogleg.c:1404-1406
+        step_accepted=(accept | small_step).to(torch.int32),
+        norm2x_before=c.norm2_x,
+        norm2x_after=torch.where(small_step, inf, trial_norm2),
+        step_len_cauchy=torch.sqrt(norm2_cauchy),
+        step_len_gauss_newton=torch.where(use_cauchy, inf,
+                                          torch.sqrt(norm2_gn)),
+        step_len_interpolated=torch.where(interpolated,
+                                          torch.sqrt(interp.norm2_step), inf),
+        k_cauchy_to_gn=torch.where(interpolated, interp.k, inf),
+        step_len=torch.sqrt(norm2_step),
+        step_type=step_type,
+        step_direction_change_deg=torch.where(c.have_prev_step, dc_deg, inf),
+        expected_improvement=expected,
+        observed_improvement=torch.where(small_step, inf, observed),
+        rho=torch.where(small_step, inf, rho),
+        trustregion_before=c.trustregion,
+        trustregion_after=torch.where(small_step, inf, tr_new))
+    return History(*(buf.scatter(1, idx, val.to(buf.dtype)[:, None])
+                     for buf, val in zip(h, row)))
 
 
 def _batched_attempt(products_fn: ProductsFn, c: BatchedSolverState,
                      prm: DoglegParameters, ns, max_attempts: int,
                      frozen: torch.Tensor) -> BatchedSolverState:
     """One attempt for every element; the caller keeps the old state of the
-    `frozen` elements (done, or out of this segment's attempts)."""
+    `frozen` elements (done, or out of this segment's attempts). Every
+    reduction is per element (ops/treevec.py's batch_* form), so nothing
+    of one element, a NaN included, reaches another."""
     R = StopReason
     tr = c.trustregion
     tr_sq = tr * tr
 
-    n2_jtx = dops.norm2(c.Jt_x)
+    n2_jtx = tv.batch_dot(c.Jt_x, c.Jt_x)
     k = -n2_jtx / ns.quad_form(c.JtJ, c.Jt_x)
-    cauchy = _sel(c.have_cauchy, c.cauchy, k[:, None] * c.Jt_x)
+    cauchy = tv.batch_where(c.have_cauchy, c.cauchy,
+                            tv.batch_scale(k, c.Jt_x))
     norm2_cauchy = torch.where(c.have_cauchy, c.norm2_cauchy, k * k * n2_jtx)
     use_cauchy = norm2_cauchy >= tr_sq
 
@@ -477,7 +527,7 @@ def _batched_attempt(products_fn: ProductsFn, c: BatchedSolverState,
                               lambda_initial=prm.lambda_initial,
                               lambda_max_tries=prm.lambda_max_tries,
                               active=need_gn)
-        gn = _sel(need_gn, res.step, gn)
+        gn = tv.batch_where(need_gn, res.step, gn)
         norm2_gn = torch.where(need_gn, res.norm2_step, norm2_gn)
         lam = torch.where(need_gn, res.lam, lam)
         fac_ok = res.ok | ~need_gn
@@ -485,21 +535,23 @@ def _batched_attempt(products_fn: ProductsFn, c: BatchedSolverState,
 
     use_gn = ~use_cauchy & (norm2_gn <= tr_sq)
     interp = dops.interpolated_step(cauchy, norm2_cauchy, gn, tr)
-    step = _sel(use_cauchy, (tr / torch.sqrt(norm2_cauchy))[:, None] * cauchy,
-                _sel(use_gn, gn, interp.step))
-    expected = -2.0 * dops.dot(c.Jt_x, step) - ns.quad_form(c.JtJ, step)
-    small_step = ~_any_exceeds(step, prm.update_threshold)
+    step = tv.batch_where(
+        use_cauchy, tv.batch_scale(tr / torch.sqrt(norm2_cauchy), cauchy),
+        tv.batch_where(use_gn, gn, interp.step))
+    expected = -2.0 * tv.batch_dot(c.Jt_x, step) - ns.quad_form(c.JtJ, step)
+    small_step = ~tv.batch_any_exceeds(step, prm.update_threshold)
 
     # The trial products run for every element and are masked out where the
-    # attempt ends before evaluating them.
-    p_new = c.p + step
+    # attempt ends before evaluating them. JtJ is taken only where the step
+    # is accepted, which implies the trial ran.
+    p_new = tv.tree_add(c.p, step)
     trial = products_fn(p_new)
     skip = small_step | ~fac_ok
     t_norm2 = torch.where(skip, c.norm2_x, trial.norm2_x)
-    t_jtx = _sel(skip, c.Jt_x, trial.Jt_x)
-    t_jtj = _sel(skip, c.JtJ, trial.JtJ)
+    t_jtx = tv.batch_where(skip, c.Jt_x, trial.Jt_x)
 
-    rho = (c.norm2_x - t_norm2) / expected
+    observed = c.norm2_x - t_norm2
+    rho = observed / expected
     tr_new = dops.trust_region_update(
         rho, tr, ~use_gn, norm2_gn,
         decrease_factor=prm.trustregion_decrease_factor,
@@ -511,7 +563,7 @@ def _batched_attempt(products_fn: ProductsFn, c: BatchedSolverState,
     exhausted = n_attempts >= max_attempts
     step_count_acc = c.step_count + 1
 
-    conv_t = ~_any_exceeds(t_jtx, prm.Jt_x_threshold)
+    conv_t = ~tv.batch_any_exceeds(t_jtx, prm.Jt_x_threshold)
     max_iters = step_count_acc >= prm.max_iterations
     acc_done = conv_t | max_iters | exhausted
     running = torch.full_like(c.reason, int(R.RUNNING))
@@ -530,11 +582,11 @@ def _batched_attempt(products_fn: ProductsFn, c: BatchedSolverState,
     m_small = fac_ok & small_step
     m_acc = fac_ok & ~small_step & accept
     m_end = m_fail | m_small
-    return BatchedSolverState(
-        p=_sel(m_acc, p_new, c.p),
+    out = BatchedSolverState(
+        p=tv.batch_where(m_acc, p_new, c.p),
         norm2_x=torch.where(m_acc, t_norm2, c.norm2_x),
-        Jt_x=_sel(m_acc, t_jtx, c.Jt_x),
-        JtJ=_sel(m_acc, t_jtj, c.JtJ),
+        Jt_x=tv.batch_where(m_acc, t_jtx, c.Jt_x),
+        JtJ=tv.batch_where(m_acc, trial.JtJ, c.JtJ),
         cauchy=cauchy, norm2_cauchy=norm2_cauchy, have_cauchy=~m_acc,
         gn=gn, norm2_gn=norm2_gn, have_gn=have_gn & ~m_acc,
         lam=lam,
@@ -546,30 +598,63 @@ def _batched_attempt(products_fn: ProductsFn, c: BatchedSolverState,
             m_fail, int(R.FACTORIZATION_FAILED),
             torch.where(m_small, int(R.SMALL_STEP),
                         torch.where(m_acc, acc_reason, rej_reason))))
+    if c.history is None:
+        return out
+    # the recorded step length is the UNCLAMPED Cauchy length on a Cauchy
+    # step (reference dogleg.c:1200)
+    norm2_step = torch.where(use_cauchy, norm2_cauchy,
+                             torch.where(use_gn, norm2_gn, interp.norm2_step))
+    step_type = torch.where(
+        use_cauchy, int(StepType.CAUCHY),
+        torch.where(use_gn, int(StepType.GAUSSNEWTON),
+                    int(StepType.INTERPOLATED))).to(torch.int32)
+    return out._replace(
+        prev_step=tv.batch_where(m_acc, step, c.prev_step),
+        norm2_prev_step=torch.where(m_acc, norm2_step, c.norm2_prev_step),
+        have_prev_step=c.have_prev_step | m_acc,
+        history=_history_rows(c, step, norm2_step, step_type, norm2_cauchy,
+                              norm2_gn, use_cauchy, use_gn, interp, expected,
+                              small_step, accept, t_norm2, observed, rho,
+                              tr_new))
 
 
-def init_batched_state(products_fn: ProductsFn, p0: torch.Tensor,
-                       parameters: Optional[DoglegParameters] = None
+def init_batched_state(products_fn: ProductsFn, p0,
+                       parameters: Optional[DoglegParameters] = None,
+                       *,
+                       record_history: bool = False,
+                       history_capacity: Optional[int] = None
                        ) -> BatchedSolverState:
     """Evaluate the initial operating points of a batch and build the
     masked solver's state, including the initial convergence test.
 
     products_fn: p (B, Nstate) -> Products with leading batch axes
-    ((B,), (B, n), (B, n, n))."""
+    ((B,), (B, n), (B, n, n)); p0 may be a tree whose every leaf has the
+    leading batch axis, with the products' Jt_x the same tree and JtJ the
+    strategy's form. record_history allocates one (B, cap) History, cap
+    being history_capacity or the attempt cap."""
     prm = parameters if parameters is not None else DoglegParameters()
-    B = p0.shape[0]
+    first = tv.tree_leaves(p0)[0]
+    B, dtype, dev = first.shape[0], first.dtype, first.device
     init = products_fn(p0)
-    zeros = torch.zeros(B, dtype=p0.dtype, device=p0.device)
-    no = torch.zeros(B, dtype=torch.bool, device=p0.device)
-    i0 = torch.zeros(B, dtype=torch.int32, device=p0.device)
-    done = ~_any_exceeds(init.Jt_x, prm.Jt_x_threshold)
-    return BatchedSolverState(
+    zeros = torch.zeros(B, dtype=dtype, device=dev)
+    no = torch.zeros(B, dtype=torch.bool, device=dev)
+    i0 = torch.zeros(B, dtype=torch.int32, device=dev)
+    done = ~tv.batch_any_exceeds(init.Jt_x, prm.Jt_x_threshold)
+    state = BatchedSolverState(
         p=p0, norm2_x=init.norm2_x, Jt_x=init.Jt_x, JtJ=init.JtJ,
-        cauchy=torch.zeros_like(p0), norm2_cauchy=zeros, have_cauchy=no,
-        gn=torch.zeros_like(p0), norm2_gn=zeros, have_gn=no,
+        cauchy=tv.tree_zeros_like(p0), norm2_cauchy=zeros, have_cauchy=no,
+        gn=tv.tree_zeros_like(p0), norm2_gn=zeros, have_gn=no,
         lam=zeros, trustregion=torch.full_like(zeros, prm.trustregion0),
         step_count=i0, n_attempts=i0, done=done,
         reason=torch.where(done, int(StopReason.GRADIENT_CONVERGED), i0))
+    if not record_history:
+        return state
+    cap = history_capacity or prm.resolved_max_attempts()
+    one = _empty_history(cap, dtype, dev)
+    return state._replace(
+        prev_step=tv.tree_zeros_like(p0), norm2_prev_step=zeros,
+        have_prev_step=no,
+        history=History(*(h.expand(B, cap).clone() for h in one)))
 
 
 def run_batched_solver(products_fn: ProductsFn, state: BatchedSolverState,
@@ -582,8 +667,14 @@ def run_batched_solver(products_fn: ProductsFn, state: BatchedSolverState,
     (default) or for at most max_new_attempts further attempts of its own,
     the segmented form: resuming from the returned state continues each
     element's iteration exactly, since the caches, lambda and the trust
-    region live in the state."""
+    region live in the state. A structured JtJ (not a tensor) needs a
+    newton_solver that takes a batch of it."""
     prm = parameters if parameters is not None else DoglegParameters()
+    if newton_solver is None and not isinstance(state.JtJ, torch.Tensor):
+        raise ValueError(
+            f"a batch of {type(state.JtJ).__name__} systems needs a "
+            f"newton_solver for it, such as TreeSchurNewtonSolver (tree "
+            f"states) or SchurNewtonSolver (flat states)")
     ns = newton_solver if newton_solver is not None else DenseNewtonSolver()
     max_attempts = prm.resolved_max_attempts()
     c = state
@@ -594,30 +685,37 @@ def run_batched_solver(products_fn: ProductsFn, state: BatchedSolverState,
         if bool(frozen.all()):
             return c
         out = _batched_attempt(products_fn, c, prm, ns, max_attempts, frozen)
-        c = BatchedSolverState(*(_sel(frozen, old, new)
-                                 for old, new in zip(c, out)))
+        c = tv.batch_where(frozen, c, out)
 
 
 def result_from_batched_state(state: BatchedSolverState) -> SolveResult:
-    """Package a batched solve state as a batch-leading SolveResult (no
-    history)."""
+    """Package a batched solve state as a batch-leading SolveResult, with
+    its History when one was recorded."""
     c = state
     return SolveResult(p=c.p, norm2_x=c.norm2_x, Jt_x=c.Jt_x, JtJ=c.JtJ,
                        step_count=c.step_count, n_attempts=c.n_attempts,
-                       reason=c.reason, trustregion=c.trustregion, lam=c.lam)
+                       reason=c.reason, trustregion=c.trustregion, lam=c.lam,
+                       history=c.history)
 
 
 def solve_products_batched(products_fn: ProductsFn,
-                           p0: torch.Tensor,
+                           p0,
                            parameters: Optional[DoglegParameters] = None,
                            *,
-                           newton_solver=None) -> SolveResult:
+                           newton_solver=None,
+                           record_history: bool = False,
+                           history_capacity: Optional[int] = None
+                           ) -> SolveResult:
     """Solve a batch of independent problems with the masked tensor program.
 
     products_fn: p (B, Nstate) -> Products with leading batch axes
-    ((B,), (B, n), (B, n, n)). Each element takes exactly the decisions of
-    its own single solve. Returns a batch-leading SolveResult (no history).
+    ((B,), (B, n), (B, n, n)), or over batched trees and structured JtJ
+    (init_batched_state). Each element takes exactly the decisions of its
+    own single solve. Returns a batch-leading SolveResult, with the (B,
+    cap) History when record_history is set.
     """
-    state = init_batched_state(products_fn, p0, parameters)
+    state = init_batched_state(products_fn, p0, parameters,
+                               record_history=record_history,
+                               history_capacity=history_capacity)
     return result_from_batched_state(run_batched_solver(
         products_fn, state, parameters, newton_solver=newton_solver))

@@ -356,10 +356,28 @@ def test_singular_points_escalate_lambda_as_jax():
     assert int(stuck.reason) == int(tl.StopReason.FACTORIZATION_FAILED)
 
 
-def test_batched_optimize_refuses_tree_start():
+@pytest.mark.parametrize("case", ["no-tree-strategy", "leading-sizes",
+                                  "sparse-w"])
+def test_batched_optimize_refuses_tree_start(case):
+    """The tree starts batched_optimize refuses: one without a strategy for
+    batched tree states, one whose leaves differ in their leading size
+    (here the unbatched start), and SparseWSchurNewtonSolver, which solves
+    one problem only."""
     t = _port("linear")
-    with pytest.raises(ValueError, match="tree states"):
-        batched_optimize(t.products_tree, t.p0_tree())
+    batch = {k: v[None].expand((2,) + v.shape)
+             for k, v in t.p0_tree().items()}
+    if case == "no-tree-strategy":
+        with pytest.raises(ValueError, match="TreeSchurNewtonSolver"):
+            batched_optimize(t.products_tree, batch)
+    elif case == "leading-sizes":
+        with pytest.raises(ValueError, match="same leading"):
+            batched_optimize(t.products_tree, t.p0_tree(),
+                             newton_solver=t.tree_newton_solver())
+    else:
+        s = _port("sparse")
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            batched_optimize(s.products, batch,
+                             newton_solver=s.newton_solver())
 
 
 def test_constructors_default_to_the_card():

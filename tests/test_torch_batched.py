@@ -101,7 +101,7 @@ def test_shared_data_products_without_problem_data():
     (dict(use_megakernel=True, newton_solver=DenseNewtonSolver()),
      ValueError),
     (dict(mesh=object()), NotImplementedError),
-    (dict(record_history=True), NotImplementedError),
+    (dict(record_history=True, use_megakernel=True), ValueError),
     (dict(layout="diagonal"), ValueError),
 ])
 def test_gate_raises(kw, exc):
@@ -206,7 +206,7 @@ def test_compacted_kernel_gate_on_cpu_runs_the_twin():
 
 @pytest.mark.parametrize("kw,exc", [
     (dict(mesh=object()), NotImplementedError),
-    (dict(record_history=True), NotImplementedError),
+    (dict(record_history=True, use_megakernel=True), ValueError),
     (dict(layout="diagonal"), ValueError),
 ])
 def test_compacted_raises(kw, exc):
