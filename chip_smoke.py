@@ -173,7 +173,27 @@ Phases, each printing its own lines:
      256, four elements' History rows against their single solves; then
      config 7xl once (sparse visibility, ncam 256, npts 200000, k_obs 4,
      float32: gate norm2_x < 2 nobs, attempts, wall, device split,
-     max_memory_allocated). Each phase prints its seconds.
+     max_memory_allocated);
+ 21. the rest of the single solve and the batched sparse-W Schur solve:
+     bench_all.py's config 2 (curve_fit, nmeas 64, Nstate 3; measurements
+     and start from numpy's default_rng(0) and (1)) in its dense, products
+     and residual forms, float32 and float64 (finite, reason > 0, float64
+     decisions and History step types the CPU's, p within 1e-8; max |p -
+     P_TRUE| and bench_all.py's recovered flag printed), one solve's host
+     wall and CUDA events, and one attempt a segment against the one-shot
+     run bit for bit; config 8 (Nstate 64, batch 512, float32) run 2
+     attempts, saved with checkpoint.save_state, loaded onto the card and
+     run to the end: bit for bit the one-shot run, K5 launched in both
+     segments; the batched sparse-W solve in float64 (B 4, ncam 8, npts 80,
+     k_obs 3) card vs CPU and each element vs its single solve; then
+     config 7s at full width as the batch ba-sparse-batched-B8-f32 (ncam
+     128, npts 50000, k_obs 4, obs + 0.5 N(0, 1), starts p_true + 0.02 N(0,
+     1), S chunked): gate norm2_x < 2 nobs and reason > 0 on every element,
+     wavefronts, the lambda histogram, device events and host
+     synchronizations a wavefront, host walls and CUDA events a batch,
+     peak memory, two runs the same bits, a profiler split, and the
+     refined leg (refine_iters=2 with cam_gather) under the same gate.
+     Each phase prints its seconds.
 Then one JSON line about the kernels (time, plain version's time, the
 library call's where one exists, and the bound from this run's shapes; K1
 once per instance), the card line again, and a last JSON
@@ -2565,6 +2585,342 @@ def phase20_batched_schur(dev, bench, card) -> None:
           f"{time.perf_counter() - since:.1f} s for config 7xl", flush=True)
 
 
+# config 2 of bench_all.py:145-154 (nmeas, Nstate 3), its three problem
+# forms, and the batch of config 7s's cell ba-sparse-batched-B8-f32
+CONFIG2_NMEAS = 64
+CONFIG2_FORMS = ("make_dense_problem", "make_products_problem",
+                 "make_residual_problem")
+SPARSE_BATCH = 8
+
+
+def config2_inputs(dtype, device):
+    """Config 2's instance with numpy seeds in place of the JAX package's
+    keys: measurements P_TRUE's curve + 0.02 N(0, 1) from default_rng(0),
+    the start U(-0.5, 0.5) from default_rng(1) (curve_fit.simulate's and
+    initial_state's distributions)."""
+    import torch
+
+    from libdogleg_tpu_torch.models import curve_fit as cf
+    t = np.linspace(0.0, 1.0, CONFIG2_NMEAS)
+    meas = (cf.P_TRUE[0] * np.exp(cf.P_TRUE[1] * t) + cf.P_TRUE[2]
+            + 0.02 * np.random.default_rng(0).normal(size=CONFIG2_NMEAS))
+    p0 = np.random.default_rng(1).uniform(size=cf.NSTATE) - 0.5
+    return (torch.as_tensor(meas, dtype=dtype, device=device),
+            torch.as_tensor(p0, dtype=dtype, device=device))
+
+
+def states_same_bits(a, b) -> bool:
+    """Whether two solve states (single or batched) hold the same values
+    in every field, tensors bit for bit (NaN included)."""
+    import torch
+
+    from libdogleg_tpu_torch.ops import treevec as tv
+
+    def equal(u, v):
+        if u.is_floating_point():
+            return same_bits(u, v)
+        return u.dtype == v.dtype and torch.equal(u, v)
+    for name in a._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        if isinstance(x, (bool, int)) or x is None:
+            if x != y or type(x) is not type(y):
+                return False
+            continue
+        xs, ys = tv.tree_leaves(x), tv.tree_leaves(y)
+        if len(xs) != len(ys) or not all(equal(u, v)
+                                         for u, v in zip(xs, ys)):
+            return False
+    return True
+
+
+def phase21_surface(dev, bench, card) -> None:
+    """The rest of the single solve's surface and the batched sparse-W
+    Schur solve: config 2 (curve_fit) in its three forms, one attempt a
+    segment; config 8's masked solve in two segments across a checkpoint
+    (K5 on both); config 7s's sparse-W bundle adjustment as a batch of 8."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+
+    from libdogleg_tpu_torch import (checkpoint, init_batched_state,
+                                     init_solver_state, optimize,
+                                     run_batched_solver, run_solver,
+                                     solve_products)
+    from libdogleg_tpu_torch.models import curve_fit as cf
+    from libdogleg_tpu_torch.models import pinhole_ba as pba
+    from libdogleg_tpu_torch.ops import batchchol, newton
+    from libdogleg_tpu_torch.parallel import batched_optimize
+    from libdogleg_tpu_torch.utils.benchtime import measure_ms
+
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "F1: torch.backends.cuda.matmul.allow_tf32 is False")
+    decisions = ("step_count", "n_attempts", "reason")
+    cpu = torch.device("cpu")
+
+    # config 2: the three forms in float32 and float64; float64 against
+    # the same code on CPU tensors
+    since = time.perf_counter()
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        meas, p0 = config2_inputs(dtype, dev)
+        parts = []
+        for form in CONFIG2_FORMS:
+            r = optimize(getattr(cf, form)(meas), p0, bench,
+                         record_history=True)
+            check(bool(torch.isfinite(r.p).all()) and int(r.reason) > 0,
+                  f"config 2 {form} {name}: finite p and reason > 0")
+            err = float((r.p.double().cpu()
+                         - torch.as_tensor(cf.P_TRUE)).abs().max())
+            text = (f"{form[5:-8]}: steps {int(r.step_count)}, attempts "
+                    f"{int(r.n_attempts)}, reason {int(r.reason)}, max "
+                    f"|p - P_TRUE| {err:.4g} (recovered {err < 0.2})")
+            if dtype == torch.float64:
+                mc, pc = config2_inputs(dtype, cpu)
+                rc = optimize(getattr(cf, form)(mc), pc, bench,
+                              record_history=True)
+                for field in decisions:
+                    check(int(getattr(r, field)) == int(getattr(rc, field)),
+                          f"config 2 {form} f64 card vs CPU {field}")
+                check(torch.equal(r.history.step_type.cpu(),
+                                  rc.history.step_type),
+                      f"config 2 {form} f64 card vs CPU History step types")
+                dp = float((r.p.cpu() - rc.p).abs().max())
+                check(dp <= 1e-8, f"config 2 {form} f64 card vs CPU p "
+                      f"within 1e-8: {dp:.3e}")
+                text += f", card vs CPU decisions identical, |dp| {dp:.2e}"
+            parts.append(text)
+        print(f"[21 config 2 nmeas {CONFIG2_NMEAS} {name} PRM] "
+              + "; ".join(parts), flush=True)
+
+    # one solve's times, and one attempt a segment against the one-shot run
+    meas, p0 = config2_inputs(torch.float32, dev)
+    problem = cf.make_dense_problem(meas)
+
+    def solve2():
+        return optimize(problem, p0, bench)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve2()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    ms2 = measure_ms(lambda: float(solve2().norm2_x), warmup=1, reps=5)
+    segs = []
+    for dtype in (torch.float32, torch.float64):
+        m, q = config2_inputs(dtype, dev)
+        prod = cf.make_dense_problem(m).products
+        one = run_solver(prod, init_solver_state(prod, q, bench,
+                                                 record_history=True),
+                         bench)
+        st = init_solver_state(prod, q, bench, record_history=True)
+        n = 0
+        while not st.done:
+            st = run_solver(prod, st, bench, max_new_attempts=1)
+            n += 1
+        check(n == one.n_attempts and states_same_bits(st, one),
+              f"config 2 {dtype}: one attempt a segment gives the "
+              f"one-shot run's bits")
+        segs.append(f"{str(dtype).split('.')[-1]} {n} segments")
+    print(f"[21 config 2 f32 dense, one solve] host wall ms "
+          f"{', '.join(f'{w:.2f}' for w in walls)}; CUDA events "
+          f"{ms2:.2f} ms a solve with a dependent fetch; one attempt a "
+          f"segment equals the one-shot run bit for bit, History included "
+          f"({', '.join(segs)}); {time.perf_counter() - since:.1f} s; card "
+          f"{card}", flush=True)
+
+    # config 8 (Nstate 64, batch 512, f32) in two segments across a
+    # checkpoint, beside the one-shot public call
+    since = time.perf_counter()
+    nstate, batch = MIDSIZE[0]
+    data, p0, p_true = midsize_family(nstate, batch, torch.float32, dev)
+    vf = torch.func.vmap(midsize_products)
+
+    def products(p):
+        return vf(p, data)
+    ns = newton.BlockedDenseNewtonSolver()
+    batchchol.launch_count = 0
+    one = batched_optimize(midsize_products, p0, bench, problem_data=data,
+                           newton_solver=ns)
+    torch.cuda.synchronize()
+    k5_one = batchchol.launch_count
+    batchchol.launch_count = 0
+    st = run_batched_solver(products, init_batched_state(products, p0,
+                                                         bench),
+                            bench, newton_solver=ns, max_new_attempts=2)
+    torch.cuda.synchronize()
+    k5_first = batchchol.launch_count
+    check(int(st.n_attempts.max()) == 2 and not bool(st.done.all()),
+          "config 8: the first segment stops after 2 attempts")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "config8.npz")
+        checkpoint.save_state(path, st)
+        size = os.path.getsize(path)
+        loaded = checkpoint.load_state(path)
+    check(loaded.p.device.type == dev.type and states_same_bits(loaded, st),
+          "config 8: the loaded state is on the card, bit for bit the saved")
+    batchchol.launch_count = 0
+    fin = run_batched_solver(products, loaded, bench, newton_solver=ns)
+    torch.cuda.synchronize()
+    k5_rest = batchchol.launch_count
+    check(k5_first >= 1 and k5_rest >= 1,
+          f"config 8: K5 launched in both segments ({k5_first}, {k5_rest})")
+    for field in decisions:
+        check(torch.equal(getattr(fin, field), getattr(one, field)),
+              f"config 8 resumed: {field} of the one-shot run")
+    check(same_bits(fin.p, one.p) and same_bits(fin.norm2_x, one.norm2_x),
+          "config 8 resumed: p and norm2_x bit for bit the one-shot run's")
+    rec = midsize_recovered(fin.p, p_true)
+    check(rec >= 0.99, f"config 8 resumed: recovered_frac {rec} >= 0.99")
+    print(f"[21 config 8 Nstate {nstate} B={batch} f32 checkpoint] 2 "
+          f"attempts, save_state ({size / 1e6:.1f} MB .npz), load_state onto "
+          f"the card, run to the end: p, norm2_x, reason and n_attempts bit "
+          f"for bit the one-shot batched_optimize's; K5 launches {k5_first} "
+          f"+ {k5_rest} (one-shot {k5_one}); attempts "
+          f"{int(fin.n_attempts.min())}..{int(fin.n_attempts.max())}; "
+          f"recovered_frac {rec:.4f}; {time.perf_counter() - since:.1f} s",
+          flush=True)
+    del data, p0, one, st, loaded, fin
+
+    # the batched sparse-W solve, float64 at a small size: the card
+    # against the CPU, each element against its own single solve
+    since = time.perf_counter()
+    runs = []
+    for device in (dev, cpu):
+        ba = pba.make_synthetic_sparse(seed=0, ncam=8, npts=80, k_obs=3,
+                                       device=device)
+        obs_b, p0 = config9_inputs(ba, 4, torch.Generator().manual_seed(8),
+                                   torch.Generator().manual_seed(7))
+        runs.append((ba, obs_b, p0, batched_optimize(
+            ba.products_obs, p0, bench, problem_data=obs_b,
+            newton_solver=ba.newton_solver(), record_history=True)))
+    (ba_d, obs_d, p0_d, r_d), (_, _, _, r_c) = runs
+    for field in decisions + ("lam",):
+        check(torch.equal(getattr(r_d, field).cpu(), getattr(r_c, field)),
+              f"sparse-W batch f64 card vs CPU {field} identical")
+    check(torch.equal(r_d.history.step_type.cpu(), r_c.history.step_type),
+          "sparse-W batch f64 card vs CPU History step types identical")
+    dp = float((flat_batch(r_d.p).cpu() - flat_batch(r_c.p)).abs().max())
+    check(torch.allclose(flat_batch(r_d.p).cpu(), flat_batch(r_c.p),
+                         rtol=1e-9, atol=1e-9),
+          f"sparse-W batch f64 card vs CPU p within 1e-9: {dp:.3e}")
+    dps = 0.0
+    for i in range(4):
+        ri = solve_products(lambda p, o=obs_d[i]: ba_d.products_obs(p, o),
+                            {k: v[i] for k, v in p0_d.items()}, bench,
+                            newton_solver=ba_d.newton_solver())
+        for field in decisions:
+            check(int(getattr(ri, field)) == int(getattr(r_d, field)[i]),
+                  f"sparse-W batch f64 element {i}: {field} of its single "
+                  f"solve")
+        pi, pb = flat_p(ri.p), flat_batch(r_d.p)[i]
+        dps = max(dps, float((pi - pb).abs().max()))
+        check(torch.allclose(pb, pi, rtol=1e-9, atol=1e-9),
+              f"sparse-W batch f64 element {i}: p within 1e-9 of its single "
+              f"solve")
+    print(f"[21 sparse-W batch f64 B=4 ncam 8 npts 80 k_obs 3] card vs CPU: "
+          f"step_count, n_attempts, reason, lambda and History step types "
+          f"identical (attempts {r_c.n_attempts.tolist()}, reasons "
+          f"{r_c.reason.tolist()}), max |dp| {dp:.3e}; each element against "
+          f"its own single solve on the card: decisions identical, max |dp| "
+          f"{dps:.3e}; {time.perf_counter() - since:.1f} s", flush=True)
+    del runs, ba_d, obs_d, p0_d, r_d, r_c
+
+    # config 7s at full width as a batch of 8, float32
+    since = time.perf_counter()
+    ba = pba.make_synthetic_sparse(dtype=torch.float32, device=dev,
+                                   **BA_SPARSE)
+    obs_b, p0 = config9_inputs(ba, SPARSE_BATCH,
+                               torch.Generator(device=dev).manual_seed(8),
+                               torch.Generator(device=dev).manual_seed(7))
+    ns = ba.newton_solver()
+    nobs = ba.nobs
+    check(SPARSE_BATCH * ba.npts * ns.nc * 3 > ns.s_chunk_limit,
+          "ba-sparse-batched: S is assembled over chunks of points")
+
+    def solve(strategy=ns):
+        return batched_optimize(ba.products_obs, p0, bench,
+                                problem_data=obs_b, newton_solver=strategy)
+
+    def gate(r, label):
+        check(bool(torch.isfinite(flat_batch(r.p)).all())
+              and bool(torch.isfinite(r.norm2_x).all()),
+              f"{label}: finite result")
+        check(r.p["q"].shape == (SPARSE_BATCH, ba.npts, 3),
+              f"{label}: the result's shapes")
+        check(bool((r.norm2_x < 2 * nobs).all()),
+              f"{label}: every element norm2_x < 2 nobs = {2 * nobs}: "
+              f"{r.norm2_x.tolist()}")
+        check(bool((r.reason > 0).all()), f"{label}: every reason > 0")
+    before = kernel_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = solve()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(kernel_launch_counts() == before,
+          "ba-sparse-batched: the path launches none of K1-K7")
+    gate(r, "ba-sparse-batched")
+    wavefronts = int(r.n_attempts.max())
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r2 = solve()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    same = same_result_bits(r2, r)
+    check(all(same), f"ba-sparse-batched: two runs the same bits on every "
+          f"element ({sum(same)} of {SPARSE_BATCH})")
+    ms = measure_ms(lambda: float(solve().norm2_x.sum()), warmup=0, reps=2)
+    syncs, _ = host_syncs(solve)
+    events = sum(ev.count for ev in device_events(solve, (), reps=1))
+    lams, counts = torch.unique(r.lam.cpu(), return_counts=True)
+    hist = ", ".join(f"{float(v):g}: {int(c)}" for v, c in zip(lams, counts))
+    sync_text = ("not measured (no sync warnings)" if syncs is None else
+                 f"{syncs} ({syncs / wavefronts:.1f} a wavefront)")
+    event_text = ("not measured (the profiler returned no events)"
+                  if not events else
+                  f"{events} ({events / wavefronts:.0f} a wavefront)")
+    print(f"[21 ba-sparse-batched-B{SPARSE_BATCH}-f32 ncam {ba.ncam} npts "
+          f"{ba.npts} k_obs {ba.k_obs}] gate norm2_x < 2 nobs = {2 * nobs} "
+          f"and reason > 0 on every element: norm2_x "
+          f"{[round(v, 1) for v in r.norm2_x.tolist()]}, reasons "
+          f"{r.reason.tolist()}; {wavefronts} wavefronts, "
+          f"{attempts_text(r.n_attempts)}; lambda histogram {{{hist}}}; no "
+          f"kernel of K1-K7 launched; allow_tf32 False; first call "
+          f"{first:.2f} s; host wall ms "
+          f"{', '.join(f'{w:.1f}' for w in walls)}; CUDA events {ms:.1f} ms "
+          f"a batch with a dependent fetch "
+          f"({SPARSE_BATCH / ms * 1e3:.2f} solves/s); device events "
+          f"{event_text}; host synchronizations {sync_text}; "
+          f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; two runs the "
+          f"same bits; card {card}", flush=True)
+    print(f"[21 ba-sparse-batched profile] "
+          f"{device_split(solve, groups=BA_GROUPS)}; {wavefronts} "
+          f"wavefronts", flush=True)
+    refined = dataclasses.replace(
+        ns, refine_iters=2,
+        cam_gather=newton.build_cam_gather(ba.cam_of, ba.ncam))
+    t0 = time.perf_counter()
+    rr = solve(refined)
+    torch.cuda.synchronize()
+    wall_r = (time.perf_counter() - t0) * 1e3
+    gate(rr, "ba-sparse-batched refine_iters=2 cam_gather")
+    dcost = float(((rr.norm2_x - r.norm2_x) / r.norm2_x).abs().max())
+    print(f"[21 ba-sparse-batched refine_iters=2 cam_gather] gate met on "
+          f"every element: norm2_x "
+          f"{[round(v, 1) for v in rr.norm2_x.tolist()]}, reasons "
+          f"{rr.reason.tolist()}, attempts {rr.n_attempts.tolist()}, lambda "
+          f"{sorted(set(rr.lam.tolist()))}; costs within {dcost:.2e} of the "
+          f"plain leg's; host wall {wall_r:.1f} ms; "
+          f"{time.perf_counter() - since:.1f} s for the cell", flush=True)
+
+
 def ptxas_k1(log: str) -> list:
     """ptxas's registers and spills of each K1 solve kernel in an nvcc log,
     one short line each."""
@@ -2858,6 +3214,7 @@ def main() -> int:
     timed("19", phase19_analysis, dev, card, ba7s, r7s)
     del ba7s, r7s
     timed("20", phase20_batched_schur, dev, bench, card)
+    timed("21", phase21_surface, dev, bench, card)
     print(f"[all seconds] {time.perf_counter() - started:.1f}", flush=True)
 
     def entry(name, source, replaces, d):

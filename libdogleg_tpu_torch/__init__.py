@@ -41,7 +41,9 @@ from libdogleg_tpu_torch.problems import (
     SparseProblem,
     optimize,
 )
+from libdogleg_tpu_torch.ops.bcsr import BCSRJacobian, BCSRStructure
 from libdogleg_tpu_torch.ops.mega import megakernel_optimize
+from libdogleg_tpu_torch.sparsity import bcsr_from_scalar_csr
 
 __all__ = [
     "DoglegParameters",
@@ -70,6 +72,9 @@ __all__ = [
     "ResidualProblem",
     "SparseProblem",
     "optimize",
+    "BCSRStructure",
+    "BCSRJacobian",
+    "bcsr_from_scalar_csr",
     "megakernel_optimize",
 ]
 

@@ -322,15 +322,17 @@ class SparseVisibilityPinholeBA:
     def nstate(self) -> int:
         return self.ncam * 6 + self.npts * 3
 
-    def observation_jacobians(self, p):
+    def observation_jacobians(self, p, obs=None):
         """(r, Jc, Jq) per observation, (npts, k_obs, 2), (..., 2, 6),
-        (..., 2, 3); masked slots come back zeroed."""
+        (..., 2, 3), at the observations obs (None: the instance's); masked
+        slots come back zeroed."""
+        obs = self.obs if obs is None else obs
         npts, k = self.npts, self.k_obs
         cam_g = p["c"].reshape(self.ncam, 6)[self.cam_of]
         r, Jc, Jq = observation_terms(
             cam_g.reshape(-1, 6),
             p["q"][:, None, :].expand(npts, k, 3).reshape(-1, 3),
-            self.obs.reshape(-1, 2), self.focal)
+            obs.reshape(-1, 2), self.focal)
         r = r.reshape(npts, k, 2)
         Jc = Jc.reshape(npts, k, 2, 6)
         Jq = Jq.reshape(npts, k, 2, 3)
@@ -340,7 +342,16 @@ class SparseVisibilityPinholeBA:
         return r, Jc, Jq
 
     def products(self, p) -> Products:
-        r, Jc, Jq = self.observation_jacobians(p)
+        return self.products_obs(p, self.obs)
+
+    def products_obs(self, p, obs) -> Products:
+        """products at the observations obs (npts, k_obs, 2) in place of
+        the instance's, visibility and mask unchanged: the form
+        torch.func.vmap batches over per-element observations
+        (batched_optimize(ba.products_obs, p0, problem_data=obs_b,
+        newton_solver=ba.newton_solver())), as the JAX package's
+        ba._replace(obs=obs_i).products does."""
+        r, Jc, Jq = self.observation_jacobians(p, obs)
         n2, g, U, V, Wv = _assemble(
             self, p, r,
             onehot_cam_reduce(self.cam_of,

@@ -19,10 +19,10 @@ k_obs cameras only. They are plain torch ops (the unrolled smallchol for
 the point blocks, torch.linalg.cholesky_ex for the reduced camera system,
 matmuls with TF32 off). All keep the reference's permanent escalating
 lambda (dogleg.c:137-138, 670-676) and take the `active` mask of the masked
-batched solver; SchurNewtonSolver and TreeSchurNewtonSolver also take a
-leading batch axis, SparseWSchurNewtonSolver one problem only.
+batched solver, and the three Schur strategies a leading batch axis.
 refine_iters > 0 adds iterative-refinement passes whose residual is
-accumulated in compensated arithmetic (ops/compensated.py).
+accumulated in compensated arithmetic (ops/compensated.py), with or
+without a batch axis.
 
 Every camera-axis reduction is deterministic on the card: a matmul (a
 one-hot product where the coupling is sparse) or a sum over a gathered
@@ -33,6 +33,7 @@ order.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -375,7 +376,7 @@ class SchurNewtonSolver:
     solve_triangular, the library path; the JAX package's lax.linalg).
     Larger blocks always take the library path. refine_iters > 0 runs that
     many refinement passes against the factors, with a compensated
-    residual (one problem only)."""
+    residual."""
     nc: int
     n_points: int
     block_size: int
@@ -432,11 +433,6 @@ class SchurNewtonSolver:
         """Factor (with the escalating lambda, limited to `active` elements
         of a batch) and solve for the camera and point parts (dc, dp) of
         the Newton step."""
-        batched = rc.dim() > 1
-        if batched and self.refine_iters:
-            raise NotImplementedError(
-                "refine_iters with a batch axis is not ported yet (ROADMAP "
-                "queue 1)")
         (Lv, Ls), lam, ok = chol.escalating_lambda(
             lambda lm: self.factor(JtJ, lm),
             torch.as_tensor(lam, dtype=rc.dtype, device=rc.device),
@@ -454,24 +450,28 @@ class SchurNewtonSolver:
 
         dc, dp = solve_pair(rc, rp)
         if self.refine_iters:
+            # the compensated contractions of the JAX package, their axes
+            # shifted past a leading batch axis (b = 1) where there is one
+            b = rc.dim() - 1
+
             def resid(v):
                 vc, vp = v
                 # camera rows: U vc + lam vc + sum_pb W[c, p, b] vp[p, b]
                 hc, lc = comp.comp_matvec(JtJ.U, vc)
-                hc, lc = comp.pair_add_prod(hc, lc, lam, vc)
+                hc, lc = comp.pair_add_prod(hc, lc, lam[..., None], vc)
                 hw, lw = comp.comp_contract(
-                    JtJ.W, vp, reduce_axes=(1, 2),
-                    broadcast=lambda x: x[None, :, :])
+                    JtJ.W, vp, reduce_axes=(b + 1, b + 2),
+                    broadcast=lambda x: x[..., None, :, :])
                 hc, lc = comp.pair_add(hc, lc, hw, lw)
                 # point rows: W^T vc + V vp + lam vp
                 h1, l1 = comp.comp_contract(
-                    JtJ.W, vc, reduce_axes=(0,),
-                    broadcast=lambda x: x[:, None, None])
+                    JtJ.W, vc, reduce_axes=(b,),
+                    broadcast=lambda x: x[..., :, None, None])
                 h2, l2 = comp.comp_contract(
-                    JtJ.V, vp, reduce_axes=(2,),
-                    broadcast=lambda x: x[:, None, :])
+                    JtJ.V, vp, reduce_axes=(b + 2,),
+                    broadcast=lambda x: x[..., None, :])
                 hp, lp = comp.pair_add(h1, l1, h2, l2)
-                hp, lp = comp.pair_add_prod(hp, lp, lam, vp)
+                hp, lp = comp.pair_add_prod(hp, lp, lam[..., None, None], vp)
                 return comp.residual(rc, hc, lc), comp.residual(rp, hp, lp)
 
             dc, dp = _refine((dc, dp), lambda r: solve_pair(*r), resid,
@@ -530,26 +530,36 @@ class SparseWSchurJtJ(NamedTuple):
     couples to k_obs cameras, and only those (cb, bs) blocks are stored.
     The dense SchurJtJ.W would be (nc, n_points, bs): 460 MB in float32 at
     ncam = 128, n_points = 50000. Camera-axis reductions are one-hot
-    products and camera-axis broadcasts gathers, both deterministic."""
-    U: torch.Tensor       # (nc, nc) dense camera block (nc = ncam * cb)
-    Wv: torch.Tensor      # (n_points, k_obs, cb, bs) nonzero W blocks
-    cam_of: torch.Tensor  # (n_points, k_obs) int: each block's camera
-    V: torch.Tensor       # (n_points, bs, bs) point diagonal blocks
+    products and camera-axis broadcasts gathers, both deterministic. A
+    batch of systems carries a leading batch axis on every field but
+    cam_of, which is (n_points, k_obs) when the elements share one rig and
+    (B, n_points, k_obs) otherwise (torch.func.vmap of the products gives
+    the second form)."""
+    U: torch.Tensor       # (..., nc, nc) dense camera block (nc = ncam * cb)
+    Wv: torch.Tensor      # (..., n_points, k_obs, cb, bs) nonzero W blocks
+    cam_of: torch.Tensor  # ([B,] n_points, k_obs) int: each block's camera
+    V: torch.Tensor       # (..., n_points, bs, bs) point diagonal blocks
 
 
 @dataclasses.dataclass(frozen=True)
 class SparseWSchurNewtonSolver:
     """Schur elimination of the point blocks for a SparseWSchurJtJ, over
-    tree states {"c": (nc,), "q": (n_points, bs)}.
+    tree states {"c": (nc,), "q": (n_points, bs)}, or a batch of B
+    independent problems: states {"c": (B, nc), "q": (B, n_points, bs)},
+    every JtJ field (B, ...), lam (B,). A batch returns a per-element ok
+    and lam, and each element escalates lambda on its own (the masked
+    batched solver's `active`).
 
     S = U + lam I - sum_p F_p F_p^T with
     F[p, c cb + i, j] = sum_k onehot(cam_of[p, k], c) (Wv[p, k] Lv_p^{-T}),
     one one-hot product and one matmul, no scatter. Where F would exceed
-    s_chunk_limit elements, S accumulates over chunks of points (a Python
-    loop in place of the JAX package's lax.scan), and so does every camera
-    reduction (onehot_cam_reduce). cam_gather, from build_cam_gather, makes
-    the refinement's camera rows fully compensated; without it they are a
-    plain product in the working precision (TF32 off)."""
+    s_chunk_limit elements (the whole batch's F counts), S accumulates
+    over chunks of points (a Python loop in place of the JAX package's
+    lax.scan), and so does every camera reduction (onehot_cam_reduce):
+    chunking changes only the order of summation. cam_gather, from
+    build_cam_gather over the rig's cam_of, makes the refinement's camera
+    rows fully compensated; without it they are a plain product in the
+    working precision (TF32 off)."""
     nc: int
     n_points: int
     block_size: int
@@ -564,82 +574,93 @@ class SparseWSchurNewtonSolver:
         return self.nc // self.cam_block
 
     def _cam_reduce(self, JtJ: SparseWSchurJtJ, vals):
-        return onehot_cam_reduce(JtJ.cam_of, vals, self.ncam,
-                                 chunk_limit=self.s_chunk_limit
-                                 ).reshape(self.nc)
+        """(..., nc): the camera rows of W v from the (..., n_points,
+        k_obs, cb) block products vals, per element of a batch."""
+        out = onehot_cam_reduce(JtJ.cam_of, vals, self.ncam,
+                                chunk_limit=self.s_chunk_limit,
+                                batched=vals.dim() > 3)
+        return out.flatten(-2)
 
     def _gather_cams(self, JtJ: SparseWSchurJtJ, vc):
-        """(n_points, k_obs, cb): each block's camera slice of vc."""
-        return vc.reshape(self.ncam, self.cam_block)[JtJ.cam_of]
-
-    @staticmethod
-    def _one_problem(vc) -> None:
-        if vc.dim() != 1:
-            raise NotImplementedError(
-                "SparseWSchurNewtonSolver solves one problem: the batched "
-                "sparse-W Schur solve (a leading batch axis) is not ported "
-                "yet (ROADMAP queue 1)")
+        """(..., n_points, k_obs, cb): each block's camera slice of vc."""
+        vcr = vc.reshape(vc.shape[:-1] + (self.ncam, self.cam_block))
+        cam = JtJ.cam_of
+        if vc.dim() == 1:
+            return vcr[cam]
+        if cam.dim() == 2:
+            return vcr[:, cam]
+        rows = torch.arange(vc.shape[0], device=vc.device)
+        return vcr[rows[:, None, None], cam]
 
     def quad_form(self, JtJ: SparseWSchurJtJ, v):
         vc, vp = v["c"], v["q"]
-        self._one_problem(vc)
-        uv = dops.dot(vc, JtJ.U @ vc)
+        uv = dops.dot(vc, _mv(JtJ.U, vc))
         vcg = self._gather_cams(JtJ, vc)
-        wv = (vcg[..., :, None] * JtJ.Wv * vp[:, None, None, :]).sum()
+        wv = _sum_last(vcg[..., :, None] * JtJ.Wv
+                       * vp[..., :, None, None, :], 4)
         return uv + 2.0 * wv + _block_quad(JtJ.V, vp)
 
     def factor(self, JtJ: SparseWSchurJtJ, lam):
         """Factorize JtJ + lam I once at a fixed lambda (no escalation):
-        ((Lv, Ls), ok), SchurNewtonSolver.factor's contract."""
+        ((Lv, Ls), ok), SchurNewtonSolver.factor's contract, with the
+        batch axis of lam (B,) leading every factor and ok."""
         dt, dev = JtJ.U.dtype, JtJ.U.device
         bs, nc = self.block_size, self.nc
-        Vhat = JtJ.V + lam * torch.eye(bs, dtype=dt, device=dev)
-        Lv, okb = smallchol.small_cholesky(Vhat)            # (np, bs, bs)
+        lam = torch.as_tensor(lam, dtype=dt, device=dev)
+        Vhat = JtJ.V + lam[..., None, None, None] * torch.eye(
+            bs, dtype=dt, device=dev)
+        Lv, okb = smallchol.small_cholesky(Vhat)   # (..., np, bs, bs)
+        ok_v = okb.reshape(lam.shape + (-1,)).all(-1)
         # B[p, k] = Wv[p, k] Lv_p^{-T}: solve Lv Y = Wv^T per block, Lv
         # broadcast over the k_obs axis
         B = smallchol.small_fwd_solve_mat(
-            Lv[:, None], JtJ.Wv.transpose(-1, -2)).transpose(-1, -2)
-        S = JtJ.U + lam * torch.eye(nc, dtype=dt, device=dev)
-        # F whole is (np, nc, bs), the size of the dense W this form
-        # avoids: accumulate S over chunks of points whose F is bounded
-        chunk = (self.n_points if self.n_points * nc * bs
+            Lv[..., :, None, :, :], JtJ.Wv.transpose(-1, -2)).transpose(-1, -2)
+        S = JtJ.U + lam[..., None, None] * torch.eye(nc, dtype=dt, device=dev)
+        # F whole is (..., np, nc, bs), the size of the dense W this form
+        # avoids: accumulate S over chunks of points whose F, over the
+        # whole batch, is bounded
+        per_point = lam.numel() * nc * bs
+        chunk = (self.n_points if self.n_points * per_point
                  <= self.s_chunk_limit
-                 else max(1, self.s_chunk_limit // (nc * bs)))
+                 else max(1, self.s_chunk_limit // per_point))
         cams = torch.arange(self.ncam, device=dev)
+        lead = lam.shape
         for lo in range(0, self.n_points, chunk):
-            Bc = B[lo:lo + chunk]
-            E = (JtJ.cam_of[lo:lo + chunk, :, None] == cams).to(dt)
-            n = Bc.shape[0]
-            F = (E.transpose(1, 2) @ Bc.reshape(n, self.k_obs, -1))
-            F2 = (F.reshape(n, nc, bs).transpose(0, 1).reshape(nc, n * bs))
+            Bc = B[..., lo:lo + chunk, :, :, :]
+            E = (JtJ.cam_of[..., lo:lo + chunk, :, None] == cams).to(dt)
+            n = Bc.shape[-4]
+            F = E.transpose(-1, -2) @ Bc.reshape(lead + (n, self.k_obs, -1))
+            F2 = (F.reshape(lead + (n, nc, bs)).transpose(-3, -2)
+                  .reshape(lead + (nc, n * bs)))
             S = S - F2 @ F2.mT
-        Ls, ok_s = _cholesky_ok(S)
-        return (Lv, Ls), okb.all() & ok_s
+        Ls, ok_s = _cholesky_ok(S, lead)
+        return (Lv, Ls), ok_v & ok_s
 
     def gauss_newton(self, JtJ: SparseWSchurJtJ, Jt_x, lam, *,
                      lambda_initial, lambda_max_tries,
                      active: Optional[torch.Tensor] = None) -> GNResult:
         rc, rp = Jt_x["c"], Jt_x["q"]
-        self._one_problem(rc)
         (Lv, Ls), lam, ok = chol.escalating_lambda(
             lambda lm: self.factor(JtJ, lm),
             torch.as_tensor(lam, dtype=rc.dtype, device=rc.device),
             lambda_initial=lambda_initial, lambda_max_tries=lambda_max_tries,
             active=active)
         Wv = JtJ.Wv
+        # the axes of a point's blocks, shifted past a batch axis (b = 1)
+        b = rc.dim() - 1
 
-        def vsolve(b):                                    # (np, bs)
-            return smallchol.small_cho_solve_mat(Lv, b[..., None])[..., 0]
+        def vsolve(r):                                    # (..., np, bs)
+            return smallchol.small_cho_solve_mat(Lv, r[..., None])[..., 0]
 
-        def w_times(vp):                                  # (np, k, cb)
-            return (Wv * vp[:, None, None, :]).sum(-1)
+        def w_times(vp):                                  # (..., np, k, cb)
+            return (Wv * vp[..., :, None, None, :]).sum(-1)
 
         def solve_pair(bc, bp):
             y = vsolve(bp)
             sc = chol.cholesky_solve(Ls, bc - self._cam_reduce(JtJ,
                                                                w_times(y)))
             scg = self._gather_cams(JtJ, sc)
-            sp = vsolve(bp - (Wv * scg[..., None]).sum((1, 2)))
+            sp = vsolve(bp - (Wv * scg[..., None]).sum((-3, -2)))
             return sc, sp
 
         dc, dp = solve_pair(rc, rp)
@@ -653,35 +674,37 @@ class SparseWSchurNewtonSolver:
                 vc, vp = v
                 if cg is not None:
                     tbl, msk = cg
-                    hw, lw = comp.comp_contract(      # (np, k, cb) pairs
-                        Wv, vp, reduce_axes=(3,),
-                        broadcast=lambda x: x[:, None, None, :])
-                    cb = hw.shape[-1]
+                    hw, lw = comp.comp_contract(    # (..., np, k, cb) pairs
+                        Wv, vp, reduce_axes=(b + 3,),
+                        broadcast=lambda x: x[..., :, None, None, :])
                     zero = hw.new_zeros(())
-                    H = torch.where(msk, hw.reshape(-1, cb)[tbl], zero)
-                    E = torch.where(msk, lw.reshape(-1, cb)[tbl], zero)
-                    hc, lc = comp.comp_reduce(H, E, axis=1)
-                    hc, lc = hc.reshape(-1), lc.reshape(-1)
+                    H = torch.where(msk, hw.flatten(-3, -2)[..., tbl, :],
+                                    zero)
+                    E = torch.where(msk, lw.flatten(-3, -2)[..., tbl, :],
+                                    zero)
+                    hc, lc = comp.comp_reduce(H, E, axis=-2)
+                    hc, lc = hc.flatten(-2), lc.flatten(-2)
                     h1, l1 = comp.comp_matvec(JtJ.U, vc)
                     hc, lc = comp.pair_add(hc, lc, h1, l1)
-                    hc, lc = comp.pair_add_prod(hc, lc, lam, vc)
+                    hc, lc = comp.pair_add_prod(hc, lc, lam[..., None], vc)
                     mc = comp.residual(rc, hc, lc)
                 else:
-                    mc = rc - (JtJ.U @ vc + lam * vc
+                    mc = rc - (_mv(JtJ.U, vc) + lam[..., None] * vc
                                + self._cam_reduce(JtJ, w_times(vp)))
                 h1, l1 = comp.comp_contract(
-                    Wv, self._gather_cams(JtJ, vc), reduce_axes=(1, 2),
+                    Wv, self._gather_cams(JtJ, vc),
+                    reduce_axes=(b + 1, b + 2),
                     broadcast=lambda x: x[..., None])
                 h2, l2 = comp.comp_contract(
-                    JtJ.V, vp, reduce_axes=(2,),
-                    broadcast=lambda x: x[:, None, :])
+                    JtJ.V, vp, reduce_axes=(b + 2,),
+                    broadcast=lambda x: x[..., None, :])
                 hp, lp = comp.pair_add(h1, l1, h2, l2)
-                hp, lp = comp.pair_add_prod(hp, lp, lam, vp)
+                hp, lp = comp.pair_add_prod(hp, lp, lam[..., None, None], vp)
                 return mc, comp.residual(rp, hp, lp)
 
             dc, dp = _refine((dc, dp), lambda r: solve_pair(*r), resid,
                              self.refine_iters)
-        n2 = dops.dot(dc, dc) + (dp * dp).sum()
+        n2 = dops.dot(dc, dc) + _sum_last(dp * dp, 2)
         return GNResult(step={"c": -dc, "q": -dp}, norm2_step=n2, lam=lam,
                         ok=ok)
 
@@ -719,22 +742,28 @@ def build_cam_gather(cam_of, ncam: int, device=None):
 
 
 def onehot_cam_reduce(cam_of: torch.Tensor, vals: torch.Tensor, ncam: int,
-                      chunk_limit: int = 1 << 24) -> torch.Tensor:
+                      chunk_limit: int = 1 << 24, *,
+                      batched: bool = False) -> torch.Tensor:
     """out[c] = sum over (p, k) with cam_of[p, k] == c of vals[p, k], for
     vals (n_points, k_obs, ...): a one-hot matmul (deterministic, no
-    atomics), over chunks of points so that the (n_points, k_obs, ncam)
-    selector never exceeds chunk_limit elements."""
+    atomics), over chunks of points so that the one-hot selector never
+    exceeds chunk_limit elements. batched=True takes vals (B, n_points,
+    k_obs, ...) and reduces each element on its own into (B, ncam, ...),
+    with cam_of (n_points, k_obs) shared or (B, n_points, k_obs); the
+    selector's bound then counts the whole batch."""
     dt = vals.dtype
-    n_points, k_obs = cam_of.shape
-    trailing = vals.shape[2:]
-    v2 = vals.reshape(n_points * k_obs, -1)
+    n_points, k_obs = cam_of.shape[-2:]
+    lead = vals.shape[:1] if batched else ()
+    trailing = vals.shape[len(lead) + 2:]
+    v2 = vals.reshape(lead + (n_points * k_obs, -1))
     cams = torch.arange(ncam, device=cam_of.device)
-    flat = cam_of.reshape(-1)
-    rows = (n_points if n_points * k_obs * ncam <= chunk_limit
-            else max(1, chunk_limit // (k_obs * ncam))) * k_obs
+    flat = cam_of.reshape(cam_of.shape[:-2] + (-1,))
+    per_point = math.prod(lead) * k_obs * ncam
+    rows = (n_points if n_points * per_point <= chunk_limit
+            else max(1, chunk_limit // per_point)) * k_obs
     out = None
     for lo in range(0, n_points * k_obs, rows):
-        E = (flat[lo:lo + rows, None] == cams).to(dt)
-        part = E.mT @ v2[lo:lo + rows]
+        E = (flat[..., lo:lo + rows, None] == cams).to(dt)
+        part = E.mT @ v2[..., lo:lo + rows, :]
         out = part if out is None else out + part
-    return out.reshape((ncam,) + trailing)
+    return out.reshape(lead + (ncam,) + trailing)

@@ -8,7 +8,8 @@ the per-element products function batched by torch.func.vmap. On the masked
 path a dense mid-size JtJ in a large batch takes BlockedDenseNewtonSolver
 by default (_auto_newton), whose factorization is kernel K5 on CUDA tensors,
 and tree starts with a SchurJtJ (a batch of bundle adjustments, each with
-its own observations as problem_data) take TreeSchurNewtonSolver.
+its own observations as problem_data) take TreeSchurNewtonSolver, or
+SparseWSchurNewtonSolver for a SparseWSchurJtJ (sparse visibility).
 batched_optimize_compacted is the same solve with straggler compaction.
 """
 
@@ -99,14 +100,11 @@ def _auto_newton(products_fn, p0_batch, problem_data):
 
 def _check_start(p0_batch, newton_solver) -> None:
     """Refuse a start the masked solver cannot take: a tree whose leaves
-    differ in their leading (batch) size, a tree without a strategy for
-    tree states, and a strategy that solves one problem only."""
+    differ in their leading (batch) size, and a tree without a strategy for
+    batched tree states (TreeSchurNewtonSolver, or SparseWSchurNewtonSolver
+    for sparse visibility)."""
     from libdogleg_tpu_torch.ops.newton import (SparseWSchurNewtonSolver,
                                                 TreeSchurNewtonSolver)
-    if isinstance(newton_solver, SparseWSchurNewtonSolver):
-        raise NotImplementedError(
-            "SparseWSchurNewtonSolver takes no batch: the batched sparse-W "
-            "Schur solve is not ported yet (ROADMAP queue 1)")
     if isinstance(p0_batch, torch.Tensor):
         return
     sizes = {leaf.shape[0] if leaf.dim() else None
@@ -115,10 +113,11 @@ def _check_start(p0_batch, newton_solver) -> None:
         raise ValueError(
             "every leaf of a tree start must have the same leading (batch) "
             f"size; got {sorted(map(str, sizes))}")
-    if not isinstance(newton_solver, TreeSchurNewtonSolver):
+    if not isinstance(newton_solver, (TreeSchurNewtonSolver,
+                                      SparseWSchurNewtonSolver)):
         raise ValueError(
             "a tree start needs a newton_solver for batched tree states: "
-            "TreeSchurNewtonSolver")
+            "TreeSchurNewtonSolver or SparseWSchurNewtonSolver")
 
 
 def _prepare(products_fn, p0_batch, parameters, mesh, problem_data,
@@ -197,7 +196,8 @@ def batched_optimize(products_fn,
         it must be batchable by torch.func.vmap.
       p0_batch: (B, Nstate) initial states, or a tree whose every leaf has
         the leading batch axis, such as {"c": (B, nc), "q": (B, n_points,
-        bs)} (bundle adjustment; newton_solver=TreeSchurNewtonSolver).
+        bs)} (bundle adjustment; newton_solver=TreeSchurNewtonSolver, or
+        SparseWSchurNewtonSolver for sparse visibility).
       problem_data: a tensor (or tuple of tensors) with a leading batch axis.
       newton_solver: strategy override for the masked path; None
         auto-selects BlockedDenseNewtonSolver for a dense mid-size JtJ in

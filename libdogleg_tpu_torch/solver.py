@@ -7,7 +7,9 @@ Two solve loops carry the same decision rules (reference dogleg.c:1172-1476):
   operating point and the Gauss-Newton step (with the factorization behind
   it) only when the Cauchy step does not fill the trust region and the
   cached GN step is stale, so a rejected step re-runs no factorization
-  (reference dogleg.h:86-100). It can record the per-attempt History.
+  (reference dogleg.h:86-100). It can record the per-attempt History, and
+  `run_solver` can stop after a given number of attempts (segments, which
+  checkpoint.py saves and resumes).
 * `solve_products_batched` solves a batch of independent problems as a
   masked tensor program over a leading batch axis: every attempt runs for
   the whole batch, each element's update is selected by its own masks, and
@@ -363,24 +365,47 @@ def _attempt(products_fn: ProductsFn, c: SolverState,
                          reason=int(reason))
 
 
+def _attempt_limit(n_attempts, max_new_attempts: Optional[int],
+                   wavefront_unroll: int):
+    """The attempt count a segment stops at: n_attempts plus
+    max_new_attempts rounded up to a multiple of wavefront_unroll (the JAX
+    package runs k attempts between two tests of its loop condition), or
+    None for a run to the end."""
+    if max_new_attempts is None:
+        return None
+    k = max(1, int(wavefront_unroll))
+    return n_attempts + -(-int(max_new_attempts) // k) * k
+
+
 def run_solver(products_fn: ProductsFn,
                state: SolverState,
                parameters: Optional[DoglegParameters] = None,
                *,
                newton_solver=None,
+               max_new_attempts: Optional[int] = None,
+               wavefront_unroll: int = 1,
                debug: bool = False) -> SolverState:
-    """Advance a single-problem solve until it terminates. debug=True
-    prints one line an attempt to stdout (the human diagnostic stream)."""
+    """Advance a single-problem solve until it terminates (default) or for
+    at most max_new_attempts further attempts, the segmented form of a
+    checkpointed run: resuming from the returned state continues the
+    iteration exactly, since the caches, lambda and the trust region live
+    in the state. With wavefront_unroll=k the budget is rounded up to a
+    multiple of k, as in the JAX package; a run to the end does not depend
+    on k. A finished state comes back unchanged. debug=True prints one line
+    an attempt to stdout (the human diagnostic stream)."""
     prm = parameters if parameters is not None else DoglegParameters()
     ns = newton_solver if newton_solver is not None else DenseNewtonSolver()
     max_attempts = prm.resolved_max_attempts()
-    while not state.done:
+    limit = _attempt_limit(state.n_attempts, max_new_attempts,
+                           wavefront_unroll)
+    while not state.done and (limit is None or state.n_attempts < limit):
         state = _attempt(products_fn, state, prm, ns, max_attempts, debug)
     return state
 
 
 def result_from_state(state: SolverState) -> SolveResult:
-    """Package a single-problem solve state as a SolveResult."""
+    """Package a single-problem solve state as a SolveResult (reason is
+    RUNNING while a segmented run has not terminated)."""
     dev = tv.tree_leaves(state.p)[0].device
 
     def i32(v):
@@ -661,14 +686,16 @@ def run_batched_solver(products_fn: ProductsFn, state: BatchedSolverState,
                        parameters: Optional[DoglegParameters] = None,
                        *,
                        newton_solver=None,
-                       max_new_attempts: Optional[int] = None
+                       max_new_attempts: Optional[int] = None,
+                       wavefront_unroll: int = 1
                        ) -> BatchedSolverState:
     """Advance every element of a batched solve until it terminates
     (default) or for at most max_new_attempts further attempts of its own,
     the segmented form: resuming from the returned state continues each
     element's iteration exactly, since the caches, lambda and the trust
-    region live in the state. A structured JtJ (not a tensor) needs a
-    newton_solver that takes a batch of it."""
+    region live in the state. wavefront_unroll=k rounds the budget up to a
+    multiple of k, as run_solver does. A structured JtJ (not a tensor)
+    needs a newton_solver that takes a batch of it."""
     prm = parameters if parameters is not None else DoglegParameters()
     if newton_solver is None and not isinstance(state.JtJ, torch.Tensor):
         raise ValueError(
@@ -678,8 +705,8 @@ def run_batched_solver(products_fn: ProductsFn, state: BatchedSolverState,
     ns = newton_solver if newton_solver is not None else DenseNewtonSolver()
     max_attempts = prm.resolved_max_attempts()
     c = state
-    limit = (None if max_new_attempts is None
-             else state.n_attempts + max_new_attempts)
+    limit = _attempt_limit(state.n_attempts, max_new_attempts,
+                           wavefront_unroll)
     while True:
         frozen = c.done if limit is None else c.done | (c.n_attempts >= limit)
         if bool(frozen.all()):

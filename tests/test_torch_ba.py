@@ -360,9 +360,9 @@ def test_singular_points_escalate_lambda_as_jax():
                                   "sparse-w"])
 def test_batched_optimize_refuses_tree_start(case):
     """The tree starts batched_optimize refuses: one without a strategy for
-    batched tree states, one whose leaves differ in their leading size
-    (here the unbatched start), and SparseWSchurNewtonSolver, which solves
-    one problem only."""
+    batched tree states, and one whose leaves differ in their leading size
+    (here the unbatched start), with TreeSchurNewtonSolver and with
+    SparseWSchurNewtonSolver, whose batch is a tree start too."""
     t = _port("linear")
     batch = {k: v[None].expand((2,) + v.shape)
              for k, v in t.p0_tree().items()}
@@ -375,8 +375,8 @@ def test_batched_optimize_refuses_tree_start(case):
                              newton_solver=t.tree_newton_solver())
     else:
         s = _port("sparse")
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            batched_optimize(s.products, batch,
+        with pytest.raises(ValueError, match="same leading"):
+            batched_optimize(s.products, s.p0(),
                              newton_solver=s.newton_solver())
 
 

@@ -1176,3 +1176,113 @@ def test_block_diag_and_batched_schur_factor_card_equal_cpu(cuda):
         np.testing.assert_allclose(got.cpu()[ok].numpy(), good.numpy(),
                                    rtol=0,
                                    atol=1e-10 * float(good.abs().max()))
+
+
+def _same_state_bits(a, b):
+    """Every field of two solve states equal, tensors bit for bit."""
+    from libdogleg_tpu_torch.ops import treevec as tv
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    for name in a._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        if x is None or isinstance(x, (bool, int)):
+            assert x == y and type(x) is type(y), name
+            continue
+        for u, v in zip(tv.tree_leaves(x), tv.tree_leaves(y)):
+            if u.dtype in ints:
+                u, v = u.view(ints[u.dtype]), v.view(ints[v.dtype])
+            assert u.shape == v.shape and torch.equal(u, v), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_segmented_single_solve_same_bits_on_card(cuda, dtype):
+    """curve_fit (config 2's family) on the card: one attempt a segment
+    gives the one-shot run's bits, History included."""
+    from libdogleg_tpu_torch import init_solver_state, run_solver
+    from libdogleg_tpu_torch.models import curve_fit as cf
+    g = torch.Generator().manual_seed(3)
+    meas = cf.simulate(g, dtype=dtype, device=cuda)
+    p0 = cf.initial_state(g, dtype=dtype, device=cuda)
+    prod = cf.make_dense_problem(meas).products
+    one = run_solver(prod, init_solver_state(prod, p0, BENCH,
+                                             record_history=True), BENCH)
+    st = init_solver_state(prod, p0, BENCH, record_history=True)
+    while not st.done:
+        st = run_solver(prod, st, BENCH, max_new_attempts=1)
+    assert st.n_attempts == one.n_attempts > 1
+    _same_state_bits(st, one)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_onto_card(cuda, tmp_path):
+    """The mid-size batch (K5 on the card) after 2 attempts, saved, loaded
+    onto the card by default, and run on: the one-shot run's bits, K5
+    launched in both segments."""
+    from libdogleg_tpu_torch import (BlockedDenseNewtonSolver, checkpoint,
+                                     init_batched_state, run_batched_solver)
+    from libdogleg_tpu_torch.ops import batchchol
+    data, p0, _ = _midsize(64, 128, torch.float32, cuda)
+    vf = torch.func.vmap(_midsize_products)
+
+    def products(p):
+        return vf(p, data)
+    ns = BlockedDenseNewtonSolver()
+    one = run_batched_solver(products, init_batched_state(products, p0,
+                                                          BENCH),
+                             BENCH, newton_solver=ns)
+    before = batchchol.launch_count
+    st = run_batched_solver(products, init_batched_state(products, p0,
+                                                         BENCH),
+                            BENCH, newton_solver=ns, max_new_attempts=2)
+    first = batchchol.launch_count - before
+    path = str(tmp_path / "mid.npz")
+    checkpoint.save_state(path, st)
+    loaded = checkpoint.load_state(path)
+    assert loaded.p.is_cuda
+    _same_state_bits(loaded, st)
+    before = batchchol.launch_count
+    fin = run_batched_solver(products, loaded, BENCH, newton_solver=ns)
+    assert first >= 1 and batchchol.launch_count > before
+    _same_state_bits(fin, one)
+
+
+@pytest.mark.cuda
+def test_batched_sparse_w_f64_card_equal_cpu(cuda):
+    """The batched sparse-W Schur solve (SparseWSchurNewtonSolver with a
+    batch axis, S chunked) takes the CPU's decisions in float64, with and
+    without refinement."""
+    import dataclasses
+
+    from libdogleg_tpu_torch.models import pinhole_ba as pba
+    from libdogleg_tpu_torch.ops import newton
+    runs = []
+    for device in (cuda, "cpu"):
+        ba = pba.make_synthetic_sparse(seed=0, ncam=8, npts=80, k_obs=3,
+                                       device=device)
+        g = torch.Generator().manual_seed(8)
+        obs_b = ba.obs[None] + 0.5 * torch.randn(
+            (4,) + tuple(ba.obs.shape), generator=g,
+            dtype=torch.float64).to(device)
+        p0 = {k: v[None] + 0.02 * torch.randn(
+            (4,) + tuple(v.shape), generator=g,
+            dtype=torch.float64).to(device)
+            for k, v in sorted(ba.p_true.items())}
+        ns = dataclasses.replace(ba.newton_solver(), s_chunk_limit=4096)
+        refined = dataclasses.replace(
+            ns, refine_iters=2,
+            cam_gather=newton.build_cam_gather(ba.cam_of, ba.ncam))
+        runs.append([batched_optimize(ba.products_obs, p0, BENCH,
+                                      problem_data=obs_b, newton_solver=s,
+                                      record_history=True)
+                     for s in (ns, refined)])
+    for r_d, r_c in zip(*runs):
+        for field in ("step_count", "n_attempts", "reason", "lam"):
+            assert torch.equal(getattr(r_d, field).cpu(),
+                               getattr(r_c, field)), field
+        assert torch.equal(r_d.history.step_type.cpu(),
+                           r_c.history.step_type)
+        assert bool((r_d.reason > 0).all())
+        for name in ("c", "q"):
+            np.testing.assert_allclose(r_d.p[name].cpu().numpy(),
+                                       r_c.p[name].numpy(), rtol=1e-9,
+                                       atol=1e-9)
