@@ -192,11 +192,43 @@ Phases, each printing its own lines:
      wavefronts, the lambda histogram, device events and host
      synchronizations a wavefront, host walls and CUDA events a batch,
      peak memory, two runs the same bits, a profiler split, and the
-     refined leg (refine_iters=2 with cam_gather) under the same gate.
+     refined leg (refine_iters=2 with cam_gather) under the same gate;
+ 22. batched block-sparse solves and the native symbolic analysis: the host
+     library's g++ build seconds; each analysis of the 32x32x8 and 64x64x8
+     grids (the JtJ schedule, the block pattern of the scalar CSR pattern,
+     mindeg, the simplicial and the rcm/amalgamate-16 supernodal symbolic
+     factorization) through the host library and through its Python form,
+     the same arrays and the seconds of each; a float64 batch (B 4, 8x8
+     grids, b 4, coupling "dense", simplicial and amalgamate 4) through
+     batched_optimize with SparseNewtonSolver, the card (K3, K6, K7)
+     against the CPU (identical decisions, lambda and History step types,
+     p within 1e-9); config 6b at full width (the 64x64x8 grid, Nstate
+     32768, rcm/amalgamate 16: 45 levels, 1691 slots, the native analysis
+     checked to have run) in float32 under PRM: reason > 0, finite p
+     within 1e-3 of the float64 solve on the card, max|Jt_x|, host wall,
+     CUDA events, a profiler split and the K3/K6/K7 launches, then the
+     model's default problem (mindeg, simplicial, 611 levels) once under
+     the same gate; grid-mrf-32x32x8-sparse-batched-B16-f32 (16 config-6
+     grids, coupling "dense", element s seed s, one rcm/amalgamate-16
+     analysis, each element's (z_prior, z_edge, mix) as problem_data):
+     every reason > 0 and norm2_x finite, elements 0-3 within 1e-3 of
+     their float64 single solves, every element its single solve's
+     decisions, solves/s by CUDA events with a dependent fetch in turns
+     with the 16 single solves, K3/K6/K7 launches a batch against the 16
+     singles', one factorization of the batch launching K6 and K7 as
+     often as a single one (by wrapper count and by kernel name in a
+     trace), device events and host synchronizations a wavefront, the
+     lambda histogram, peak memory, whether two runs give the same bits,
+     a profiler split; K3 at both runs' shapes against its plain version
+     (the index_add form) and in turns with it; K6 and K7 at the batch's
+     widest FACTOR and SOLVE levels (16 x k tiles of 128 x 128) against
+     their plain versions and in turns with cholesky_ex and
+     solve_triangular.
      Each phase prints its seconds.
 Then one JSON line about the kernels (time, plain version's time, the
 library call's where one exists, and the bound from this run's shapes; K1
-once per instance), the card line again, and a last JSON
+once per instance; K3, K6 and K7 with their launches on each path that
+runs them, `launches` their sum), the card line again, and a last JSON
 line with "ok": true. Any failure exits non-zero before the last line; so
 does a machine without a CUDA device, or a directory without the package.
 """
@@ -1004,7 +1036,13 @@ def phase12_sparse(dev, bench) -> dict:
 
     from libdogleg_tpu_torch import SparseProblem, optimize
     from libdogleg_tpu_torch.models import grid_mrf
+    from libdogleg_tpu_torch.ops import bcsr_kernels as tk
     from libdogleg_tpu_torch.ops import tilechol
+
+    def counts():
+        return {"bcsr_jtj_blocks_kernel":
+                tk.launch_counts["bcsr_jtj_blocks_kernel"],
+                **tilechol.launch_counts}
 
     g = grid_mrf.make_grid_mrf(*GRID, dtype=torch.float32, device=dev)
     t0 = time.perf_counter()
@@ -1029,20 +1067,21 @@ def phase12_sparse(dev, bench) -> dict:
               f"{len(inner.bwd.pair_off) - 1} backward levels", flush=True)
 
     p0 = torch.zeros(g.nstate, dtype=torch.float32, device=dev)
+    tk.launch_counts["bcsr_jtj_blocks_kernel"] = 0
     for k in tilechol.launch_counts:
         tilechol.launch_counts[k] = 0
     r32, walls, per_leg = {}, {}, {}
     for name, prob in probs.items():
-        before = dict(tilechol.launch_counts)
+        before = counts()
         t0 = time.perf_counter()
         r32[name] = optimize(prob, p0, bench)
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
-        per_leg[name] = {k: v - before[k]
-                         for k, v in tilechol.launch_counts.items()}
-    launches = dict(tilechol.launch_counts)
+        per_leg[name] = {k: v - before[k] for k, v in counts().items()}
+    # read here, before the float64 and coupling="dense" solves below
+    launches = counts()
     check(all(v > 0 for v in launches.values()),
-          f"K6 and K7 launched on the main path: {launches}")
+          f"K3, K6 and K7 launched on the main path: {launches}")
 
     g64 = grid_mrf.make_grid_mrf(*GRID, dtype=torch.float64, device=dev)
     g64c = grid_mrf.make_grid_mrf(*GRID, dtype=torch.float64, device="cpu")
@@ -2921,6 +2960,549 @@ def phase21_surface(dev, bench, card) -> None:
           f"{time.perf_counter() - since:.1f} s for the cell", flush=True)
 
 
+GRID_6B = (64, 64, 8)   # config 6b of bench_all.py:568-570: Nstate 32768
+SPARSE_B = 16           # grid-mrf-32x32x8-sparse-batched-B16-f32
+K3_GROUPS = (("K3", ("jtj_",)),) + SPARSE_GROUPS
+
+
+def grid_batch(g, sched):
+    """(products(p, data), values(mix)) of a batch of grid MRFs that share
+    g's graph, each element with its own data = (z_prior, z_edge, mix):
+    the products a user writes from the public functions (the grid's
+    residual, BCSRJacobian, bcsr_jt_x, bcsr_jtj_lower_blocks on one shared
+    lower schedule); values gives the Jacobian's blocks of one element or,
+    for a (B, ...) mix, of a batch."""
+    import math
+
+    import torch
+
+    from libdogleg_tpu_torch import Products
+    from libdogleg_tpu_torch.ops import bcsr
+    n, ne, b = g.n_nodes, g.edges.shape[0], g.block_size
+    dev, dt = g.z_prior.device, g.z_prior.dtype
+    eu = torch.as_tensor(g.edges[:, 0], device=dev)
+    ev = torch.as_tensor(g.edges[:, 1], device=dev)
+    sp, se = math.sqrt(g.w_prior), math.sqrt(g.w_edge)
+    eye = torch.eye(b, dtype=dt, device=dev)
+
+    def values(mix):
+        lead = tuple(mix.shape[:-3])
+        return torch.cat([
+            (sp * eye).expand(lead + (n, b, b)),
+            torch.stack([(-se * eye).expand(mix.shape), se * mix],
+                        -3).reshape(lead + (2 * ne, b, b))], -3)
+
+    def products(p, data):
+        zp, ze, mix = data
+        pb = p.reshape(n, b)
+        x = torch.cat([(sp * (pb - zp)).reshape(-1),
+                       (se * ((mix @ pb[ev][..., None])[..., 0] - pb[eu]
+                              - ze)).reshape(-1)])
+        J = bcsr.BCSRJacobian(g.structure, values(mix))
+        return Products(norm2_x=x @ x, Jt_x=bcsr.bcsr_jt_x(J, x),
+                        JtJ=bcsr.bcsr_jtj_lower_blocks(J, sched))
+    return products, values
+
+
+def grid_batch_data(width, b, batch, dtype, device):
+    """The first instance and the stacked (z_prior, z_edge, mix) of a batch
+    of grid MRFs, coupling "dense", element s made with seed s."""
+    import torch
+
+    from libdogleg_tpu_torch.models import grid_mrf
+    gs = [grid_mrf.make_grid_mrf(width, width, b, coupling="dense", seed=s,
+                                 dtype=dtype, device=device)
+          for s in range(batch)]
+    return gs[0], tuple(torch.stack([getattr(x, k) for x in gs])
+                        for k in ("z_prior", "z_edge", "mix"))
+
+
+@contextlib.contextmanager
+def python_analysis():
+    """The symbolic analysis's Python forms: every wrapper of
+    native/symbolic.py answers as without the host library."""
+    from libdogleg_tpu_torch.native import symbolic as nsym
+    held = nsym.load_host_library
+    nsym.load_host_library = lambda: None
+    try:
+        yield
+    finally:
+        nsym.load_host_library = held
+
+
+def scalar_csr(s):
+    """The scalar CSR pattern (rowptr, colidx) of a block structure: every
+    entry of every stored block."""
+    bm, bn = s.block_rows, s.block_cols
+    counts = np.diff(s.indptr) * bn                     # per scalar row
+    rowptr = np.concatenate([[0], np.cumsum(np.repeat(counts, bm))])
+    cols = (s.indices[:, None] * bn + np.arange(bn)).reshape(-1)
+    per_row = [cols[s.indptr[r] * bn:s.indptr[r + 1] * bn]
+               for r in range(s.nbrow)]
+    colidx = np.concatenate([c for c in per_row for _ in range(bm)])
+    return rowptr.astype(np.int64), colidx.astype(np.int32)
+
+
+def analysis_native_vs_python(width) -> str:
+    """Each of the four analyses of the width x width x 8 grid through the
+    host library and through its Python form: the same arrays, the seconds
+    of each; the native one must be the one that ran by default."""
+    from libdogleg_tpu_torch import ordering, sparsity
+    from libdogleg_tpu_torch import sparse_cholesky as sc
+    from libdogleg_tpu_torch import supernodal as sn
+    from libdogleg_tpu_torch.models import grid_mrf
+    from libdogleg_tpu_torch.native import symbolic as nsym
+    from libdogleg_tpu_torch.ops import bcsr
+    from libdogleg_tpu_torch.ops import bcsr_kernels as tk
+    s = grid_mrf.make_grid_mrf(width, width, 8, device="cpu").structure
+    sched = bcsr.jtj_lower_schedule(s)
+    rows, cols, nb = sched.rows, sched.cols, s.nbcol
+    rowptr, colidx = scalar_csr(s)
+
+    def same(a, b, what):
+        fields = getattr(a, "_fields", None)
+        if fields is None and hasattr(a, "sched"):
+            for f in ("rows", "cols", "a_slot_of_input", "perm"):
+                same(getattr(a, f), getattr(b, f), f"{what} {f}")
+            for f in ("sched", "fwd", "bwd"):
+                same(getattr(a, f), getattr(b, f), f"{what} {f}")
+            return
+        if fields is not None:
+            for f in fields:
+                same(getattr(a, f), getattr(b, f), f"{what} {f}")
+            return
+        check(np.array_equal(np.asarray(a), np.asarray(b)),
+              f"{width}x{width}x8 {what}: native and Python the same")
+
+    jobs = (
+        ("jtj schedule", lambda: tk.build_jtj_schedule(s), "jtj_schedule"),
+        ("block pattern", lambda: sparsity.bcsr_from_scalar_csr(
+            rowptr, colidx, s.nmeas, s.nstate, 8, 8), "bcsr_pattern"),
+        ("mindeg", lambda: ordering.mindeg_ordering(rows, cols, nb),
+         "mindeg"),
+        ("simplicial analysis (mindeg)",
+         lambda: sc.analyze(rows, cols, nb, 8, "mindeg"), "chol_symbolic"),
+        ("supernodal analysis (rcm, amalgamate 16)",
+         lambda: sn.analyze(rows, cols, nb, 8, "rcm", amalgamate=16).inner,
+         "chol_symbolic"))
+    parts = []
+    for what, fn, counter in jobs:
+        before = nsym.native_calls[counter]
+        t0 = time.perf_counter()
+        nat = fn()
+        t_nat = time.perf_counter() - t0
+        check(nsym.native_calls[counter] > before,
+              f"{width}x{width}x8 {what}: the host library ran")
+        with python_analysis():
+            t0 = time.perf_counter()
+            py = fn()
+            t_py = time.perf_counter() - t0
+        if what == "block pattern":
+            same(nat.indptr, s.indptr, "block pattern indptr")
+            same(nat.indices, s.indices, "block pattern indices")
+            nat, py = (nat.indptr, nat.indices), (py.indptr, py.indices)
+            for a, b in zip(nat, py):
+                same(a, b, what)
+        else:
+            same(nat, py, what)
+        parts.append(f"{what} native {t_nat:.4f} s, Python {t_py:.4f} s")
+    return "; ".join(parts)
+
+
+def phase22_sparse_batched(dev, bench, card, host_build) -> dict:
+    """The native symbolic analysis, batched block-sparse solves (K3, K6
+    and K7 over a batch) and config 6b at full width. Returns the launch
+    counts of K3, K6 and K7 on this phase's paths and K3's readings at
+    their shapes."""
+    import dataclasses
+
+    import torch
+
+    from libdogleg_tpu_torch import (SparseNewtonSolver, SparseProblem,
+                                     optimize, solve_products)
+    from libdogleg_tpu_torch.models import grid_mrf
+    from libdogleg_tpu_torch.native import symbolic as nsym
+    from libdogleg_tpu_torch.ops import bcsr
+    from libdogleg_tpu_torch.ops import bcsr_kernels as tk
+    from libdogleg_tpu_torch.ops import tilechol
+    from libdogleg_tpu_torch.parallel import batched_optimize
+    from libdogleg_tpu_torch.utils.benchtime import measure_ms
+
+    def counts():
+        return {"K3": tk.launch_counts["bcsr_jtj_blocks_kernel"],
+                "K6": tilechol.launch_counts["tile_cholesky"],
+                "K7": tilechol.launch_counts["tri_solve_right"]}
+
+    def zero_counts():
+        tk.launch_counts["bcsr_jtj_blocks_kernel"] = 0
+        for k in tilechol.launch_counts:
+            tilechol.launch_counts[k] = 0
+
+    def since(before):
+        now = counts()
+        return {k: now[k] - before[k] for k in now}
+
+    out = {"paths": {}}
+    print(f"[22 host build] {host_build.path.name} in "
+          f"{host_build.seconds:.2f} s (g++ -O3 -shared -fPIC -std=c++17, "
+          f"0.00 when an existing build of the same sources was found)",
+          flush=True)
+    for width in (32, 64):
+        t0 = time.perf_counter()
+        text = analysis_native_vs_python(width)
+        print(f"[22 analysis {width}x{width}x8] the same arrays from the "
+              f"host library and the Python forms: {text}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the float64 batched solve, card against CPU; a small first trust
+    # region, so that the linear problem takes Cauchy, interpolated and
+    # Gauss-Newton steps
+    t_leg = time.perf_counter()
+    small_tr = dataclasses.replace(bench, trustregion0=0.5)
+    decisions = ("step_count", "n_attempts", "reason", "lam")
+    for amalgamate in (1, 4):
+        runs = []
+        for device in (dev, torch.device("cpu")):
+            g, data = grid_batch_data(8, 4, 4, torch.float64, device)
+            sched = bcsr.jtj_lower_schedule(g.structure)
+            products, _ = grid_batch(g, sched)
+            ns = SparseNewtonSolver.analyze(sched.rows, sched.cols,
+                                            g.structure.nbcol, 4,
+                                            amalgamate=amalgamate)
+            before = counts()
+            runs.append(batched_optimize(
+                products, torch.zeros(4, g.nstate, dtype=torch.float64,
+                                      device=device), small_tr,
+                problem_data=data, newton_solver=ns, record_history=True))
+            launched = since(before)
+            on_card = device.type == "cuda"
+            check(all(v > 0 if on_card else v == 0
+                      for v in launched.values()),
+                  f"f64 batch on {device}: K3, K6, K7 launched on the card "
+                  f"only: {launched}")
+        r_d, r_c = runs
+        for field in decisions:
+            check(torch.equal(getattr(r_d, field).cpu(), getattr(r_c, field)),
+                  f"sparse batch f64 card vs CPU {field} identical")
+        check(torch.equal(r_d.history.step_type.cpu(), r_c.history.step_type),
+              "sparse batch f64 card vs CPU History step types identical")
+        dp = float((r_d.p.cpu() - r_c.p).abs().max())
+        check(torch.allclose(r_d.p.cpu(), r_c.p, rtol=1e-9, atol=1e-9),
+              f"sparse batch f64 card vs CPU p within 1e-9: {dp:.3e}")
+        check(bool((r_c.reason > 0).all()), "sparse batch f64 terminated")
+        print(f"[22 sparse batch f64 B=4 8x8 grids b 4 "
+              f"{'simplicial' if amalgamate == 1 else 'amalgamate 4'}] card "
+              f"(K3, K6, K7) vs CPU (plain versions): step_count, "
+              f"n_attempts, reason, lambda and History step types identical "
+              f"(attempts {r_c.n_attempts.tolist()}, reasons "
+              f"{r_c.reason.tolist()}); max |dp| {dp:.3e} (1e-9)",
+              flush=True)
+    print(f"[22 sparse batch f64 seconds] {time.perf_counter() - t_leg:.1f}",
+          flush=True)
+
+    # config 6b at full width, supernodal then the model's default
+    t_leg = time.perf_counter()
+    g = grid_mrf.make_grid_mrf(*GRID_6B, dtype=torch.float32, device=dev)
+    g64 = grid_mrf.make_grid_mrf(*GRID_6B, dtype=torch.float64, device=dev)
+    before_nat = dict(nsym.native_calls)
+    t0 = time.perf_counter()
+    prob = SparseProblem(f=g.problem(jtj="dense").f, structure=g.structure,
+                         jtj="sparse", ordering="rcm", amalgamate=16)
+    t_sup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    simple = g.problem()
+    t_simple = time.perf_counter() - t0
+    check(all(nsym.native_calls[k] > before_nat[k]
+              for k in ("jtj_schedule", "chol_symbolic", "mindeg")),
+          f"config 6b: the native analysis ran: {nsym.native_calls}")
+    sym = prob.default_newton_solver().symbolic
+    simple_sym = simple.default_newton_solver().symbolic
+    check(sym.inner.sched.nlevels == 45 and sym.inner.nslots == 1691,
+          f"config 6b supernodal analysis: {sym.inner.sched.nlevels} levels,"
+          f" {sym.inner.nslots} slots")
+    print(f"[22 config 6b analysis] native: supernodal (rcm, amalgamate 16) "
+          f"{t_sup:.3f} s, {sym.inner.sched.nlevels} levels, "
+          f"{sym.inner.nslots} slots of {sym.sb}x{sym.sb}; simplicial "
+          f"(mindeg) {t_simple:.3f} s, {simple_sym.sched.nlevels} levels, "
+          f"{simple_sym.nslots} slots of 8x8", flush=True)
+
+    p0 = torch.zeros(g.nstate, dtype=torch.float32, device=dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    r = optimize(prob, p0, bench)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    launched = counts()
+    out["paths"]["config 6b supernodal"] = launched
+    check(all(launched.values()), f"config 6b: K3, K6, K7 launched: "
+          f"{launched}")
+    r64 = optimize(with_residual(prob, g64),
+                   torch.zeros(g.nstate, dtype=torch.float64, device=dev))
+    jtx = float(r.Jt_x.abs().max())
+    dp = float((r.p.double() - r64.p).abs().max())
+    check(int(r.reason) > 0 and bool(torch.isfinite(r.p).all()),
+          f"config 6b f32: reason {int(r.reason)}, finite p")
+    check(dp <= 1e-3, f"config 6b f32 p within 1e-3 of f64: {dp:.3e}")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        optimize(prob, p0, bench)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    ev_ms = measure_ms(lambda: float(optimize(prob, p0, bench).norm2_x),
+                       warmup=0, reps=3)
+    print(f"[22 grid-mrf-64x64x8-supernodal-f32 PRM] reason {int(r.reason)}"
+          f" step_count {int(r.step_count)} n_attempts {int(r.n_attempts)}; "
+          f"max|Jt_x| {jtx:.3e}; max |p32 - p64| {dp:.3e} (<= 1e-3, f64 "
+          f"solve on the card); launches K3 {launched['K3']}, K6 "
+          f"{launched['K6']}, K7 {launched['K7']}; first call {first:.2f} s; "
+          f"host wall ms {', '.join(f'{w:.1f}' for w in walls)}; CUDA events "
+          f"{ev_ms:.1f} ms a solve with a dependent fetch; card {card}",
+          flush=True)
+    print(f"[22 grid-mrf-64x64x8-supernodal-f32 profile] "
+          f"{device_split(lambda: optimize(prob, p0, bench), groups=K3_GROUPS)}",
+          flush=True)
+    zero_counts()
+    t0 = time.perf_counter()
+    rs = optimize(simple, p0, bench)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launched = counts()
+    out["paths"]["config 6b simplicial"] = launched
+    jtx_s = float(rs.Jt_x.abs().max())
+    dps = float((rs.p.double() - r64.p).abs().max())
+    check(int(rs.reason) > 0 and bool(torch.isfinite(rs.p).all())
+          and dps <= 1e-3,
+          f"config 6b simplicial f32: reason {int(rs.reason)}, p within "
+          f"1e-3 of f64: {dps:.3e}")
+    print(f"[22 grid-mrf-64x64x8-simplicial-f32 PRM] the model's default "
+          f"problem (mindeg, {simple_sym.sched.nlevels} levels): reason "
+          f"{int(rs.reason)} n_attempts {int(rs.n_attempts)}; max|Jt_x| "
+          f"{jtx_s:.3e}; max |p32 - p64| {dps:.3e}; launches {launched}; "
+          f"wall {wall_s * 1e3:.1f} ms (one call); card {card}", flush=True)
+
+    # K3 at config 6b's shape: against its plain version, in turns
+    k3 = {}
+    J6 = bcsr.BCSRJacobian(g.structure, prob.f(p0)[1])
+    k3["6b"] = k3_readings("config 6b", J6, prob._jtj_sched, card)
+    del prob, simple, r, r64, rs, J6
+    print(f"[22 config 6b seconds] {time.perf_counter() - t_leg:.1f}",
+          flush=True)
+
+    # the batch of 16 config-6 grids, dense coupling
+    t_leg = time.perf_counter()
+    B = SPARSE_B
+    g, data = grid_batch_data(32, 8, B, torch.float32, dev)
+    sched = bcsr.jtj_lower_schedule(g.structure)
+    products, values = grid_batch(g, sched)
+    ns = SparseNewtonSolver.analyze(sched.rows, sched.cols,
+                                    g.structure.nbcol, 8, "rcm",
+                                    amalgamate=16)
+    P0 = torch.zeros(B, g.nstate, dtype=torch.float32, device=dev)
+
+    def solve():
+        return batched_optimize(products, P0, bench, problem_data=data,
+                                newton_solver=ns)
+
+    def single(i):
+        return solve_products(
+            lambda p: products(p, tuple(d[i] for d in data)), P0[i], bench,
+            newton_solver=ns)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    rb = solve()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    per_batch = counts()
+    peak = torch.cuda.max_memory_allocated()
+    out["paths"][f"B{B} batch"] = per_batch
+    check(bool((rb.reason > 0).all()) and bool(torch.isfinite(
+        rb.norm2_x).all()), f"B{B}: every reason > 0 and norm2_x finite")
+    wavefronts = int(rb.n_attempts.max())
+    g64, data64 = grid_batch_data(32, 8, 4, torch.float64, dev)
+    products64, _ = grid_batch(g64, sched)
+    dps = []
+    for i in range(4):
+        ri = solve_products(
+            lambda p: products64(p, tuple(d[i] for d in data64)),
+            torch.zeros(g.nstate, dtype=torch.float64, device=dev), bench,
+            newton_solver=ns)
+        dps.append(float((rb.p[i].double() - ri.p).abs().max()))
+    check(max(dps) <= 1e-3, f"B{B}: elements 0-3 within 1e-3 of their f64 "
+          f"single solves: {dps}")
+    zero_counts()
+    singles = [single(i) for i in range(B)]
+    torch.cuda.synchronize()
+    per_singles = counts()
+    for i, ri in enumerate(singles):
+        for field in ("step_count", "n_attempts", "reason"):
+            check(int(getattr(ri, field)) == int(getattr(rb, field)[i]),
+                  f"B{B} element {i}: {field} of its single solve")
+    del singles
+    rb2 = solve()
+    same = same_bits(rb2.p, rb.p)
+    turns = []
+    for _ in range(2):
+        turns.append((
+            measure_ms(lambda: float(solve().norm2_x.sum()), warmup=0,
+                       reps=2),
+            measure_ms(lambda: sum(float(single(i).norm2_x)
+                                   for i in range(B)), warmup=0, reps=1)))
+    syncs, _ = host_syncs(solve)
+    events = sum(ev.count for ev in device_events(solve, (), reps=1))
+    # one factorization of the batch against one of a single element,
+    # counted by the wrappers and read by kernel name from a trace
+    blocks = torch.func.vmap(products)(P0, data).JtJ
+    be = ns._backend()
+    fac = {}
+    for label, args in (("batch", (ns.symbolic, blocks, torch.zeros(
+            B, dtype=torch.float32, device=dev))),
+            ("single", (ns.symbolic, blocks[0], 0.0))):
+        before = counts()
+        be.factorize(*args)
+        by_wrapper = since(before)
+        traced = device_events(be.factorize, args, reps=1)
+        by_name = {k: sum(ev.count for ev in traced if sub in ev.key.lower())
+                   for k, sub in (("K6", "tilechol"), ("K7", "trisolve"))}
+        fac[label] = (by_wrapper, by_name)
+    check(fac["batch"][0]["K6"] == fac["single"][0]["K6"] > 0
+          and fac["batch"][0]["K7"] == fac["single"][0]["K7"] > 0,
+          f"a factorization of the batch launches K6 and K7 as often as a "
+          f"single one: {fac}")
+    lams, lcounts = torch.unique(rb.lam.cpu(), return_counts=True)
+    hist = ", ".join(f"{float(v):g}: {int(c)}" for v, c in zip(lams, lcounts))
+    b_ms = min(t[0] for t in turns)
+    s_ms = min(t[1] for t in turns)
+    sync_text = ("not measured (no sync warnings)" if syncs is None else
+                 f"{syncs} ({syncs / wavefronts:.1f} a wavefront)")
+    event_text = ("not measured (the profiler returned no events)"
+                  if not events else
+                  f"{events} ({events / wavefronts:.0f} a wavefront)")
+    print(f"[22 grid-mrf-32x32x8-sparse-batched-B{B}-f32 PRM] every reason "
+          f"> 0 ({rb.reason.tolist()}), norm2_x finite; elements 0-3 "
+          f"within {max(dps):.3e} of their f64 single solves (<= 1e-3); "
+          f"each element the decisions of its f32 single solve; "
+          f"{wavefronts} wavefronts, {attempts_text(rb.n_attempts)}; "
+          f"lambda histogram {{{hist}}}; first call {first:.2f} s; CUDA "
+          f"events with a dependent fetch, in turns: the batch "
+          f"{turns[0][0]:.1f} / {turns[1][0]:.1f} ms ({B / b_ms * 1e3:.1f} "
+          f"solves/s), {B} single solves {turns[0][1]:.1f} / "
+          f"{turns[1][1]:.1f} ms ({B / s_ms * 1e3:.1f} solves/s), "
+          f"{s_ms / b_ms:.2f}x; launches a batch {per_batch} against "
+          f"{per_singles} for the {B} singles; device events {event_text}; "
+          f"host synchronizations {sync_text}; max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB; two runs "
+          f"{'the same bits' if same else 'NOT the same bits'}; card {card}",
+          flush=True)
+    print(f"[22 B{B} one factorization] K6/K7 launches, by wrapper count and"
+          f" by kernel name in a trace: the batch {fac['batch'][0]} / "
+          f"{fac['batch'][1]}, a single element {fac['single'][0]} / "
+          f"{fac['single'][1]}", flush=True)
+    print(f"[22 B{B} profile] {device_split(solve, groups=K3_GROUPS)}; "
+          f"{wavefronts} wavefronts", flush=True)
+    Jb = bcsr.BCSRJacobian(g.structure, values(data[2]))
+    k3[f"B{B}"] = k3_readings(f"B{B}", Jb, sched, card)
+    inner = ns.symbolic.inner
+    tiles_at_batch(
+        B * int(np.diff(inner.sched.fac_off).max()),
+        B * int(np.diff(inner.sched.sol_off).max()), inner.b, card)
+    print(f"[22 B{B} seconds] {time.perf_counter() - t_leg:.1f}", flush=True)
+    out["K3"] = k3
+    return out
+
+
+def tiles_at_batch(kf, ks, n, card) -> None:
+    """K6 on kf and K7 on ks (n, n) tiles, the widest FACTOR and SOLVE
+    levels of the batch's factorization, each in turns with the one
+    PyTorch call that computes the same, against its plain version and
+    alone."""
+    import torch
+
+    from libdogleg_tpu_torch.ops import tilechol
+    from libdogleg_tpu_torch.utils.benchtime import measure_ms
+    dev = torch.device("cuda")
+    S = spd_tiles(n, kf, n + kf, torch.float32, dev)
+    Sd = spd_tiles(n, ks, n + ks, torch.float32, dev)
+    D = tilechol.tile_cholesky_reference(Sd)[0]
+    C = torch.as_tensor(np.random.default_rng(ks).normal(size=(ks, n, n)),
+                        dtype=torch.float32, device=dev)
+    for key, fn, ref, lib, args, limit in (
+            ("K6", tilechol.tile_cholesky, tilechol.tile_cholesky_reference,
+             torch.linalg.cholesky_ex, (S,),
+             bound(lower_nbytes(S) + nbytes_of(S) + kf, kf * n ** 3 / 3)),
+            ("K7", tilechol.tri_solve_right,
+             tilechol.tri_solve_right_reference,
+             lambda Dm, Cm: torch.linalg.solve_triangular(
+                 Dm.mT, Cm, upper=True, left=False), (D, C),
+             bound(lower_nbytes(D) + 2 * nbytes_of(C),
+                   float(ks) * n * n * n))):
+        got, want = fn(*args), ref(*args)
+        got, want = (got[0], want[0]) if key == "K6" else (got, want)
+        err = float((got - want).abs().max() / want.abs().max())
+        check(err <= 2e-4, f"{key} at {tuple(args[0].shape)} within 2e-4 "
+              f"of its plain version: {err:.3e}")
+        turns = [(measure_ms(fn, *args, warmup=3, reps=20),
+                  measure_ms(lib, *args, warmup=3, reps=20))
+                 for _ in range(2)]
+        plain = measure_ms(ref, *args, warmup=3, reps=20)
+        alone = kernel_us(fn, args, "tilechol" if key == "K6" else
+                          "trisolve")
+        print(f"[22 {key} {tuple(args[0].shape)} f32, the batch's widest "
+              f"level] max error {err:.3e} of the largest entry; kernel with "
+              f"its wrapper {turns[0][0]:.4f} / {turns[1][0]:.4f} ms, "
+              f"library call {turns[0][1]:.4f} / {turns[1][1]:.4f} ms (two "
+              f"turns, CUDA events over 20 calls), plain version "
+              f"{plain:.4f} ms; the kernel alone {us_text(alone)}; bound "
+              f"{limit['bound_ms'] * 1e3:.2f} us by {limit['bound_by']}; "
+              f"card {card}", flush=True)
+
+
+def k3_readings(label, J, sched, card) -> dict:
+    """K3 on J's values (a batch or one Jacobian) against its plain version
+    (ops/bcsr.jtj_pair_sum, the index_add form) and in turns with it, the
+    kernel alone and its bound at this shape."""
+    import torch
+
+    from libdogleg_tpu_torch.ops import bcsr
+    from libdogleg_tpu_torch.ops import bcsr_kernels as tk
+    from libdogleg_tpu_torch.utils.benchtime import measure_ms
+    v = J.values
+    nout = len(sched.rows)
+    # the plain version's indices on the card once, as the path keeps them
+    pi, pj, oi = (torch.as_tensor(np.asarray(a, np.int64), device=v.device)
+                  for a in (sched.pair_i, sched.pair_j, sched.out_idx))
+
+    def kernel():
+        return tk.bcsr_jtj_lower_kernel(J, sched)
+
+    def plain():
+        return bcsr.jtj_pair_sum(v, pi, pj, oi, nout)
+    got, want = kernel(), plain()
+    err = float((got - want).abs().max() / want.abs().max())
+    check(err <= 1e-4, f"K3 {label} within 1e-4 of the largest entry of its "
+          f"plain version: {err:.3e}")
+    turns = [(measure_ms(kernel, warmup=3, reps=20),
+              measure_ms(plain, warmup=3, reps=20)) for _ in range(2)]
+    alone = kernel_us(kernel, (), "jtj_")
+    batch = v.shape[0] if v.dim() == 4 else 1
+    bm, bn = v.shape[-2], v.shape[-1]
+    limit = bound(nbytes_of(v, got),
+                  2.0 * batch * len(sched.pair_i) * bm * bn * bn)
+    print(f"[22 K3 {label} {tuple(v.shape)} -> {tuple(got.shape)} f32] "
+          f"max error {err:.3e} of the largest entry (1e-4); the kernel with "
+          f"its wrapper {turns[0][0]:.4f} / {turns[1][0]:.4f} ms, the "
+          f"index_add form {turns[0][1]:.4f} / {turns[1][1]:.4f} ms (two "
+          f"turns, CUDA events over 20 calls); the kernel alone "
+          f"{us_text(alone)}; bound {limit['bound_ms'] * 1e3:.2f} us by "
+          f"{limit['bound_by']}; card {card}", flush=True)
+    return dict(ms=turns[0][0], plain_ms=turns[0][1], max_abs_err=err,
+                alone_us=alone, **limit)
+
+
 def ptxas_k1(log: str) -> list:
     """ptxas's registers and spills of each K1 solve kernel in an nvcc log,
     one short line each."""
@@ -3044,16 +3626,18 @@ def main() -> int:
     from libdogleg_tpu_torch import DoglegParameters, sample
     from libdogleg_tpu_torch.models import quadratic_surface as qs
     from libdogleg_tpu_torch.native import loader
-    from libdogleg_tpu_torch.ops import mega
+    from libdogleg_tpu_torch.ops import bcsr_kernels, mega
     from libdogleg_tpu_torch.parallel import batched_optimize
     from libdogleg_tpu_torch.utils.benchtime import measure_ms
 
     dev = torch.device("cuda")
     bench = DoglegParameters(**BENCH)
 
-    # 2. build
+    # 2. build; the host library of the symbolic analysis beside it, which
+    # phase 22 reports
     info = loader.build()
     loader.load_library()
+    host_build = loader.build_host()
     print(f"[2 build] {info.path.name} in {info.seconds:.2f} s", flush=True)
     for line in info.log.splitlines():
         if ("registers" in line or "spill" in line
@@ -3200,6 +3784,11 @@ def main() -> int:
     dense_walls = timed("10", phase10_timing, dev, bench, card, k2, k34)
     tiles = timed("11", phase11_tiles, dev)
     sparse = timed("12", phase12_sparse, dev, bench)
+    # phase 9's launches test the opt-in entry and are no path's
+    paths = {"phase 12 (config 6)": {
+                 "K3": sparse["launches"]["bcsr_jtj_blocks_kernel"],
+                 "K6": sparse["launches"]["tile_cholesky"],
+                 "K7": sparse["launches"]["tri_solve_right"]}}
     tiles["K6"]["launches"] = sparse["launches"]["tile_cholesky"]
     tiles["K7"]["launches"] = sparse["launches"]["tri_solve_right"]
     timed("13", phase13_timing, dev, bench, card, sparse, tiles, dense_walls)
@@ -3215,14 +3804,26 @@ def main() -> int:
     del ba7s, r7s
     timed("20", phase20_batched_schur, dev, bench, card)
     timed("21", phase21_surface, dev, bench, card)
+    p22 = timed("22", phase22_sparse_batched, dev, bench, card, host_build)
     print(f"[all seconds] {time.perf_counter() - started:.1f}", flush=True)
+    paths.update({f"phase 22 ({k})": v for k, v in p22["paths"].items()})
+    # K3, K6 and K7 run on several paths: each path's count, read with the
+    # counts set to 0 just before it, and their sum
+    for key, d in (("K3", k34["K3"]), ("K6", tiles["K6"]),
+                   ("K7", tiles["K7"])):
+        d["launches_by_path"] = {path: c[key] for path, c in paths.items()
+                                 if key in c}
+        d["launches"] = sum(d["launches_by_path"].values())
 
     def entry(name, source, replaces, d):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": d["launches"],
-                "max_abs_err": d["max_abs_err"], "ms": d["ms"],
-                "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
-                "bound_by": d["bound_by"], "library_ms": d["library_ms"]}
+        out = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": d["launches"],
+               "max_abs_err": d["max_abs_err"], "ms": d["ms"],
+               "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+               "bound_by": d["bound_by"], "library_ms": d["library_ms"]}
+        if "launches_by_path" in d:
+            out["launches_by_path"] = d["launches_by_path"]
+        return out
     print(json.dumps({"kernels": [
         entry("megakernel_optimize", "libdogleg_tpu_torch/csrc/mega.cu",
               "libdogleg_tpu/ops/pallas_mega.py:522",

@@ -36,6 +36,11 @@
 // in VMEM across the grid; here every output is a register sum written once.
 // launch_jtj alone chooses between the two.
 //
+// A batch of Jacobians that share one structure (vals (B, nnzb, bm, bn), out
+// (B, nout, bn, bn)) is one launch: the grid's y index is the element, and
+// each element's blocks are summed exactly as a single Jacobian's are, so an
+// element's bits do not depend on the batch it is in.
+//
 // What bounds K4 on this card. It reads each stored block once and v and
 // writes J v: 1.4 MB on the 32x32x8 grid model's 8x8 float32 blocks, under
 // half a microsecond at 3.35 TB/s, so it is the size of a launch: what
@@ -72,11 +77,13 @@ __global__ void jtj_blocks_kernel(const T* __restrict__ vals, int bm, int bn,
                                   const int* __restrict__ pair_i,
                                   const int* __restrict__ pair_j,
                                   const int* __restrict__ run_ptr,
+                                  size_t vstride, size_t ostride,
                                   T* __restrict__ out) {
   const int o = blockIdx.x;
   const int k0 = run_ptr[o], k1 = run_ptr[o + 1];
   const size_t blk = static_cast<size_t>(bm) * bn;
-  T* dst = out + static_cast<size_t>(o) * bn * bn;
+  vals += blockIdx.y * vstride;
+  T* dst = out + blockIdx.y * ostride + static_cast<size_t>(o) * bn * bn;
   for (int idx = threadIdx.x; idx < bn * bn; idx += blockDim.x) {
     const int i = idx / bn, j = idx - i * bn;
     T s = T(0);
@@ -114,8 +121,8 @@ template <typename T>
 __global__ void __launch_bounds__(JTJ_THREADS)
 jtj_words_kernel(const T* __restrict__ vals, const int* __restrict__ pair_i,
                  const int* __restrict__ pair_j,
-                 const int* __restrict__ run_ptr, int nout,
-                 T* __restrict__ out) {
+                 const int* __restrict__ run_ptr, int nout, size_t vstride,
+                 size_t ostride, T* __restrict__ out) {
   constexpr int V = Word<T>::N;
   constexpr int BLK = 64;        // entries of a block
   constexpr int LPG = BLK / V;   // lanes of a group: 16 or 32
@@ -131,6 +138,8 @@ jtj_words_kernel(const T* __restrict__ vals, const int* __restrict__ pair_i,
       LPG == 32 ? 0xffffffffu : 0xffffu << (threadIdx.x & 16);
   const int i = w / CL, j = (w % CL) * V;  // the lane's output entries
   T (*buf)[BLK] = staged[g];
+  vals += blockIdx.y * vstride;
+  out += blockIdx.y * ostride;
   const int k0 = __ldg(run_ptr + o), k1 = __ldg(run_ptr + o + 1);
   T acc[V];
 #pragma unroll
@@ -175,11 +184,13 @@ jtj_words_kernel(const T* __restrict__ vals, const int* __restrict__ pair_i,
 
 // The word kernel for (8, 8) blocks whose values are 16-byte aligned (the
 // output, from torch.empty, always is), the generic one for everything else.
+// A batch wider than the grid's y extent goes in several launches.
 template <typename T>
 static int launch_jtj(const void* vals_, int bm, int bn, const void* pair_i_,
                       const void* pair_j_, const void* run_ptr_, int nout,
-                      void* out_, int device, void* stream_) {
-  if (nout <= 0) return 0;
+                      int batch, int nnzb, void* out_, int device,
+                      void* stream_) {
+  if (nout <= 0 || batch <= 0) return 0;
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const T* vals = static_cast<const T*>(vals_);
@@ -188,17 +199,29 @@ static int launch_jtj(const void* vals_, int bm, int bn, const void* pair_i_,
   const int* run_ptr = static_cast<const int*>(run_ptr_);
   T* out = static_cast<T*>(out_);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (bm == 8 && bn == 8 && aligned16(vals) && aligned16(out)) {
-    constexpr int GPB = JTJ_THREADS / (64 / Word<T>::N);  // outputs a block
-    jtj_words_kernel<T><<<(nout + GPB - 1) / GPB, JTJ_THREADS, 0, stream>>>(
-        vals, pair_i, pair_j, run_ptr, nout, out);
-  } else {
-    int threads = ((bn * bn + 31) / 32) * 32;
-    if (threads > 256) threads = 256;
-    jtj_blocks_kernel<T><<<nout, threads, 0, stream>>>(
-        vals, bm, bn, pair_i, pair_j, run_ptr, out);
+  const size_t vstride = static_cast<size_t>(nnzb) * bm * bn;
+  const size_t ostride = static_cast<size_t>(nout) * bn * bn;
+  const bool words = bm == 8 && bn == 8 && aligned16(vals) && aligned16(out);
+  constexpr int MAX_Y = 65535;
+  for (int b0 = 0; b0 < batch; b0 += MAX_Y) {
+    const unsigned ny = static_cast<unsigned>(min(MAX_Y, batch - b0));
+    const T* v = vals + b0 * vstride;
+    T* o = out + b0 * ostride;
+    if (words) {
+      constexpr int GPB = JTJ_THREADS / (64 / Word<T>::N);  // outputs a block
+      const dim3 grid((nout + GPB - 1) / GPB, ny);
+      jtj_words_kernel<T><<<grid, JTJ_THREADS, 0, stream>>>(
+          v, pair_i, pair_j, run_ptr, nout, vstride, ostride, o);
+    } else {
+      int threads = ((bn * bn + 31) / 32) * 32;
+      if (threads > 256) threads = 256;
+      jtj_blocks_kernel<T><<<dim3(nout, ny), threads, 0, stream>>>(
+          v, bm, bn, pair_i, pair_j, run_ptr, vstride, ostride, o);
+    }
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  return static_cast<int>(cudaGetLastError());
+  return 0;
 }
 
 // K4 for blocks of BM rows of BN / V 16-byte words: lane w of a group of
@@ -267,22 +290,26 @@ static int launch_matvec(const void* vals_, int bm, int bn,
 
 }  // namespace
 
-// C entry points. Integer arrays are int32. Launch on `stream` without
+// C entry points. Integer arrays are int32. K3 takes `batch` Jacobians of
+// nnzb blocks each, one after the other in vals, and writes `batch` outputs
+// of nout blocks each. Launch on `stream` without
 // synchronizing; return the cudaError_t of the launch (0 on success).
 extern "C" int dogleg_bcsr_jtj_f32(const void* vals, int bm, int bn,
                                    const void* pair_i, const void* pair_j,
-                                   const void* run_ptr, int nout, void* out,
-                                   int device, void* stream) {
-  return launch_jtj<float>(vals, bm, bn, pair_i, pair_j, run_ptr, nout, out,
-                           device, stream);
+                                   const void* run_ptr, int nout, int batch,
+                                   int nnzb, void* out, int device,
+                                   void* stream) {
+  return launch_jtj<float>(vals, bm, bn, pair_i, pair_j, run_ptr, nout, batch,
+                           nnzb, out, device, stream);
 }
 
 extern "C" int dogleg_bcsr_jtj_f64(const void* vals, int bm, int bn,
                                    const void* pair_i, const void* pair_j,
-                                   const void* run_ptr, int nout, void* out,
-                                   int device, void* stream) {
-  return launch_jtj<double>(vals, bm, bn, pair_i, pair_j, run_ptr, nout, out,
-                            device, stream);
+                                   const void* run_ptr, int nout, int batch,
+                                   int nnzb, void* out, int device,
+                                   void* stream) {
+  return launch_jtj<double>(vals, bm, bn, pair_i, pair_j, run_ptr, nout, batch,
+                            nnzb, out, device, stream);
 }
 
 extern "C" int dogleg_bcsr_matvec_f32(const void* vals, int bm, int bn,

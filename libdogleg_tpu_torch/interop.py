@@ -87,6 +87,34 @@ def grid_mrf_from_reference(jax_grid: Any, device=None,
         dtype=dtype, device=device)
 
 
+def grid_mrf_batch_from_reference(jax_grids, device=None,
+                                  dtype=torch.float64):
+    """A batch of JAX GridMRF instances that share one graph (the same
+    width, height, block size, edges and weights; element s made with its
+    own seed, say): the port's GridMRF of the first, and each element's
+    (z_prior (B, n_nodes, b), z_edge (B, n_edges, b), mix (B, n_edges, b,
+    b) or None) stacked on a leading batch axis, on `device` (None: the
+    CUDA device) in `dtype`, as the problem_data of a batched solve."""
+    grids = list(jax_grids)
+    g0 = grids[0]
+    for g in grids[1:]:
+        same = ((g.width, g.height, g.block_size, g.w_prior, g.w_edge)
+                == (g0.width, g0.height, g0.block_size, g0.w_prior,
+                    g0.w_edge)
+                and np.array_equal(np.asarray(g.edges), np.asarray(g0.edges))
+                and (g.mix is None) == (g0.mix is None))
+        if not same:
+            raise ValueError("the instances of a batch must share their "
+                             "graph, block size, weights and coupling")
+
+    def stacked(name):
+        return from_numpy(np.stack([np.asarray(getattr(g, name))
+                                    for g in grids]), device, dtype)
+    data = (stacked("z_prior"), stacked("z_edge"),
+            None if g0.mix is None else stacked("mix"))
+    return grid_mrf_from_reference(g0, device, dtype), data
+
+
 def bundle_adjustment_from_reference(jax_ba: Any, device=None,
                                      dtype=torch.float64):
     """The port's BAProblem holding the arrays of a JAX BAProblem

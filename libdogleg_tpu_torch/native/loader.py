@@ -1,11 +1,21 @@
-"""Builds and loads the package's CUDA kernels (csrc/*.cu).
+"""Builds and loads the package's native libraries.
 
-The sources are compiled at first use with nvcc, one process per source, all
-started together, and linked into one shared library with a plain C
-interface, under _build/ beside this file, and loaded with ctypes. The
-library's file name carries a hash of the sources, their shared headers
-(csrc/*.cuh) and the flags, so an edit rebuilds it and a stale build is never
-loaded. Nothing is compiled or loaded at import time.
+The CUDA kernels (csrc/*.cu) are compiled at first use with nvcc, one
+process per source, all started together, and linked into one shared library
+with a plain C interface, under _build/ beside this file, and loaded with
+ctypes. The library's file name carries a hash of the sources, their shared
+headers (csrc/*.cuh) and the flags, so an edit rebuilds it and a stale build
+is never loaded.
+
+The host library of the symbolic analysis (csrc/host/*.cpp: minimum degree,
+the JtJ pair schedule, the block pattern of a scalar CSR pattern and the
+symbolic factorization) is built apart from it, with g++, at its first use,
+into the same directory under a name that carries the hash of its sources
+and flags. It needs no nvcc and no card. Where it cannot be built or loaded,
+`load_host_library` gives None and the callers take their Python forms, as
+the JAX package's native path does.
+
+Nothing is compiled or loaded at import time.
 """
 
 from __future__ import annotations
@@ -28,8 +38,13 @@ _BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_HOST_SRC = _SRC / "host"
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
+_HOST_LIB: Optional[ctypes.CDLL] = None
+_HOST_TRIED = False
 
 
 class BuildInfo(NamedTuple):
@@ -63,11 +78,26 @@ def _sources():
 
 
 def library_path() -> pathlib.Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in _sources() + sorted(_SRC.glob("*.cuh")):
+    return _BUILD_DIR / _hashed_name(
+        "libdogleg_tpu_torch", NVCC_FLAGS,
+        _sources() + sorted(_SRC.glob("*.cuh")))
+
+
+def host_sources():
+    return sorted(_HOST_SRC.glob("*.cpp"))
+
+
+def host_library_path() -> pathlib.Path:
+    return _BUILD_DIR / _hashed_name("libdogleg_tpu_torch_host", HOST_FLAGS,
+                                     host_sources())
+
+
+def _hashed_name(stem: str, flags, files) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for s in files:
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    return _BUILD_DIR / f"libdogleg_tpu_torch_{h.hexdigest()[:16]}.so"
+    return f"{stem}_{h.hexdigest()[:16]}.so"
 
 
 def _run(cmds):
@@ -89,7 +119,7 @@ def _run(cmds):
                 proc.kill()
                 proc.wait()
     if failed:
-        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        raise RuntimeError("compile failed: " + "\n".join(failed))
     return outs
 
 
@@ -112,6 +142,64 @@ def build() -> BuildInfo:
     return BuildInfo(so, time.perf_counter() - t0, log)
 
 
+def build_host() -> BuildInfo:
+    """Compile csrc/host/*.cpp with g++ into one library unless a build of
+    the current sources exists. Raises where g++ is missing or fails."""
+    so = host_library_path()
+    if so.exists():
+        return BuildInfo(so, 0.0, "")
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmpdir:
+        tmp = os.path.join(tmpdir, so.name)
+        log = "".join(_run([[gxx, *HOST_FLAGS, *map(str, host_sources()),
+                             "-o", tmp]]))
+        os.replace(tmp, so)
+    return BuildInfo(so, time.perf_counter() - t0, log)
+
+
+def _bind_host(lib: ctypes.CDLL) -> ctypes.CDLL:
+    i32, i64 = ctypes.c_int32, ctypes.c_int64
+    i32p, i64p = ctypes.POINTER(i32), ctypes.POINTER(i64)
+    lib.jtj_pair_count.restype = i64
+    lib.jtj_pair_count.argtypes = [i32p, i32]
+    lib.jtj_schedule.restype = i64
+    lib.jtj_schedule.argtypes = [i32p, i32p, i32, i32, i32p, i32p, i32p,
+                                 i32p, i32p]
+    lib.bcsr_block_pattern.restype = i64
+    lib.bcsr_block_pattern.argtypes = [i64p, i32p, i32, i32, i32, i32, i32p,
+                                       i32p]
+    lib.mindeg_order.restype = None
+    lib.mindeg_order.argtypes = [i32p, i32p, i64, i32, i32p]
+    lib.chol_symbolic_build.restype = ctypes.c_void_p
+    lib.chol_symbolic_build.argtypes = [i32p, i32p, i64, i32]
+    lib.chol_symbolic_free.restype = None
+    lib.chol_symbolic_free.argtypes = [ctypes.c_void_p]
+    lib.chol_symbolic_counts.restype = None
+    lib.chol_symbolic_counts.argtypes = [ctypes.c_void_p, i64p]
+    lib.chol_symbolic_export.restype = None
+    lib.chol_symbolic_export.argtypes = [ctypes.c_void_p] + [i32p] * 26
+    return lib
+
+
+def load_host_library() -> Optional[ctypes.CDLL]:
+    """The host library of the symbolic analysis, built on first use and
+    cached in the process; None where it cannot be built or loaded (the
+    callers then take their Python forms). One attempt a process."""
+    global _HOST_LIB, _HOST_TRIED
+    with _LOCK:
+        if not _HOST_TRIED:
+            _HOST_TRIED = True
+            try:
+                _HOST_LIB = _bind_host(ctypes.CDLL(str(build_host().path)))
+            except (OSError, RuntimeError, AttributeError):
+                _HOST_LIB = None
+        return _HOST_LIB
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     bind_mega(lib)
@@ -120,9 +208,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, f"dogleg_panelchol_{dt}")
         fn.argtypes = [ptr, i32, i32, ptr, ptr, ptr, i32, ptr]
         fn.restype = i32
-        # vals, bm, bn, pair_i, pair_j, run_ptr, nout, out, device, stream
+        # vals, bm, bn, pair_i, pair_j, run_ptr, nout, batch, nnzb, out,
+        # device, stream
         fn = getattr(lib, f"dogleg_bcsr_jtj_{dt}")
-        fn.argtypes = [ptr, i32, i32, ptr, ptr, ptr, i32, ptr, i32, ptr]
+        fn.argtypes = [ptr, i32, i32, ptr, ptr, ptr, i32, i32, i32, ptr, i32,
+                       ptr]
         fn.restype = i32
         # vals, bm, bn, indptr, indices, v, nmeas, out, device, stream
         fn = getattr(lib, f"dogleg_bcsr_matvec_{dt}")

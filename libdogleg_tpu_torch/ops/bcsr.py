@@ -6,12 +6,16 @@ one double at a time (reference dogleg.h:11-20, dogleg.c:249-281). Here the
 Jacobian is block-CSR: a static block sparsity pattern, fixed per problem
 (the reference's one-time symbolic analysis, dogleg.c:649-654), plus a dense
 (nnzb, bm, bn) value tensor, so every product is a batch of dense block
-contractions and a segment sum (index_add_ / index_put_ with accumulate).
+contractions and a segment sum (index_add / index_put_ with accumulate).
 The structure is numpy metadata on the host, identical to the JAX one.
 
-On a CUDA device index_add_ and index_put_(accumulate=True) add with atomics,
-so the summation order, and the last bits of a sum, can differ from run to
-run. The opt-in kernels of ops/bcsr_kernels.py (K3, K4) sum in a fixed order.
+The products of the block-sparse path (bcsr_jt_x, bcsr_matvec,
+bcsr_jtj_lower_blocks) work out of place, so that torch.func.vmap batches
+a products function built from them. On a CUDA device bcsr_jtj_lower_blocks
+forms its blocks with kernel K3 (ops/bcsr_kernels.py), which sums in a fixed
+order; index_add and index_put_(accumulate=True) add with atomics there, so
+the summation order, and the last bits of a sum, can differ from run to
+run.
 """
 
 from __future__ import annotations
@@ -102,10 +106,8 @@ def bcsr_jt_x(J: BCSRJacobian, x: torch.Tensor) -> torch.Tensor:
     s, v = J.structure, J.values
     xg = x.reshape(s.nbrow, s.block_rows)[_index(s.row_of_block(), v)]
     partial = (v.mT @ xg[..., None])[..., 0]          # (nnzb, bn)
-    out = torch.zeros((s.nbcol, s.block_cols), dtype=v.dtype,
-                      device=v.device)
-    out.index_add_(0, _index(s.indices, v), partial)
-    return out.reshape(s.nstate)
+    out = partial.new_zeros((s.nbcol, s.block_cols))
+    return out.index_add(0, _index(s.indices, v), partial).reshape(s.nstate)
 
 
 def bcsr_matvec(J: BCSRJacobian, vec: torch.Tensor) -> torch.Tensor:
@@ -114,10 +116,9 @@ def bcsr_matvec(J: BCSRJacobian, vec: torch.Tensor) -> torch.Tensor:
     s, v = J.structure, J.values
     vg = vec.reshape(s.nbcol, s.block_cols)[_index(s.indices, v)]
     partial = (v @ vg[..., None])[..., 0]             # (nnzb, bm)
-    out = torch.zeros((s.nbrow, s.block_rows), dtype=v.dtype,
-                      device=v.device)
-    out.index_add_(0, _index(s.row_of_block(), v), partial)
-    return out.reshape(s.nmeas)
+    out = partial.new_zeros((s.nbrow, s.block_rows))
+    return out.index_add(0, _index(s.row_of_block(), v),
+                         partial).reshape(s.nmeas)
 
 
 class JtJLowerSchedule(NamedTuple):
@@ -150,19 +151,34 @@ def jtj_lower_schedule(s: BCSRStructure) -> JtJLowerSchedule:
         out_idx=new_id[sch.out_idx[keep_pair]].astype(np.int32))
 
 
+def jtj_pair_sum(values: torch.Tensor, pair_i, pair_j, out_idx,
+                 nout: int) -> torch.Tensor:
+    """out[o] = sum over the pairs k with out_idx[k] = o of
+    values[pair_i[k]]^T values[pair_j[k]]: one batched product and one
+    segment sum, out of place. values (..., nnzb, bm, bn) with any leading
+    axes give (..., nout, bn, bn). Kernel K3's plain version."""
+    contrib = (values.index_select(-3, _index(pair_i, values)).mT
+               @ values.index_select(-3, _index(pair_j, values)))
+    out = contrib.new_zeros(contrib.shape[:-3] + (nout,)
+                            + contrib.shape[-2:])
+    return out.index_add(-3, _index(out_idx, values), contrib)
+
+
 def bcsr_jtj_lower_blocks(J: BCSRJacobian,
                           sched: JtJLowerSchedule) -> torch.Tensor:
     """The stored lower-triangle blocks of J^T J, (nnzb_jtj, bn, bn) in the
-    schedule's (rows, cols) order: the input of sparse_cholesky.factorize.
-    One batched product and one segment sum (index_add_); JtJ never
-    densifies. The schedule's pair_i, pair_j and out_idx may be numpy
-    arrays or int64 tensors on the values' device."""
+    schedule's (rows, cols) order: the input of sparse_cholesky.factorize;
+    JtJ never densifies. CUDA values go to kernel K3, one launch for a
+    whole batch under torch.func.vmap (a structure or dtype outside
+    bcsr_kernels.supports_kernels raises there); CPU values to
+    jtj_pair_sum, its plain version. The schedule's pair_i, pair_j and
+    out_idx may be numpy arrays or int64 tensors on the values' device."""
     v = J.values
-    contrib = v[_index(sched.pair_i, v)].mT @ v[_index(sched.pair_j, v)]
-    bn = J.structure.block_cols
-    out = torch.zeros((int(sched.rows.shape[0]), bn, bn), dtype=v.dtype,
-                      device=v.device)
-    return out.index_add_(0, _index(sched.out_idx, v), contrib)
+    if v.device.type == "cuda":
+        from libdogleg_tpu_torch.ops import bcsr_kernels
+        return bcsr_kernels.bcsr_jtj_lower_kernel(J, sched)
+    return jtj_pair_sum(v, sched.pair_i, sched.pair_j, sched.out_idx,
+                        int(sched.rows.shape[0]))
 
 
 def bcsr_jtj_dense(J: BCSRJacobian) -> torch.Tensor:

@@ -3,11 +3,16 @@ libdogleg_tpu/ops/pallas_bcsr.py).
 
 K3 forms the blocks of J^T J over a static schedule of block pairs sorted by
 output block (`build_jtj_schedule`, the host-side symbolic analysis); K4
-forms J v. Both are opt-in, as in the JAX package: SparseProblem.products
-uses the plain ops of ops/bcsr.py. Each kernel's wrapper launches the
-hand-written kernel in csrc/bcsr.cu for CUDA tensors and runs its plain twin
-(`*_reference`) for CPU tensors; a CUDA tensor launches the kernel or
-raises.
+forms J v. K3 forms the lower JtJ blocks of the block-sparse path
+(ops/bcsr.bcsr_jtj_lower_blocks) on a CUDA device, one launch for a whole
+batch of Jacobians that share a structure. Under torch.func.vmap it is
+reached through the custom operator libdogleg_tpu_torch::bcsr_jtj_blocks,
+whose vmap rule is that batched launch, so torch.func.vmap of a products
+function launches it once for the batch; other values launch it directly.
+K4 is opt-in, as in the JAX package. Each kernel's wrapper
+launches the hand-written kernel in csrc/bcsr.cu for CUDA tensors and runs
+its plain twin (`*_reference`) for CPU tensors; a CUDA tensor launches the
+kernel or raises.
 
 A structure's and a schedule's index arrays are numpy arrays on the host.
 The wrappers copy each to the card once (`device_indices`) and keep the
@@ -26,7 +31,8 @@ import torch
 
 from libdogleg_tpu_torch.native.loader import launch_target, load_library
 from libdogleg_tpu_torch.ops.bcsr import (BCSRJacobian, BCSRStructure,
-                                         _index, bcsr_matvec)
+                                         JtJLowerSchedule, _index,
+                                         bcsr_matvec, jtj_pair_sum)
 
 # Kernel launches made in this process, per wrapper.
 launch_counts = {"bcsr_jtj_blocks_kernel": 0, "bcsr_matvec_kernel": 0}
@@ -45,8 +51,18 @@ class JtJSchedule(NamedTuple):
 
 
 def build_jtj_schedule(s: BCSRStructure) -> JtJSchedule:
-    """The schedule of pallas_bcsr.py:64-75, in numpy: identical arrays to
-    the JAX package's (whose native C++ fast path is not ported)."""
+    """The schedule of pallas_bcsr.py:56-75, identical arrays to the JAX
+    package's: from the host library (csrc/host/symbolic.cpp) where it is
+    available, else in numpy (`build_jtj_schedule_python`)."""
+    from libdogleg_tpu_torch.native.symbolic import jtj_schedule_native
+    nat = jtj_schedule_native(s.indptr, s.indices, s.nbcol)
+    if nat is not None:
+        return JtJSchedule(*nat)
+    return build_jtj_schedule_python(s)
+
+
+def build_jtj_schedule_python(s: BCSRStructure) -> JtJSchedule:
+    """build_jtj_schedule in numpy, the host library's plain version."""
     pi, pj = s.jtj_pairs()
     ci = s.indices[pi]
     cj = s.indices[pj]
@@ -70,10 +86,14 @@ def supports_kernels(s: BCSRStructure, dtype=torch.float32) -> bool:
             and s.nmeas < 2 ** 31)
 
 
-def _check(J: BCSRJacobian) -> None:
+def _check(J: BCSRJacobian, batched: bool = False) -> None:
+    """The values' shape, (nnzb, bm, bn) or, where `batched`, with any
+    leading axes, and the structure and dtype within the kernels' range."""
     v, s = J.values, J.structure
-    if tuple(v.shape) != (s.nnzb, s.block_rows, s.block_cols):
-        raise ValueError(f"values must be {(s.nnzb, s.block_rows, s.block_cols)}"
+    want = (s.nnzb, s.block_rows, s.block_cols)
+    if tuple(v.shape[-3:] if batched else v.shape) != want:
+        lead = "(..., " if batched else "("
+        raise ValueError(f"values must be {lead}{', '.join(map(str, want))})"
                          f", got {tuple(v.shape)}")
     if not supports_kernels(s, v.dtype):
         raise ValueError("structure or dtype outside the kernels' range "
@@ -107,18 +127,24 @@ def device_indices(owner: np.ndarray, device, name: str = "",
     return t
 
 
-def _run_ptr(schedule: JtJSchedule) -> np.ndarray:
-    """Offsets of each output block's run in the output-sorted schedule."""
-    counts = np.bincount(schedule.out_idx,
-                         minlength=int(schedule.out_ci.shape[0]))
-    return np.concatenate([[0], np.cumsum(counts)])
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
-def _jtj_operands(schedule: JtJSchedule) -> np.ndarray:
-    """K3's int32 operands in one array: pair_i, pair_j, then the run
-    pointers, so that a product finds them on the card with one lookup."""
-    return np.concatenate([schedule.pair_i, schedule.pair_j,
-                           _run_ptr(schedule)])
+def _nout(schedule) -> int:
+    """The output blocks of a JtJSchedule or a JtJLowerSchedule."""
+    return int((schedule.out_ci if isinstance(schedule, JtJSchedule)
+                else schedule.rows).shape[0])
+
+
+def _jtj_operands(schedule) -> np.ndarray:
+    """K3's int32 operands in one array: pair_i, pair_j, then the offsets
+    of each output block's run in the output-sorted schedule (a JtJSchedule
+    or a JtJLowerSchedule), so that a product finds them on the card with
+    one lookup."""
+    counts = np.bincount(_host(schedule.out_idx), minlength=_nout(schedule))
+    return np.concatenate([_host(schedule.pair_i), _host(schedule.pair_j),
+                           [0], np.cumsum(counts)])
 
 
 def matvec_instance(bm: int, bn: int, dtype) -> str:
@@ -148,49 +174,123 @@ def jtj_instance(bm: int, bn: int, dtype) -> str:
 def bcsr_jtj_blocks_reference(J: BCSRJacobian,
                               schedule: JtJSchedule) -> torch.Tensor:
     """K3's plain twin: (nnzb_out, bn, bn) blocks of J^T J in the schedule's
-    output order."""
-    v = J.values
-    contrib = (v[_index(schedule.pair_i, v)].mT
-               @ v[_index(schedule.pair_j, v)])
-    bn = J.structure.block_cols
-    out = torch.zeros((schedule.out_ci.shape[0], bn, bn), dtype=v.dtype,
-                      device=v.device)
-    return out.index_add_(0, _index(schedule.out_idx, v), contrib)
+    output order, out of place (ops/bcsr.jtj_pair_sum)."""
+    return jtj_pair_sum(J.values, schedule.pair_i, schedule.pair_j,
+                        schedule.out_idx, int(schedule.out_ci.shape[0]))
+
+
+def _jtj_batched_launch(values: torch.Tensor, operands: torch.Tensor,
+                        npairs: int, nout: int) -> torch.Tensor:
+    """K3's launch on CUDA values (B, nnzb, bm, bn): the (B, nout, bn, bn)
+    blocks, every element summed over the one schedule in `operands`
+    (_jtj_operands, int32 on the values' device)."""
+    B, nnzb, bm, bn = values.shape
+    vals = values.contiguous()
+    out = vals.new_empty((B, nout, bn, bn))
+    if B and nout:
+        lib = load_library()
+        entry = (lib.dogleg_bcsr_jtj_f32 if vals.dtype == torch.float32
+                 else lib.dogleg_bcsr_jtj_f64)
+        ops = operands.data_ptr()
+        err = entry(vals.data_ptr(), bm, bn, ops, ops + 4 * npairs,
+                    ops + 8 * npairs, nout, B, nnzb, out.data_ptr(),
+                    *launch_target(vals.device))
+        if err:
+            raise RuntimeError(f"bcsr_jtj_blocks_kernel launch failed: "
+                               f"cudaError_t {err}")
+        launch_counts["bcsr_jtj_blocks_kernel"] += 1
+    return out
+
+
+@torch.library.custom_op("libdogleg_tpu_torch::bcsr_jtj_blocks",
+                         mutates_args=(), device_types="cuda")
+def _jtj_op(values: torch.Tensor, operands: torch.Tensor, npairs: int,
+            nout: int) -> torch.Tensor:
+    """_jtj_batched_launch as an operator, so that torch.func.vmap reaches
+    it through its vmap rule (_jtj_op_vmap). The operator's dispatch costs
+    the host about 20 us a call (measured beside the direct launch on an
+    H100 machine), so only values under a functorch transform take it
+    (_jtj_launcher)."""
+    return _jtj_batched_launch(values, operands, npairs, nout)
+
+
+def _jtj_op_vmap(info, in_dims, values, operands, npairs, nout):
+    """The batch written out: the vmapped axis joins the op's own batch
+    axis, and the whole batch is one launch."""
+    vdim, odim = in_dims[0], in_dims[1]
+    if odim is not None:
+        raise ValueError("K3's schedule is shared by the batch; its operands "
+                         "cannot carry a batch axis")
+    if vdim is None:
+        return _jtj_op(values, operands, npairs, nout), None
+    v = values.movedim(vdim, 0)
+    out = _jtj_op(v.reshape((-1,) + tuple(v.shape[2:])), operands, npairs,
+                  nout)
+    return out.reshape(tuple(v.shape[:2]) + tuple(out.shape[1:])), 0
+
+
+torch.library.register_vmap(_jtj_op, _jtj_op_vmap)
+
+
+def _jtj_launcher(values: torch.Tensor):
+    """K3's launch for `values`: the operator _jtj_op for values under a
+    functorch transform (torch.func.vmap gives a BatchedTensor, which has
+    no data pointer; the operator's vmap rule folds its batch into one
+    launch), else _jtj_batched_launch itself, without the operator's
+    dispatch."""
+    if torch._C._functorch.is_functorch_wrapped_tensor(values):
+        return _jtj_op
+    return _jtj_batched_launch
+
+
+def _jtj_launch(values: torch.Tensor, owner: np.ndarray,
+                schedule) -> torch.Tensor:
+    """K3 over a schedule's pairs, whose operands are kept on the card for
+    as long as `owner`, one of its numpy arrays, lives. values (..., nnzb,
+    bm, bn) with any leading axes, under torch.func.vmap or not."""
+    if values.device.type != "cuda":
+        raise ValueError(f"no kernel for device {values.device}")
+    ops = device_indices(owner, values.device, "jtj",
+                         lambda: _jtj_operands(schedule))
+    lead = values.shape[:-3]
+    v = values.reshape((-1,) + tuple(values.shape[-3:]))
+    out = _jtj_launcher(v)(v, ops, int(schedule.pair_i.shape[0]),
+                           _nout(schedule))
+    return out.reshape(tuple(lead) + tuple(out.shape[1:]))
 
 
 def bcsr_jtj_blocks_kernel(J: BCSRJacobian,
                            schedule: Optional[JtJSchedule] = None):
     """Block-sparse J^T J. Returns (blocks (nnzb_out, bn, bn), schedule):
     the blocks in the schedule's output pattern; jtj_blocks_to_dense
-    materializes them. CUDA values go to kernel K3 (of its two kernels the
-    one `jtj_instance` names), CPU values to bcsr_jtj_blocks_reference."""
-    _check(J)
+    materializes them. Values with leading batch axes (..., nnzb, bm, bn)
+    give (..., nnzb_out, bn, bn), one launch for all (under
+    torch.func.vmap too). CUDA values go to kernel K3 (of its two kernels
+    the one `jtj_instance` names), CPU values to
+    bcsr_jtj_blocks_reference."""
+    _check(J, batched=True)
     if schedule is None:
         schedule = build_jtj_schedule(J.structure)
     v = J.values
     if v.device.type == "cpu":
         return bcsr_jtj_blocks_reference(J, schedule), schedule
-    if v.device.type != "cuda":
-        raise ValueError(f"no kernel for device {v.device}")
-    lib = load_library()
-    entry = (lib.dogleg_bcsr_jtj_f32 if v.dtype == torch.float32
-             else lib.dogleg_bcsr_jtj_f64)
-    s = J.structure
-    nout = int(schedule.out_ci.shape[0])
-    npairs = int(schedule.pair_i.shape[0])
-    vals = v.contiguous()
-    ops = device_indices(schedule.out_idx, v.device, "jtj",
-                         lambda: _jtj_operands(schedule)).data_ptr()
-    out = torch.empty((nout, s.block_cols, s.block_cols), dtype=v.dtype,
-                      device=v.device)
-    err = entry(vals.data_ptr(), s.block_rows, s.block_cols, ops,
-                ops + 4 * npairs, ops + 8 * npairs, nout, out.data_ptr(),
-                *launch_target(v.device))
-    if err:
-        raise RuntimeError(f"bcsr_jtj_blocks_kernel launch failed: "
-                           f"cudaError_t {err}")
-    launch_counts["bcsr_jtj_blocks_kernel"] += 1
-    return out, schedule
+    return _jtj_launch(v, schedule.out_idx, schedule), schedule
+
+
+def bcsr_jtj_lower_kernel(J: BCSRJacobian,
+                          sched: JtJLowerSchedule) -> torch.Tensor:
+    """The lower JtJ blocks of ops/bcsr.bcsr_jtj_lower_blocks, (...,
+    nnzb_jtj, bn, bn), by kernel K3 for CUDA values of any leading batch
+    axes (and under torch.func.vmap), one launch for all of them; CPU
+    values take the plain form, ops/bcsr.jtj_pair_sum. The schedule's
+    pair_i, pair_j and out_idx may be numpy arrays or tensors; its `rows`
+    array keys the operands kept on the card."""
+    _check(J, batched=True)
+    v = J.values
+    if v.device.type == "cpu":
+        return jtj_pair_sum(v, sched.pair_i, sched.pair_j, sched.out_idx,
+                            _nout(sched))
+    return _jtj_launch(v, sched.rows, sched)
 
 
 def jtj_blocks_to_dense(blocks: torch.Tensor, schedule: JtJSchedule,

@@ -164,7 +164,10 @@ class SparseNewtonSolver:
     The symbolic analysis (ordering, fill, level schedules) happens once, at
     construction, as the reference's single cholmod_analyze
     (dogleg.c:649-654); its index arrays go to a device once, on first use.
-    One problem at a time: a batch of block tensors raises."""
+    A batch of problems that share the pattern (the masked batched solver's
+    JtJ (B, n_input_blocks, b, b), Jt_x (B, n), lam (B,)) goes through the
+    same level loop at once, each element escalating lambda on its own
+    where `active` allows; quad_form gives one value an element."""
     symbolic: object  # SparseCholeskySymbolic or AmalgamatedSymbolic
     # iterative-refinement passes of the GN solve (see _refine)
     refine_iters: int = 0
@@ -198,29 +201,33 @@ class SparseNewtonSolver:
         from libdogleg_tpu_torch.sparse_cholesky import device_array
         return device_array(self.symbolic, device, name, make)
 
-    @staticmethod
-    def _check(blocks):
-        if blocks.dim() != 3:
-            raise NotImplementedError(
-                "SparseNewtonSolver takes one problem's (n_blocks, b, b) "
-                "JtJ blocks; batched block-sparse solves wait for the "
-                "batched-sparse item of the port (the JAX package batches "
-                "them with vmap)")
+    def _check(self, blocks, v):
+        """The blocks (n_input, b, b), or a batch (B, n_input, b, b), and a
+        vector of the same batch."""
+        sym = self.symbolic
+        shape = (len(sym.in_rows), sym.b, sym.b)
+        if (blocks.dim() not in (3, 4) or tuple(blocks.shape[-3:]) != shape
+                or tuple(v.shape) != tuple(blocks.shape[:-3])
+                + (sym.nb * sym.b,)):
+            raise ValueError(
+                f"SparseNewtonSolver takes JtJ blocks (..., {shape}) and "
+                f"vectors (..., {sym.nb * sym.b}) of one batch shape (none, "
+                f"or (B,)); got {tuple(blocks.shape)} and {tuple(v.shape)}")
 
     def quad_form(self, blocks, v):
         """v^T JtJ v from the stored lower blocks: off-diagonal blocks count
-        twice. in_rows, in_cols, nb and b are the original pattern's on
-        either kind of analysis."""
-        self._check(blocks)
+        twice, per element of a batch. in_rows, in_cols, nb and b are the
+        original pattern's on either kind of analysis."""
+        self._check(blocks, v)
         sym = self.symbolic
-        vb = v.reshape(sym.nb, sym.b)
-        vi = vb.index_select(0, self._index(v.device, "in_rows"))
-        vj = vb.index_select(0, self._index(v.device, "in_cols"))
-        per_block = ((vi[:, None, :] @ blocks) @ vj[:, :, None])[:, 0, 0]
+        vb = v.reshape(v.shape[:-1] + (sym.nb, sym.b))
+        vi = vb.index_select(-2, self._index(v.device, "in_rows"))
+        vj = vb.index_select(-2, self._index(v.device, "in_cols"))
+        per_block = ((vi[..., None, :] @ blocks) @ vj[..., None])[..., 0, 0]
         weight = self._index(
             v.device, "quad_weight",
             lambda: np.where(sym.in_rows != sym.in_cols, 2, 1)).to(v.dtype)
-        return (per_block * weight).sum()
+        return (per_block * weight).sum(-1)
 
     def _refine_table(self) -> np.ndarray:
         """A per-block-row gather table over the products of the stored
@@ -245,34 +252,37 @@ class SparseNewtonSolver:
     def gauss_newton(self, blocks, Jt_x, lam, *, lambda_initial,
                      lambda_max_tries,
                      active: Optional[torch.Tensor] = None) -> GNResult:
-        """One problem's GN step; `active` is taken for the batched
-        solver's signature, whose batched blocks raise."""
-        self._check(blocks)
+        """The GN step of one problem, or of each element of a batch, where
+        only the `active` elements escalate lambda."""
+        self._check(blocks, Jt_x)
         be, sym = self._backend(), self.symbolic
         L, lam, ok = be.factorize_with_lambda(
             sym, blocks, lam, lambda_initial=lambda_initial,
-            lambda_max_tries=lambda_max_tries)
+            lambda_max_tries=lambda_max_tries, active=active)
         u = be.solve(sym, L, Jt_x)
         if self.refine_iters:
             dev, b = blocks.device, sym.b
             tbl = self._index(dev, "refine_table", self._refine_table)
             rows, cols = (self._index(dev, "in_rows"),
                           self._index(dev, "in_cols"))
+            # the compensated contractions' axes shift past a batch axis
+            a = blocks.dim() - 3
 
             def resid(v):
-                vb = v.reshape(sym.nb, b)
+                vb = v.reshape(v.shape[:-1] + (sym.nb, b))
                 pl, el = comp.comp_contract(      # B_k @ v_{cols[k]}
-                    blocks, vb[cols], reduce_axes=(2,),
-                    broadcast=lambda x: x[:, None, :])
+                    blocks, vb.index_select(-2, cols), reduce_axes=(a + 2,),
+                    broadcast=lambda x: x[..., None, :])
                 pu, eu = comp.comp_contract(      # B_k^T @ v_{rows[k]}
-                    blocks, vb[rows], reduce_axes=(1,),
-                    broadcast=lambda x: x[:, :, None])
-                zero = v.new_zeros((1, b))
-                H = torch.cat([pl, pu, zero])[tbl]
-                E = torch.cat([el, eu, zero])[tbl]
-                hi, lo = comp.comp_reduce(H, E, axis=1)
-                hi, lo = comp.pair_add_prod(hi.reshape(-1), lo.reshape(-1),
-                                            lam, v)
+                    blocks, vb.index_select(-2, rows), reduce_axes=(a + 1,),
+                    broadcast=lambda x: x[..., :, None])
+                zero = v.new_zeros(v.shape[:-1] + (1, b))
+                H = torch.cat([pl, pu, zero], -2)[..., tbl, :]
+                E = torch.cat([el, eu, zero], -2)[..., tbl, :]
+                hi, lo = comp.comp_reduce(H, E, axis=-2)
+                hi, lo = comp.pair_add_prod(hi.reshape(v.shape),
+                                            lo.reshape(v.shape),
+                                            lam[..., None], v)
                 return comp.residual(Jt_x, hi, lo)
 
             u = _refine(u, lambda r: be.solve(sym, L, r), resid,

@@ -8,10 +8,10 @@ catastrophically: an "arrow" matrix whose dense row comes first factors
 completely full, while the reverse order has zero fill.
 
 Host-side numpy and Python, run once per sparsity pattern, and identical in
-output to the JAX package's functions. The JAX package's native C++ fast
-path for the minimum degree (csrc/symbolic.cpp) is not ported:
-`mindeg_ordering` always runs the Python form, whose tie-breaking the JAX
-package documents and tests as identical to the native one.
+output to the JAX package's functions. `mindeg_ordering` runs the minimum
+degree in the host library (csrc/host/symbolic.cpp, native/symbolic.py)
+where it is available, and its Python form, of the same tie-breaking,
+otherwise.
 """
 
 from __future__ import annotations
@@ -65,8 +65,11 @@ def mindeg_ordering(rows: np.ndarray, cols: np.ndarray,
     """Fill-reducing permutation for the symmetric pattern given by the
     stored (row, col) coordinate lists (either triangle; diagonal entries
     ignored). Returns perm with perm[k] = original index eliminated k-th."""
-    return _mindeg_python(np.ascontiguousarray(rows, np.int32),
-                          np.ascontiguousarray(cols, np.int32), n)
+    from libdogleg_tpu_torch.native.symbolic import mindeg_native
+    rows = np.ascontiguousarray(rows, np.int32)
+    cols = np.ascontiguousarray(cols, np.int32)
+    perm = mindeg_native(rows, cols, n)
+    return perm if perm is not None else _mindeg_python(rows, cols, n)
 
 
 def _adjacency(rows, cols, n):

@@ -6,8 +6,9 @@ a one-time symbolic analysis (reference dogleg.c:649-654, 1595-1599). Here
 the factorization is built from batched dense block ops on a static
 schedule:
 
-  symbolic (host numpy, once per pattern; output-identical to the JAX
-  package's pure-Python analysis, whose native C++ form is not ported):
+  symbolic (host, once per pattern; output-identical to the JAX package's
+  analysis; the host library's csrc/host/chol_symbolic.cpp where it is
+  available, its Python form `_symbolic_python` otherwise):
     * a fill-reducing ordering (ordering.py, the AMD step inside
       cholmod_analyze);
     * symbolic fill on the block pattern;
@@ -23,6 +24,14 @@ schedule:
       package's _chol_blocks), SOLVE through kernel K7
       (ops/tilechol.tri_solve_right, its _tri_solve_right).
 
+A batch of problems that share the pattern (the JAX package's vmap of
+factorize and solve, the batched-SLAM regime) takes a leading batch axis:
+input blocks (B, n_input, b, b), lam (B,), right-hand sides (B, nb*b), and
+ok (B,). The level loop is the same, each level's ops over the whole batch:
+one batched product for its UPDATE, one K6 launch over the B*k tiles of its
+FACTOR and one K7 launch over those of its SOLVE. Each element's pivots
+decide its own ok only.
+
 The JAX package pads the levels into rectangles for a `lax.scan`, with a
 trash slot for the padding (`_pad`, `_chunk_boundaries`, `_slice_*`,
 `_sched_chunks`, `_solve_chunks`, `_pad_levels`). None of that is ported:
@@ -34,8 +43,9 @@ analysis (`device_array`); each level indexes with slices of those copies.
 
 A non-SPD pivot is caught per FACTOR op and and-reduced on the device into
 `ok`, which drives the same permanent escalating lambda as the dense path
-(reference dogleg.c:670-676). On a CUDA device index_add_ adds with
-atomics, so the last bits of a factor can differ from run to run.
+(reference dogleg.c:670-676), per element of a batch. On a CUDA device
+index_add_ adds with atomics, so the last bits of a factor can differ from
+run to run.
 """
 
 from __future__ import annotations
@@ -318,8 +328,11 @@ def analyze(rows: np.ndarray, cols: np.ndarray, nb: int,
     rows = np.where(a_transpose, pj, pi)
     cols = np.where(a_transpose, pi, pj)
 
-    out_rows, out_cols, a_slot_of_input, sched, fwd, bwd = _symbolic_python(
-        rows, cols, nb)
+    from libdogleg_tpu_torch.native.symbolic import chol_symbolic_native
+    built = chol_symbolic_native(rows, cols, nb)
+    if built is None:
+        built = _symbolic_python(rows, cols, nb)
+    out_rows, out_cols, a_slot_of_input, sched, fwd, bwd = built
     return SparseCholeskySymbolic(
         nb=nb, b=b, rows=out_rows, cols=out_cols,
         diag_slot_of=np.arange(nb, dtype=np.int64),
@@ -332,13 +345,28 @@ def analyze(rows: np.ndarray, cols: np.ndarray, nb: int,
 # Numeric phase
 # --------------------------------------------------------------------------
 
+def _batch_lam(lam, blocks: torch.Tensor) -> torch.Tensor:
+    """lam as a (B,) tensor for (B, n, b, b) blocks: one lambda an
+    element, or one for all."""
+    lam = torch.as_tensor(lam, dtype=blocks.dtype, device=blocks.device)
+    return lam.expand(blocks.shape[:1]) if lam.dim() == 0 else lam
+
+
 def factorize(sym: SparseCholeskySymbolic, input_blocks: torch.Tensor,
               lam) -> Tuple[torch.Tensor, torch.Tensor]:
     """Numeric factorization of the block matrix whose stored lower-triangle
     blocks, in the order passed to analyze, are input_blocks (n_input, b,
     b), damped by lam on the diagonal. Returns (L_blocks (nslots, b, b),
-    ok), ok a 0-d bool tensor on the blocks' device."""
+    ok), ok a 0-d bool tensor on the blocks' device. A batch, input_blocks
+    (B, n_input, b, b) and lam (B,) (or one lam for all), gives L_blocks
+    (B, nslots, b, b) and ok (B,)."""
+    if input_blocks.dim() == 3:
+        L, ok = factorize(sym, input_blocks[None],
+                          torch.as_tensor(lam, dtype=input_blocks.dtype,
+                                          device=input_blocks.device)[None])
+        return L[0], ok[0]
     b, dev, dtype = sym.b, input_blocks.device, input_blocks.dtype
+    B = input_blocks.shape[0]
 
     def idx(name):
         return device_array(sym, dev, name)
@@ -348,11 +376,12 @@ def factorize(sym: SparseCholeskySymbolic, input_blocks: torch.Tensor,
     if b > 1 and bool(np.any(sym.a_transpose)):
         input_blocks = torch.where(idx("a_transpose")[:, None, None],
                                    input_blocks.mT, input_blocks)
-    vals = torch.zeros((sym.nslots, b, b), dtype=dtype, device=dev)
-    vals.index_add_(0, idx("a_slot_of_input"), input_blocks)
+    vals = torch.zeros((B, sym.nslots, b, b), dtype=dtype, device=dev)
+    vals.index_add_(1, idx("a_slot_of_input"), input_blocks)
     eye = torch.eye(b, dtype=dtype, device=dev)
-    lam = torch.as_tensor(lam, dtype=dtype, device=dev)
-    vals.index_add_(0, idx("diag_slot_of"), (lam * eye).expand(sym.nb, b, b))
+    lam = _batch_lam(lam, input_blocks)
+    vals.index_add_(1, idx("diag_slot_of"),
+                    (lam[:, None, None, None] * eye).expand(B, sym.nb, b, b))
 
     s = sym.sched
     ut, ui, uj = idx("sched.upd_tgt"), idx("sched.upd_i"), idx("sched.upd_j")
@@ -360,31 +389,36 @@ def factorize(sym: SparseCholeskySymbolic, input_blocks: torch.Tensor,
     st, sd = idx("sched.sol_tgt"), idx("sched.sol_diag")
     uoff, foff, soff = (o.tolist() for o in (s.upd_off, s.fac_off,
                                              s.sol_off))
-    ok = torch.ones((), dtype=torch.bool, device=dev)
+    ok = torch.ones(B, dtype=torch.bool, device=dev)
+
+    def tiles(slots):      # (B, k, b, b) -> the B*k tiles of one launch
+        return vals.index_select(1, slots).reshape(-1, b, b)
+
     for k in range(s.nlevels):
         lo, hi = uoff[k], uoff[k + 1]
         if hi > lo:
-            contrib = (vals.index_select(0, ui[lo:hi])
-                       @ vals.index_select(0, uj[lo:hi]).mT)
-            vals.index_add_(0, ut[lo:hi], contrib, alpha=-1)
+            contrib = (vals.index_select(1, ui[lo:hi])
+                       @ vals.index_select(1, uj[lo:hi]).mT)
+            vals.index_add_(1, ut[lo:hi], contrib, alpha=-1)
         lo, hi = foff[k], foff[k + 1]
         if hi > lo:
             fc = fac[lo:hi]
-            L, blk_ok = tilechol.tile_cholesky(vals.index_select(0, fc))
-            vals.index_copy_(0, fc, L)
-            ok = ok & blk_ok.all()
+            L, blk_ok = tilechol.tile_cholesky(tiles(fc))
+            vals.index_copy_(1, fc, L.reshape(B, -1, b, b))
+            ok = ok & blk_ok.reshape(B, -1).all(-1)
         lo, hi = soff[k], soff[k + 1]
         if hi > lo:
             tgt = st[lo:hi]
-            vals.index_copy_(0, tgt, tilechol.tri_solve_right(
-                vals.index_select(0, sd[lo:hi]), vals.index_select(0, tgt)))
+            X = tilechol.tri_solve_right(tiles(sd[lo:hi]), tiles(tgt))
+            vals.index_copy_(1, tgt, X.reshape(B, -1, b, b))
     return vals, ok
 
 
 def _substitute(sym: SparseCholeskySymbolic, L_blocks: torch.Tensor,
                 y: torch.Tensor, phase: str) -> torch.Tensor:
     """One block-triangular substitution over its levels, in place on y
-    (nb, b, k): "fwd" solves L y = r, "bwd" solves L^T x = y."""
+    (B, nb, b, k) with L_blocks (B, nslots, b, b): "fwd" solves L y = r,
+    "bwd" solves L^T x = y."""
     ss = getattr(sym, phase)
     back = phase == "bwd"
 
@@ -397,18 +431,18 @@ def _substitute(sym: SparseCholeskySymbolic, L_blocks: torch.Tensor,
     for lev in range(len(poff) - 1):
         lo, hi = poff[lev], poff[lev + 1]
         if hi > lo:
-            blk = L_blocks.index_select(0, ps[lo:hi])
+            blk = L_blocks.index_select(1, ps[lo:hi])
             if back:
                 # subtract L_ij^T x_i from row j
                 blk = blk.mT
-            y.index_add_(0, pj[lo:hi], blk @ y.index_select(0, pk[lo:hi]),
+            y.index_add_(1, pj[lo:hi], blk @ y.index_select(1, pk[lo:hi]),
                          alpha=-1)
         lo, hi = doff[lev], doff[lev + 1]
         if hi > lo:
             rows = dr[lo:hi]
-            Ld = L_blocks.index_select(0, ds[lo:hi])
-            y.index_copy_(0, rows, torch.linalg.solve_triangular(
-                Ld.mT if back else Ld, y.index_select(0, rows), upper=back))
+            Ld = L_blocks.index_select(1, ds[lo:hi])
+            y.index_copy_(1, rows, torch.linalg.solve_triangular(
+                Ld.mT if back else Ld, y.index_select(1, rows), upper=back))
     return y
 
 
@@ -418,19 +452,23 @@ def solve(sym: SparseCholeskySymbolic, L_blocks: torch.Tensor,
     fill-reducing permutation of the analysis. rhs is in the caller's
     original order: (nb*b,), or (nb*b, k) for k right-hand sides at once
     (the reference pushes chunks of 4 through cholmod_solve,
-    dogleg.c:2427)."""
-    b = sym.b
-    squeeze = rhs.dim() == 1
+    dogleg.c:2427). A batch's factor, L_blocks (B, nslots, b, b), takes rhs
+    (B, nb*b) or (B, nb*b, k)."""
+    if L_blocks.dim() == 3:
+        return solve(sym, L_blocks[None], rhs[None])[0]
+    b, B = sym.b, L_blocks.shape[0]
+    squeeze = rhs.dim() == 2
     if squeeze:
-        rhs = rhs[:, None]
-    k = rhs.shape[1]
+        rhs = rhs[..., None]
+    k = rhs.shape[-1]
     perm = device_array(sym, rhs.device, "perm")
-    y = rhs.reshape(sym.nb, b, k).index_select(0, perm)
+    y = rhs.reshape(B, sym.nb, b, k).index_select(1, perm)
     y = _substitute(sym, L_blocks, y, "fwd")
     y = _substitute(sym, L_blocks, y, "bwd")
     # un-permute: original block perm[j] holds permuted solution block j
-    out = torch.empty_like(y).index_copy_(0, perm, y).reshape(sym.nb * b, k)
-    return out[:, 0] if squeeze else out
+    out = torch.empty_like(y).index_copy_(1, perm, y).reshape(
+        B, sym.nb * b, k)
+    return out[..., 0] if squeeze else out
 
 
 def factorize_with_lambda(sym: SparseCholeskySymbolic,
@@ -438,12 +476,18 @@ def factorize_with_lambda(sym: SparseCholeskySymbolic,
                           lam,
                           *,
                           lambda_initial: float = 1e-10,
-                          lambda_max_tries: int = 60):
+                          lambda_max_tries: int = 60,
+                          active: Optional[torch.Tensor] = None):
     """The permanent escalating-lambda loop around factorize (reference
-    dogleg.c:656-677). Returns (L_blocks, lam, ok)."""
+    dogleg.c:656-677). Returns (L_blocks, lam, ok). On a batch, lam and ok
+    are (B,) and each element escalates on its own, only where `active`
+    (B,) allows (ops/cholesky.escalating_lambda)."""
     from libdogleg_tpu_torch.ops.cholesky import escalating_lambda
+    lam = torch.as_tensor(lam, dtype=input_blocks.dtype,
+                          device=input_blocks.device)
+    if input_blocks.dim() == 4:
+        lam = _batch_lam(lam, input_blocks)
     return escalating_lambda(
-        lambda lm: factorize(sym, input_blocks, lm),
-        torch.as_tensor(lam, dtype=input_blocks.dtype,
-                        device=input_blocks.device),
-        lambda_initial=lambda_initial, lambda_max_tries=lambda_max_tries)
+        lambda lm: factorize(sym, input_blocks, lm), lam,
+        lambda_initial=lambda_initial, lambda_max_tries=lambda_max_tries,
+        active=active)

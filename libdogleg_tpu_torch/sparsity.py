@@ -4,8 +4,8 @@
 The reference analyses the sparsity pattern once per problem with
 cholmod_analyze (reference dogleg.c:649-654), since the pattern of zeros
 stays the same. Here that analysis is a static block pattern computed on the
-host with numpy. (The JAX package's C++ fast path for very large patterns is
-not ported.)
+host: by the host library (csrc/host/symbolic.cpp) where it is available,
+with numpy otherwise.
 """
 
 from __future__ import annotations
@@ -31,7 +31,14 @@ def bcsr_from_scalar_csr(rowptr: np.ndarray,
     J CSR layout, dogleg.h:11-20, sample.c:89-125): block (br, bc) is stored
     iff any scalar nonzero falls inside it. nmeas and nstate must divide
     into the block sizes (pad the problem otherwise)."""
+    from libdogleg_tpu_torch.native.symbolic import bcsr_pattern_native
     _check_divisible(nmeas, nstate, block_rows, block_cols)
+    nat = bcsr_pattern_native(rowptr, colidx, nmeas, nstate, block_rows,
+                              block_cols)
+    if nat is not None:
+        return BCSRStructure(nmeas=nmeas, nstate=nstate,
+                             block_rows=block_rows, block_cols=block_cols,
+                             indptr=nat[0], indices=nat[1])
     nbrow = nmeas // block_rows
     indptr = np.zeros(nbrow + 1, dtype=np.int32)
     rowptr = np.asarray(rowptr)

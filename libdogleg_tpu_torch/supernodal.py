@@ -12,7 +12,9 @@ levels, each tile op S^2 times larger, so kernels K6 and K7 run on S*b-wide
 tiles. It is exact: the diagonal supers are principal submatrices of the
 permuted JtJ, padded with decoupled identity states when nb % S != 0.
 
-The analysis is host numpy, identical in output to the JAX package's.
+The analysis is host numpy, identical in output to the JAX package's. A
+batch that shares the pattern takes a leading batch axis through every
+numeric function, as sparse_cholesky's do.
 """
 
 from __future__ import annotations
@@ -171,57 +173,64 @@ def analyze(rows: np.ndarray, cols: np.ndarray, nb: int, b: int = 1,
 
 def _super_blocks(sym: AmalgamatedSymbolic,
                   input_blocks: torch.Tensor) -> torch.Tensor:
-    """The (n_super_input, Sb, Sb) super blocks of the input blocks, the
-    mirrored sub-blocks and the unit diagonal of the padding states."""
+    """The (..., n_super_input, Sb, Sb) super blocks of the input blocks
+    (..., n_input, b, b), the mirrored sub-blocks and the unit diagonal of
+    the padding states."""
     sb, dev = sym.sb, input_blocks.device
-    flat_in = input_blocks.reshape(-1)
-    flat = torch.zeros(sym.n_super_input * sb * sb, dtype=input_blocks.dtype,
-                       device=dev)
-    flat.index_add_(0, sc.device_array(sym, dev, "scatter_idx"), flat_in)
+    lead = tuple(input_blocks.shape[:-3])
+    flat_in = input_blocks.reshape(lead + (-1,))
+    flat = flat_in.new_zeros(lead + (sym.n_super_input * sb * sb,))
+    flat.index_add_(-1, sc.device_array(sym, dev, "scatter_idx"), flat_in)
     if sym.mirror_idx.size:
-        flat.index_add_(0, sc.device_array(sym, dev, "mirror_idx"),
-                        flat_in[sc.device_array(sym, dev, "mirror_src")])
+        flat.index_add_(-1, sc.device_array(sym, dev, "mirror_idx"),
+                        flat_in.index_select(
+                            -1, sc.device_array(sym, dev, "mirror_src")))
     if sym.ones_idx.size:
         ones = sc.device_array(sym, dev, "ones_idx")
-        flat.index_add_(0, ones, torch.ones(ones.shape[0], dtype=flat.dtype,
-                                            device=dev))
-    return flat.reshape(sym.n_super_input, sb, sb)
+        flat.index_add_(-1, ones, flat.new_ones(lead + ones.shape))
+    return flat.reshape(lead + (sym.n_super_input, sb, sb))
 
 
 def factorize(sym: AmalgamatedSymbolic, input_blocks: torch.Tensor,
               lam) -> Tuple[torch.Tensor, torch.Tensor]:
     """Numeric factorization; input_blocks are the original (n_input, b, b)
-    lower-triangle blocks, as for sparse_cholesky.factorize."""
+    lower-triangle blocks, or a batch (B, n_input, b, b) with lam (B,), as
+    for sparse_cholesky.factorize."""
     return sc.factorize(sym.inner, _super_blocks(sym, input_blocks), lam)
 
 
 def solve(sym: AmalgamatedSymbolic, L_blocks: torch.Tensor,
           rhs: torch.Tensor) -> torch.Tensor:
-    """rhs: (n,) or (n, k) for k right-hand sides at once."""
-    b = sym.b
-    squeeze = rhs.dim() == 1
+    """rhs: (n,) or (n, k) for k right-hand sides at once; with a batch's
+    factor (B, nslots, Sb, Sb), (B, n) or (B, n, k)."""
+    if L_blocks.dim() == 3:
+        return solve(sym, L_blocks[None], rhs[None])[0]
+    b, B = sym.b, L_blocks.shape[0]
+    squeeze = rhs.dim() == 2
     if squeeze:
-        rhs = rhs[:, None]
-    k = rhs.shape[1]
+        rhs = rhs[..., None]
+    k = rhs.shape[-1]
     perm = sc.device_array(sym, rhs.device, "perm")
-    yb = rhs.reshape(sym.nb, b, k).index_select(0, perm)
-    yb = torch.cat([yb, yb.new_zeros((sym.nb_pad - sym.nb, b, k))])
-    x = sc.solve(sym.inner, L_blocks, yb.reshape(sym.nb_pad * b, k))
-    xb = x.reshape(sym.nb_pad, b, k)[:sym.nb]
-    out = torch.empty_like(xb).index_copy_(0, perm, xb)
-    out = out.reshape(sym.nb * b, k)
-    return out[:, 0] if squeeze else out
+    yb = rhs.reshape(B, sym.nb, b, k).index_select(1, perm)
+    yb = torch.cat([yb, yb.new_zeros((B, sym.nb_pad - sym.nb, b, k))], 1)
+    x = sc.solve(sym.inner, L_blocks, yb.reshape(B, sym.nb_pad * b, k))
+    xb = x.reshape(B, sym.nb_pad, b, k)[:, :sym.nb]
+    out = torch.empty_like(xb).index_copy_(1, perm, xb)
+    out = out.reshape(B, sym.nb * b, k)
+    return out[..., 0] if squeeze else out
 
 
 def factorize_with_lambda(sym: AmalgamatedSymbolic,
                           input_blocks: torch.Tensor, lam, *,
                           lambda_initial: float = 1e-10,
-                          lambda_max_tries: int = 60):
+                          lambda_max_tries: int = 60,
+                          active=None):
     """Escalating-lambda wrapper (reference dogleg.c:656-677 semantics).
     The super blocks are built once; retries only refactor. lam lands on
     the full super diagonal, the virtual padding states included, which
-    stay decoupled."""
+    stay decoupled. On a batch each element escalates on its own, only
+    where `active` allows."""
     blocks = _super_blocks(sym, input_blocks)
     return sc.factorize_with_lambda(
         sym.inner, blocks, lam, lambda_initial=lambda_initial,
-        lambda_max_tries=lambda_max_tries)
+        lambda_max_tries=lambda_max_tries, active=active)

@@ -1286,3 +1286,186 @@ def test_batched_sparse_w_f64_card_equal_cpu(cuda):
             np.testing.assert_allclose(r_d.p[name].cpu().numpy(),
                                        r_c.p[name].numpy(), rtol=1e-9,
                                        atol=1e-9)
+
+
+def _grid_batch(batch, width, b, dtype, device, amalgamate=1):
+    """A batch of grid MRFs (coupling "dense", element s made with seed s)
+    that share one structure: (products(p, data), zeros (B, n), data
+    (z_prior, z_edge, mix) (B, ...), the strategy on the lower JtJ
+    pattern). The products are the ones a user writes from the public
+    functions."""
+    import math
+
+    from libdogleg_tpu_torch import Products, SparseNewtonSolver
+    from libdogleg_tpu_torch.models import grid_mrf
+    from libdogleg_tpu_torch.ops import bcsr
+    gs = [grid_mrf.make_grid_mrf(width, width, b, coupling="dense", seed=s,
+                                 dtype=dtype, device=device)
+          for s in range(batch)]
+    g = gs[0]
+    sched = bcsr.jtj_lower_schedule(g.structure)
+    n, ne = g.n_nodes, g.edges.shape[0]
+    eu = torch.as_tensor(g.edges[:, 0], device=device)
+    ev = torch.as_tensor(g.edges[:, 1], device=device)
+    sp, se = math.sqrt(g.w_prior), math.sqrt(g.w_edge)
+    eye = torch.eye(b, dtype=dtype, device=device)
+
+    def products(p, data):
+        zp, ze, mix = data
+        pb = p.reshape(n, b)
+        x = torch.cat([(sp * (pb - zp)).reshape(-1),
+                       (se * ((mix @ pb[ev][..., None])[..., 0] - pb[eu]
+                              - ze)).reshape(-1)])
+        values = torch.cat([
+            (sp * eye).expand(n, b, b),
+            torch.stack([(-se * eye).expand(ne, b, b), se * mix],
+                        1).reshape(2 * ne, b, b)])
+        J = bcsr.BCSRJacobian(g.structure, values)
+        return Products(norm2_x=x @ x, Jt_x=bcsr.bcsr_jt_x(J, x),
+                        JtJ=bcsr.bcsr_jtj_lower_blocks(J, sched))
+    data = tuple(torch.stack([getattr(x, k) for x in gs])
+                 for k in ("z_prior", "z_edge", "mix"))
+    ns = SparseNewtonSolver.analyze(sched.rows, sched.cols, g.structure.nbcol,
+                                    b, amalgamate=amalgamate)
+    return products, torch.zeros(batch, g.nstate, dtype=dtype,
+                                 device=device), data, ns
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
+                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("bm,bn", [(8, 8), (3, 5)])
+def test_k3_batched_matches_plain_version(cuda, bm, bn, dtype, rtol):
+    """K3 on a batch of Jacobians that share a structure: one launch for
+    the batch, within rtol of the largest entry of the plain version
+    (ops/bcsr.jtj_pair_sum), and each element the bits of its own
+    launch."""
+    from libdogleg_tpu_torch.ops import bcsr
+    from libdogleg_tpu_torch.ops import bcsr_kernels as tk
+    J = _random_bcsr(61, 13, bm, bn, seed=bm + bn, dtype=dtype, device=cuda)
+    s = J.structure
+    sched = bcsr.jtj_lower_schedule(s)
+    V = torch.as_tensor(np.random.default_rng(5).normal(
+        size=(5, s.nnzb, bm, bn)), dtype=dtype, device=cuda)
+    Jb = bcsr.BCSRJacobian(s, V)
+    before = tk.launch_counts["bcsr_jtj_blocks_kernel"]
+    got = tk.bcsr_jtj_lower_kernel(Jb, sched)
+    torch.cuda.synchronize()
+    assert tk.launch_counts["bcsr_jtj_blocks_kernel"] == before + 1
+    assert torch.equal(bcsr.bcsr_jtj_lower_blocks(Jb, sched), got)
+    want = bcsr.jtj_pair_sum(V, sched.pair_i, sched.pair_j, sched.out_idx,
+                             len(sched.rows))
+    torch.testing.assert_close(got, want, rtol=rtol,
+                               atol=rtol * float(want.abs().max()))
+    for i in range(5):
+        one = tk.bcsr_jtj_lower_kernel(bcsr.BCSRJacobian(s, V[i]), sched)
+        assert torch.equal(one, got[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k3_batched_keeps_the_recorded_bits(cuda, dtype):
+    """The recorded K3_DIGESTS Jacobian as element 1 of a batch of three:
+    the batched launch gives it the bits of the single one, directly and
+    through the operator under torch.func.vmap."""
+    import hashlib
+
+    from libdogleg_tpu_torch.models import grid_mrf
+    from libdogleg_tpu_torch.ops import bcsr_kernels as tk
+    from libdogleg_tpu_torch.ops.bcsr import BCSRJacobian
+    s = grid_mrf.make_grid_mrf(32, 32, 8, coupling="dense", dtype=dtype,
+                               device=cuda).structure
+    vals = torch.as_tensor(np.random.default_rng(3).uniform(
+        -1.0, 1.0, size=(s.nnzb, s.block_rows, s.block_cols)), dtype=dtype,
+        device=cuda)
+    V = torch.stack([2.0 * vals, vals, -vals])
+    blocks, sched = tk.bcsr_jtj_blocks_kernel(BCSRJacobian(s, V))
+    before = tk.launch_counts["bcsr_jtj_blocks_kernel"]
+    mapped = torch.func.vmap(
+        lambda v: tk._jtj_launch(v, sched.out_idx, sched))(V)
+    assert tk.launch_counts["bcsr_jtj_blocks_kernel"] == before + 1
+    for got in (blocks[1], mapped[1]):
+        digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+        assert digest == K3_DIGESTS[dtype]
+
+
+@pytest.mark.cuda
+def test_k3_lower_blocks_raise_outside_the_kernels_range(cuda):
+    """On the card the sparse path's JtJ blocks come from K3 or nowhere:
+    values K3 does not take (float16 here) raise, and are never formed in
+    plain PyTorch on the card."""
+    from libdogleg_tpu_torch.ops import bcsr
+    J = _random_bcsr(61, 13, 8, 8, seed=4, dtype=torch.float16,
+                     device=cuda)
+    sched = bcsr.jtj_lower_schedule(J.structure)
+    with pytest.raises(ValueError, match="kernels' range"):
+        bcsr.bcsr_jtj_lower_blocks(J, sched)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
+                                        (torch.float32, 1e-4)])
+def test_k3_under_vmap(cuda, dtype, rtol):
+    """torch.func.vmap of a products function that forms its JtJ blocks
+    with bcsr_jtj_lower_blocks launches K3 once for the whole batch (the
+    operator's vmap rule), and each element's blocks are those of its own
+    products within rtol of the largest entry."""
+    from libdogleg_tpu_torch.ops import bcsr_kernels as tk
+    products, p0, data, _ = _grid_batch(4, 6, 4, dtype, cuda)
+    products_cpu = _grid_batch(4, 6, 4, dtype, torch.device("cpu"))[0]
+    P = p0 + torch.as_tensor(np.random.default_rng(2).normal(
+        size=tuple(p0.shape)), dtype=dtype, device=cuda)
+    before = tk.launch_counts["bcsr_jtj_blocks_kernel"]
+    pr = torch.func.vmap(products)(P, data)
+    torch.cuda.synchronize()
+    assert tk.launch_counts["bcsr_jtj_blocks_kernel"] == before + 1
+    assert pr.JtJ.shape[0] == 4
+    for i in range(4):
+        one = products(P[i], tuple(d[i] for d in data))
+        assert torch.equal(one.JtJ, pr.JtJ[i])
+        cpu = products_cpu(P[i].cpu(), tuple(d[i].cpu() for d in data))
+        torch.testing.assert_close(pr.JtJ[i].cpu(), cpu.JtJ, rtol=rtol,
+                                   atol=rtol * float(cpu.JtJ.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amalgamate", [1, 4])
+def test_batched_sparse_solve_f64_card_equals_cpu(cuda, amalgamate):
+    """A small float64 batched block-sparse solve (B 4, 8x8 grids, b 4)
+    through batched_optimize with SparseNewtonSolver: the card (K3, K6, K7)
+    takes the CPU's decisions (the plain versions), p within 1e-9; a
+    factorization of the batch launches K6 and K7 as often as one single
+    factorization does."""
+    from libdogleg_tpu_torch.ops import bcsr_kernels as tk
+    from libdogleg_tpu_torch.ops import tilechol
+    from libdogleg_tpu_torch.parallel import batched_optimize
+    runs = []
+    for device in (cuda, torch.device("cpu")):
+        products, p0, data, ns = _grid_batch(4, 8, 4, torch.float64, device,
+                                             amalgamate)
+        before = (tk.launch_counts["bcsr_jtj_blocks_kernel"],
+                  dict(tilechol.launch_counts))
+        runs.append(batched_optimize(products, p0, BENCH, problem_data=data,
+                                     newton_solver=ns, record_history=True))
+        if device.type == "cuda":
+            assert tk.launch_counts["bcsr_jtj_blocks_kernel"] > before[0]
+            assert all(tilechol.launch_counts[k] > before[1][k]
+                       for k in before[1])
+            blocks = torch.func.vmap(products)(p0, data).JtJ
+            be = ns._backend()
+            counts = []
+            for blk, lam in ((blocks, torch.zeros(4, dtype=torch.float64,
+                                                  device=cuda)),
+                             (blocks[0], 0.0)):
+                start = dict(tilechol.launch_counts)
+                be.factorize(ns.symbolic, blk, lam)
+                counts.append({k: tilechol.launch_counts[k] - start[k]
+                               for k in start})
+            assert counts[0] == counts[1] and all(counts[0].values())
+    r_d, r_c = runs
+    for field in ("step_count", "n_attempts", "reason", "lam"):
+        assert torch.equal(getattr(r_d, field).cpu(), getattr(r_c, field))
+    assert torch.equal(r_d.history.step_type.cpu(), r_c.history.step_type)
+    assert bool((r_d.reason > 0).all())
+    np.testing.assert_allclose(r_d.p.cpu().numpy(), r_c.p.numpy(),
+                               rtol=1e-9, atol=1e-9)

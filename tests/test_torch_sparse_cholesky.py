@@ -370,13 +370,22 @@ def test_quad_form_and_refinement_match_jax():
 
 
 def test_batched_blocks_raise():
-    ns = interop.grid_mrf_from_reference(
-        _grid(6, 5, 3), device="cpu").problem().default_newton_solver()
-    blocks = torch.zeros((2, len(ns.symbolic.in_rows), 3, 3),
-                         dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="batched"):
-        ns.gauss_newton(blocks, torch.zeros(2, 90, dtype=torch.float64),
-                        torch.zeros(2, dtype=torch.float64), **KW)
+    """A batch of JtJ blocks solves, each element as it does alone; only
+    blocks and a right-hand side of different batches raise."""
+    prob = interop.grid_mrf_from_reference(_grid(6, 5, 3),
+                                           device="cpu").problem()
+    ns = prob.default_newton_solver()
+    P = torch.as_tensor(np.random.default_rng(4).normal(size=(2, 90)))
+    pr = torch.func.vmap(prob.products)(P)
+    lam = torch.tensor([0.0, 1e-3], dtype=torch.float64)
+    r = ns.gauss_newton(pr.JtJ, pr.Jt_x, lam, **KW)
+    assert r.step.shape == (2, 90) and bool(r.ok.all())
+    for i in range(2):
+        one = ns.gauss_newton(pr.JtJ[i], pr.Jt_x[i], lam[i], **KW)
+        assert torch.equal(r.step[i], one.step)
+        assert float(r.lam[i]) == float(one.lam)
+    with pytest.raises(ValueError, match="batch shape"):
+        ns.gauss_newton(pr.JtJ, pr.Jt_x[:1], lam, **KW)
 
 
 # -- (e) lower JtJ blocks -----------------------------------------------------
