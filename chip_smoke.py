@@ -223,11 +223,27 @@ Phases, each printing its own lines:
      (the index_add form) and in turns with it; K6 and K7 at the batch's
      widest FACTOR and SOLVE levels (16 x k tiles of 128 x 128) against
      their plain versions and in turns with cholesky_ex and
-     solve_triangular.
+     solve_triangular;
+ 23. megakernel auto-promotion (parallel/mega_auto.py), K1 on functors
+     generated from ordinary products functions: the named instances'
+     SHA-256 digests (every field, f32 B=8192 and f64 B=1024) against the
+     parent's, K1_DIGESTS; config 3 (bench_all.py:156-184's closure over
+     the grid, B=10000), config 2's curve fit (Nstate 3, B=4096) and config
+     8's tanh family at Nstate 16 (nmeas 64, B=1024) planned, their sources
+     built together (nvcc seconds, ptxas registers, stack frame and spills
+     per N); config 3 through batched_optimize_compacted launching K1-auto
+     once and the masked driver never, recovered_frac >= 0.99, step-count
+     agreement >= 0.85 with the masked driver; configs 2 and 8 the same
+     way through batched_optimize; in float64 at B=1024 each generated
+     kernel's decisions its plain version's (p within 1e-10) and its
+     functor alone within 1e-12 of the graph on the CPU; config 3's public
+     call with and without promotion in turns (CUDA events, a dependent
+     fetch), the trace's host ms, K1-auto with its wrapper, alone
+     (profiler) and its plain version, and its bound.
      Each phase prints its seconds.
 Then one JSON line about the kernels (time, plain version's time, the
 library call's where one exists, and the bound from this run's shapes; K1
-once per instance; K3, K6 and K7 with their launches on each path that
+once per instance, the generated one's from phase 23; K3, K6 and K7 with their launches on each path that
 runs them, `launches` their sum), the card line again, and a last JSON
 line with "ok": true. Any failure exits non-zero before the last line; so
 does a machine without a CUDA device, or a directory without the package.
@@ -1793,7 +1809,7 @@ def kernel_launch_counts() -> dict:
     from libdogleg_tpu_torch.ops import (batchchol, bcsr_kernels, mega,
                                          panelchol, tilechol)
     return {"K1": mega.launch_count, "K1 factored": mega.factored_launch_count,
-            "K2": panelchol.launch_count, **bcsr_kernels.launch_counts,
+            "K1 auto": mega.auto_launch_count, "K2": panelchol.launch_count, **bcsr_kernels.launch_counts,
             "K5": batchchol.launch_count, **tilechol.launch_counts}
 
 
@@ -3603,6 +3619,332 @@ def ragged_f64_decisions(dev, factored: bool) -> str:
             f"{', '.join(map(str, F64_BATCHES))}; max |dp| {worst:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# 23. megakernel auto-promotion: K1 on generated functors
+
+CONFIG3_BATCH = 10000     # bench_all.py:156 config3_batched(batch=10000)
+CONFIG2_BATCH = 4096
+CONFIG8_N16 = (16, 1024)  # config 8's family at Nstate 16: nmeas 64
+AUTO_F64_BATCH = 1024
+# SHA-256 of every field of the named instances' results (k1_digests), as
+# the kernel stood before its solve moved into csrc/dogleg_solve.cuh (H100,
+# CUDA 12.8): the move changed no bit.
+K1_DIGESTS = {
+    "general float32 B=8192":
+        "f0f650dfd025c97b13c31bd0e974cd951c9bcc7e89a3b20c6725322bac7f46bc",
+    "factored float32 B=8192":
+        "745d436bd1d7e8b5689cc6abe7dc95d77fd4ffbcfe0e7afd8dc08fba7317cf42",
+    "general float64 B=1024":
+        "562e2c27832cb6d97954ce98186dd48f99ccfcf0ef3b822eee478d5645fddd41",
+    "factored float64 B=1024":
+        "3bd0a62ceab2f580e91e427b2f32edf324404daaef8d61148431dea32a4907ed",
+}
+
+
+def k1_digests(dev) -> dict:
+    """SHA-256 of every field of each named K1 instance's result, float32
+    at B=8192 under the benchmark rule and float64 at B=1024 under the
+    defaults, on the inputs of phases 3 and 17 (instances() and
+    factored_args() with seeds 1 and 0)."""
+    import hashlib
+
+    import torch
+
+    from libdogleg_tpu_torch import DoglegParameters
+    from libdogleg_tpu_torch.ops import mega
+    out = {}
+    for dtype, batch, seed, prm in (
+            (torch.float32, BATCH, 1, DoglegParameters(**BENCH)),
+            (torch.float64, 1024, 0, DoglegParameters())):
+        name = str(dtype).split(".")[-1]
+        for kind, fn, args in (
+                ("general", mega.megakernel_optimize,
+                 instances(seed, batch, dtype, dev)),
+                ("factored", mega.megakernel_optimize_factored,
+                 factored_args(seed, batch, dtype, dev)[0])):
+            r = fn(*args, prm)
+            h = hashlib.sha256()
+            for t in r:
+                if t is not None:
+                    h.update(t.cpu().numpy().tobytes())
+            out[f"{kind} {name} B={batch}"] = h.hexdigest()
+    return out
+
+
+def config3_products(gx, gy):
+    """bench_all.py:156-162's products, an ordinary closure over the grid,
+    in torch: no device function named, nothing batch-minor."""
+    from libdogleg_tpu_torch import Products
+    from libdogleg_tpu_torch.models import quadratic_surface as qs
+
+    def products(p, meas):
+        x = qs.model(p, gx, gy) - meas
+        J = qs.jacobian(p, gx, gy)
+        return Products(norm2_x=x @ x, Jt_x=J.T @ x, JtJ=J.T @ J)
+    return products
+
+
+def config2_batch(batch, dtype, device):
+    """Config 2's curve fit (nmeas 64, Nstate 3) as a batch of seeded
+    instances: element b's measurements P_TRUE's curve + 0.02 N(0, 1), its
+    start P_TRUE + 0.1 N(0, 1), from default_rng(2); the products close
+    over the sample times t. Returns (products, measurements, starts)."""
+    import torch
+
+    from libdogleg_tpu_torch import Products
+    from libdogleg_tpu_torch.models import curve_fit as cf
+    rng = np.random.default_rng(2)
+    t_np = np.linspace(0.0, 1.0, CONFIG2_NMEAS)
+    meas = (cf.P_TRUE[0] * np.exp(cf.P_TRUE[1] * t_np) + cf.P_TRUE[2]
+            + 0.02 * rng.normal(size=(batch, CONFIG2_NMEAS)))
+    p0 = cf.P_TRUE + 0.1 * rng.normal(size=(batch, cf.NSTATE))
+    t = torch.as_tensor(t_np, dtype=dtype, device=device)
+
+    def products(p, m):
+        x = cf.model(p, t) - m
+        J = cf.jacobian(p, t)
+        return Products(norm2_x=x @ x, Jt_x=J.T @ x, JtJ=J.T @ J)
+    return (products, torch.as_tensor(meas, dtype=dtype, device=device),
+            torch.as_tensor(p0, dtype=dtype, device=device))
+
+
+def auto_cases(dtype, dev, batches):
+    """The three functions phase 23 promotes, as (label, products, p0,
+    problem_data): config 3 (Nstate 6), config 2 (3) and config 8's family
+    at Nstate 16, at the batches given (one each)."""
+    from libdogleg_tpu_torch.models import quadratic_surface as qs
+    b3, b2, b8 = batches
+    p0, meas, _, _ = instances(30, b3, dtype, dev)
+    gx, gy = qs.make_grid(dtype, dev)
+    f2, m2, p2 = config2_batch(b2, dtype, dev)
+    data8, p8, _ = midsize_family(CONFIG8_N16[0], b8, dtype, dev)
+    return [("config 3", config3_products(gx, gy), p0, meas),
+            ("config 2", f2, p2, m2),
+            ("config 8 n16", midsize_products, p8, data8)]
+
+
+@contextlib.contextmanager
+def masked_runs():
+    """Counts, in its `count`, the calls of the masked batched driver's
+    entry points made by parallel/batched.py inside the context."""
+    from libdogleg_tpu_torch.parallel import batched
+    names = ("solve_products_batched", "init_batched_state")
+    saved = {name: getattr(batched, name) for name in names}
+    counter = type("Count", (), {"count": 0})()
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            counter.count += 1
+            return fn(*args, **kwargs)
+        return call
+    for name in names:
+        setattr(batched, name, counted(saved[name]))
+    try:
+        yield counter
+    finally:
+        for name in names:
+            setattr(batched, name, saved[name])
+
+
+def ptxas_auto(log: str) -> list:
+    """ptxas's registers, stack frame and spills of each generated K1
+    kernel in an nvcc log, one short line each."""
+    import re
+    out, name, frame = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"entry function '.*?(dogleg_auto(?:_products)?_kernel)"
+                      r"I([fd])Li(\d+)E", line)
+        if "entry function" in line:
+            name = (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}"
+                    f", N={m.group(3)}>" if m else None)
+        elif name and "stack frame" in line:
+            frame = line.strip()
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name}: {regs} registers; {frame}")
+            name = None
+    return out
+
+
+def decisions_agree(r, ref) -> float:
+    """Share of elements with the same step count (tests/test_mega_auto.py:
+    142's rule)."""
+    return (r.step_count == ref.step_count).float().mean().item()
+
+
+def phase23_mega_auto(dev, bench, card) -> dict:
+    import torch
+
+    from libdogleg_tpu_torch.native import loader
+    from libdogleg_tpu_torch.ops import mega
+    from libdogleg_tpu_torch.parallel import (batched_optimize,
+                                              batched_optimize_compacted,
+                                              mega_auto)
+    from libdogleg_tpu_torch.utils.benchtime import measure_ms
+
+    # the named instances' bits, against the parent's
+    digests = k1_digests(dev)
+    for key, digest in digests.items():
+        check(digest == K1_DIGESTS.get(key),
+              f"K1 {key}: SHA-256 {digest} is the parent's "
+              f"{K1_DIGESTS.get(key)}")
+    print(f"[23 named K1 digests] {len(digests)} results bit for bit the "
+          f"parent's: {json.dumps(digests)}", flush=True)
+
+    # plans for the three functions at full width, and their builds
+    cases = auto_cases(torch.float32, dev,
+                       (CONFIG3_BATCH, CONFIG2_BATCH, CONFIG8_N16[1]))
+    plans = []
+    for label, fn, p0, data in cases:
+        t0 = time.perf_counter()
+        plan = mega_auto.plan_megakernel(fn, p0, bench, problem_data=data)
+        trace_ms = (time.perf_counter() - t0) * 1e3
+        check(plan is not None, f"{label}: auto-promotion plans K1")
+        src = plan.kernel.source
+        plans.append(plan)
+        print(f"[23 plan {label}] B={p0.shape[0]} Nstate {src.nstate} f32: "
+              f"traced and generated in {trace_ms:.1f} ms; {src.n_inputs} "
+              f"inputs, {src.local_values} local values a problem, "
+              f"{src.operations} operations an evaluation", flush=True)
+    infos = loader.build_generated(*(p.kernel.source.text for p in plans))
+    print(f"[23 build] {len(infos)} generated sources, one nvcc process "
+          f"each, started together: {infos[0].seconds:.2f} s; card {card}",
+          flush=True)
+    for (label, *_), info in zip(cases, infos):
+        print(f"[23 ptxas {label}] {'; '.join(ptxas_auto(info.log))}",
+              flush=True)
+
+    # config 3's public call: exactly one K1-auto launch, no masked run
+    label, fn3, p0, meas = cases[0]
+    for key in ("launch_count", "factored_launch_count",
+                "auto_launch_count"):
+        setattr(mega, key, 0)
+    before = kernel_launch_counts()
+    with masked_runs() as masked:
+        r3 = batched_optimize_compacted(fn3, p0, bench, problem_data=meas)
+        torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in kernel_launch_counts().items()}
+    launches = counts.pop("K1 auto")
+    check(launches == 1 and masked.count == 0 and not any(counts.values()),
+          f"config 3: one K1-auto launch ({launches}), no masked run "
+          f"({masked.count}), no other kernel ({counts})")
+    rec = recovered_frac(r3.p)
+    check(bool((r3.reason > 0).all()) and rec >= 0.99
+          and bool(torch.isfinite(r3.p).all()),
+          f"config 3: every reason > 0, finite p, recovered_frac {rec} >= "
+          f"0.99")
+    r3m = batched_optimize_compacted(fn3, p0, bench, problem_data=meas,
+                                     use_megakernel=False)
+    agree = decisions_agree(r3, r3m)
+    same = r3.step_count == r3m.step_count
+    max_abs_err = (r3.p - r3m.p).abs()[same].max().item()
+    check(agree >= 0.85, f"config 3 f32: step-count agreement {agree} with "
+          f"the masked driver >= 0.85")
+    print(f"[23 config 3 B={CONFIG3_BATCH} f32] batched_optimize_compacted "
+          f"with the ordinary closure: K1-auto launches {launches}, masked "
+          f"runs {masked.count}, other kernels none; recovered_frac "
+          f"{rec:.4f} (>= 0.99; masked {recovered_frac(r3m.p):.4f}); reasons "
+          f"{torch.bincount(r3.reason, minlength=7).tolist()}; step-count "
+          f"agreement with the masked driver {agree:.4f} (>= 0.85); max "
+          f"|dp| where they agree {max_abs_err:.3e}; "
+          f"{attempts_text(r3.n_attempts)}", flush=True)
+
+    # the other two functions, each launched once, against the masked path
+    for (label, fn, p0_, data), plan in list(zip(cases, plans))[1:]:
+        before = mega.auto_launch_count
+        with masked_runs() as masked:
+            r = batched_optimize(fn, p0_, bench, problem_data=data)
+            torch.cuda.synchronize()
+        got = mega.auto_launch_count - before
+        check(got == 1 and masked.count == 0,
+              f"{label}: one K1-auto launch ({got}), no masked run")
+        rm = batched_optimize(fn, p0_, bench, problem_data=data,
+                              use_megakernel=False)
+        agree_ = decisions_agree(r, rm)
+        check(agree_ >= 0.85 and bool(torch.isfinite(r.p).all()),
+              f"{label} f32: finite, step-count agreement {agree_} >= 0.85")
+        print(f"[23 {label} B={p0_.shape[0]} f32] batched_optimize: K1-auto "
+              f"launches {got}, masked runs {masked.count}; step-count "
+              f"agreement with the masked driver {agree_:.4f} (>= 0.85); "
+              f"reasons {torch.bincount(r.reason, minlength=7).tolist()}; "
+              f"{attempts_text(r.n_attempts)}", flush=True)
+
+    # float64: the generated kernel against its plain version
+    for (label, fn, p0_, data) in auto_cases(
+            torch.float64, dev, (AUTO_F64_BATCH,) * 3):
+        plan = mega_auto.plan_megakernel(fn, p0_, None, problem_data=data,
+                                         forced=True)
+        r_k = plan()
+        r_p = mega.megakernel_optimize_generated_reference(
+            plan.kernel, p0_, plan.data_leaves)
+        got = mega.products_generated(plan.kernel, p0_, plan.data_leaves)
+        want = mega.products_generated(plan.kernel, p0_.cpu(),
+                                       tuple(t.cpu() for t in
+                                             plan.data_leaves))
+        torch.cuda.synchronize()
+        for field in ("step_count", "n_attempts", "reason"):
+            check(torch.equal(getattr(r_k, field), getattr(r_p, field)),
+                  f"{label} f64 {field} identical to the plain version's")
+        check(torch.allclose(r_k.p, r_p.p, rtol=1e-10, atol=1e-12),
+              f"{label} f64 p within 1e-10 of the plain version's")
+        perr = [rel_err(g.cpu(), w) for g, w in zip(got, want)]
+        check(max(perr) <= 1e-12, f"{label} f64 products within 1e-12 of "
+              f"the plain version's: {perr}")
+        print(f"[23 {label} f64 B={AUTO_F64_BATCH}] Nstate "
+              f"{plan.kernel.source.nstate}: step_count, n_attempts, reason "
+              f"identical to the plain version's; max |dp| "
+              f"{(r_k.p - r_p.p).abs().max().item():.3e} (1e-10); the "
+              f"functor alone against the graph on the CPU, largest "
+              f"difference over largest value: norm2 {perr[0]:.2e}, Jt_x "
+              f"{perr[1]:.2e}, JtJ {perr[2]:.2e}", flush=True)
+
+    # timing: config 3's public call with and without promotion, in turns
+    def public(mk):
+        return float(batched_optimize_compacted(
+            fn3, p0, bench, problem_data=meas,
+            use_megakernel=mk).norm2_x.sum())
+    turns = [measure_ms(public, mk, warmup=1, reps=3)
+             for mk in (None, False, False, None)]
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        mega_auto.plan_megakernel(fn3, p0, bench, problem_data=meas)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    plan = plans[0]
+    args = (plan.kernel, p0, plan.data_leaves, bench)
+    ms = measure_ms(mega.megakernel_optimize_generated, *args, warmup=3,
+                    reps=20)
+    plain_ms = measure_ms(mega.megakernel_optimize_generated_reference,
+                          *args, warmup=1, reps=3)
+    alone = kernel_us(mega.megakernel_optimize_generated, args,
+                      "dogleg_auto_kernel")
+    # the bound: the graph's operations an evaluation, one evaluation at the
+    # start and one an attempt, the step math an attempt as phase 6 counts
+    # it; p0, the data, the constants in and the results out
+    r_b = mega.megakernel_optimize_generated(*args)
+    n = plan.kernel.source.nstate
+    evals = float((r_b.n_attempts + 1).sum())
+    limit = bound(
+        nbytes_of(p0, *plan.data_leaves,
+                  *plan.kernel.consts_on(dev, torch.float32))
+        + nbytes_of(*(t for t in r_b if t is not None)),
+        evals * plan.kernel.source.operations
+        + float(r_b.n_attempts.sum()) * (n ** 3 / 3 + 6 * n * n + 10 * n))
+    print(f"[23 timing config 3 B={CONFIG3_BATCH} f32] the public call "
+          f"with a dependent fetch, in turns (auto, masked, masked, auto): "
+          f"{', '.join(f'{t:.3f}' for t in turns)} ms; trace and "
+          f"generation a call, host ms {', '.join(f'{w:.1f}' for w in walls)}"
+          f"; K1-auto with its wrapper {ms:.4f} ms "
+          f"({CONFIG3_BATCH / ms * 1e3:.0f} solves/s), alone {us_text(alone)}"
+          f"; plain version {plain_ms:.2f} ms; bound "
+          f"{limit['bound_ms'] * 1e3:.2f} us by {limit['bound_by']} "
+          f"({evals / CONFIG3_BATCH:.2f} evaluations of "
+          f"{plan.kernel.source.operations} operations a problem); card "
+          f"{card}", flush=True)
+    return dict(launches=launches, max_abs_err=max_abs_err, ms=ms,
+                plain_ms=plain_ms, library_ms=None, alone_us=alone, **limit)
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -3805,6 +4147,7 @@ def main() -> int:
     timed("20", phase20_batched_schur, dev, bench, card)
     timed("21", phase21_surface, dev, bench, card)
     p22 = timed("22", phase22_sparse_batched, dev, bench, card, host_build)
+    k1a = timed("23", phase23_mega_auto, dev, bench, card)
     print(f"[all seconds] {time.perf_counter() - started:.1f}", flush=True)
     paths.update({f"phase 22 ({k})": v for k, v in p22["paths"].items()})
     # K3, K6 and K7 run on several paths: each path's count, read with the
@@ -3832,6 +4175,9 @@ def main() -> int:
         entry("megakernel_optimize_factored",
               "libdogleg_tpu_torch/csrc/mega.cu",
               "libdogleg_tpu/ops/pallas_mega.py:522", k1f),
+        entry("megakernel_optimize_generated",
+              "libdogleg_tpu_torch/csrc/dogleg_auto.cuh",
+              "libdogleg_tpu/ops/pallas_mega.py:522", k1a),
         entry("panel_factor", "libdogleg_tpu_torch/csrc/panelchol.cu",
               "libdogleg_tpu/ops/pallas_panelchol.py:157", k2),
         entry("bcsr_jtj_blocks_kernel", "libdogleg_tpu_torch/csrc/bcsr.cu",

@@ -15,6 +15,13 @@ and flags. It needs no nvcc and no card. Where it cannot be built or loaded,
 `load_host_library` gives None and the callers take their Python forms, as
 the JAX package's native path does.
 
+The sources that parallel/mega_auto.py generates (kernel K1 on a products
+functor traced from a torch function; they include csrc/dogleg_auto.cuh)
+are built one library each by `build_generated`, with nvcc and the same
+flags, under a name that carries the hash of the source, the headers and
+the flags, so a second call with the same function builds nothing;
+`build_generated_host` builds the same text with g++ for the CPU tests.
+
 Nothing is compiled or loaded at import time.
 """
 
@@ -40,11 +47,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _HOST_SRC = _SRC / "host"
 HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+# The generated sources on the host, for the CPU tests: no fused
+# multiply-add, as on the card (csrc/dogleg_auto.cuh); without -ffast-math
+# no level of optimization reorders a sum, so the quickest build, -O0, gives
+# the same arithmetic as any other.
+GENERATED_HOST_FLAGS = ("-O0", "-shared", "-fPIC", "-std=c++17",
+                        "-ffp-contract=off")
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _HOST_LIB: Optional[ctypes.CDLL] = None
 _HOST_TRIED = False
+_GENERATED: dict = {}   # (generated source, host) -> its bound library
 
 
 class BuildInfo(NamedTuple):
@@ -102,10 +116,19 @@ def _hashed_name(stem: str, flags, files) -> str:
 
 def _run(cmds):
     """Run the commands concurrently; raise with the output of any that
-    fails. Returns the output of each, in order."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
+    fails, or where one cannot be started. Returns the output of each, in
+    order."""
+    procs = []
+    try:
+        for c in cmds:
+            procs.append(subprocess.Popen(c, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+    except OSError as e:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+        raise RuntimeError(f"compile failed: {' '.join(c)}: {e}") from e
     outs, failed = [], []
     try:
         for cmd, proc in zip(cmds, procs):
@@ -159,6 +182,113 @@ def build_host() -> BuildInfo:
                              "-o", tmp]]))
         os.replace(tmp, so)
     return BuildInfo(so, time.perf_counter() - t0, log)
+
+
+def _generated_path(stem: str, source: str, flags) -> pathlib.Path:
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(source.encode())
+    for header in sorted(_SRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return _BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+
+
+def generated_library_path(source: str) -> pathlib.Path:
+    return _generated_path("libdogleg_auto", source, NVCC_FLAGS)
+
+
+def _build_sources(sources, compiler, flags, path_of):
+    """Each source not yet built into its library by `path_of`, compiled
+    with `compiler` and `flags` (csrc/ on the include path), one process a
+    source, all started together; each written under a temporary name and
+    renamed. Returns a BuildInfo per source, in order; `seconds` is the
+    wall of the builds together."""
+    paths = [path_of(src) for src in sources]
+    todo = [k for k, so in enumerate(paths) if not so.exists()]
+    if not todo:
+        return [BuildInfo(so, 0.0, "") for so in paths]
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    logs = {}
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmpdir:
+        cmds, tmps = [], []
+        for k in todo:
+            src = os.path.join(tmpdir, f"auto{k}.cu")
+            with open(src, "w") as f:
+                f.write(sources[k])
+            tmps.append(os.path.join(tmpdir, paths[k].name))
+            cmds.append([compiler(), *flags, "-I", str(_SRC), src, "-o",
+                         tmps[-1]])
+        for k, tmp, log in zip(todo, tmps, _run(cmds)):
+            os.replace(tmp, paths[k])
+            logs[k] = log
+    seconds = time.perf_counter() - t0
+    return [BuildInfo(so, seconds, logs[k]) if k in logs
+            else BuildInfo(so, 0.0, "") for k, so in enumerate(paths)]
+
+
+def build_generated(*sources: str):
+    """Compile generated sources (parallel/mega_auto.py) with nvcc and
+    NVCC_FLAGS, one shared library each holding both types' entries, unless
+    a build of the same text, headers and flags exists under _build/.
+    Returns a BuildInfo per source. Raises RuntimeError where nvcc is
+    missing, cannot be started or fails."""
+    return _build_sources(sources, find_nvcc, ("-shared", *NVCC_FLAGS),
+                          generated_library_path)
+
+
+def build_generated_host(source: str) -> BuildInfo:
+    """The same text built as host C++ with g++ (GENERATED_HOST_FLAGS): the
+    entries dogleg_auto_host_solve_* and dogleg_auto_host_products_*, for
+    the CPU tests. Raises RuntimeError where g++ is missing or fails."""
+    def gxx():
+        found = shutil.which("g++")
+        if found is None:
+            raise RuntimeError("g++ not found on PATH")
+        return found
+    return _build_sources(
+        [source], gxx, ("-x", "c++", *GENERATED_HOST_FLAGS),
+        lambda src: _generated_path("libdogleg_auto_host", src,
+                                    GENERATED_HOST_FLAGS))[0]
+
+
+def bind_generated(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the entry points of a generated library, built by nvcc
+    (dogleg_auto_solve_*, dogleg_auto_products_*) or by g++
+    (dogleg_auto_host_*)."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for dt in ("f32", "f64"):
+        # p0, input pointers, B, params, 9 outputs[, device, stream]
+        # p, input pointers, B, norm2, jtx, jtj[, device, stream]
+        for prefix, tail in (("dogleg_auto_", [i32, ptr]),
+                             ("dogleg_auto_host_", [])):
+            fn = getattr(lib, f"{prefix}solve_{dt}", None)
+            if fn is not None:
+                fn.argtypes = [ptr, ptr, i32, ptr] + [ptr] * 9 + tail
+                fn.restype = i32
+                fn = getattr(lib, f"{prefix}products_{dt}")
+                fn.argtypes = [ptr, ptr, i32] + [ptr] * 3 + tail
+                fn.restype = i32
+    for name in ("dogleg_auto_nstate", "dogleg_auto_inputs"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i32
+    return lib
+
+
+def load_generated(source: str, host: bool = False) -> ctypes.CDLL:
+    """The library of a generated source, built at its first use (nvcc, or
+    g++ where `host`), bound and cached in the process by the source's
+    text: a later call with the same text neither hashes nor builds."""
+    key = (source, host)
+    lib = _GENERATED.get(key)
+    if lib is not None:
+        return lib
+    info = build_generated_host(source) if host else build_generated(
+        source)[0]
+    with _LOCK:
+        if key not in _GENERATED:
+            _GENERATED[key] = bind_generated(ctypes.CDLL(str(info.path)))
+        return _GENERATED[key]
 
 
 def _bind_host(lib: ctypes.CDLL) -> ctypes.CDLL:

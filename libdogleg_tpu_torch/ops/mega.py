@@ -24,6 +24,16 @@ The JAX package pins its kernel to decision parity with its batched solver
 plain version. On a CPU tensor each wrapper runs its twin; on a CUDA tensor
 it launches the kernel on the current stream or raises.
 
+A third form takes any products function that parallel/mega_auto.py can
+trace and generate a functor for (K1 at any Nstate <= 16, csrc/
+dogleg_auto.cuh on csrc/dogleg_solve.cuh, the solve mega.cu runs):
+`megakernel_optimize_generated` launches it on CUDA tensors (one library
+per generated source, built by native/loader.build_generated) and counts
+in `auto_launch_count`; its plain version
+`megakernel_optimize_generated_reference` is the masked batched solver on
+the traced graph, vmapped. `products_generated` runs the generated functor
+alone.
+
 `products_device`, `factored_products_device` and `error_free_transforms`
 run the device functions and the factored one's two_prod/two_sum alone, so
 that the card can hold them to their plain versions; they are no launches
@@ -54,9 +64,11 @@ DEVICE_FUNCTIONS = frozenset({"quadratic_surface_products",
                               "quadratic_surface_factored_products"})
 
 # Kernel launches made in this process by megakernel_optimize (the general
-# instance) and by megakernel_optimize_factored (the factored one).
+# instance), by megakernel_optimize_factored (the factored one) and by
+# megakernel_optimize_generated (K1 on a generated functor).
 launch_count = 0
 factored_launch_count = 0
+auto_launch_count = 0
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -140,23 +152,22 @@ def _factored_inputs(p0, h_hi, h_lo, n2m_hi, n2m_lo, G_pair):
                  for t in (p0, h_hi, h_lo, n2m_hi, n2m_lo, *G_pair))
 
 
-def _launch_solve(name: str, ins, prm: DoglegParameters) -> SolveResult:
-    """Launch the solve entry `name` (dogleg_mega or dogleg_mega_factored)
-    for p0's dtype on `ins` (p0 first), with the outputs allocated on p0's
-    device; returns them as a batch-leading SolveResult."""
-    from libdogleg_tpu_torch.native.loader import launch_target, load_library
-    p0 = ins[0]
+def _launch_solve(entry, p0: torch.Tensor, ins,
+                  prm: DoglegParameters) -> SolveResult:
+    """Launch the solve entry `entry` of p0's dtype: p0's pointer, then
+    `ins` (pointers as ints), then B, the parameters, the outputs
+    allocated on p0's device, and the launch target. Returns the outputs as
+    a batch-leading SolveResult."""
+    from libdogleg_tpu_torch.native.loader import launch_target
     B, n = p0.shape
     dev, dt = p0.device, p0.dtype
-    entry = getattr(load_library(),
-                    name + ("_f32" if dt == torch.float32 else "_f64"))
     p = torch.empty((B, n), dtype=dt, device=dev)
     jtx = torch.empty((B, n), dtype=dt, device=dev)
     jtj = torch.empty((B, n, n), dtype=dt, device=dev)
     norm2, tr, lam = torch.empty((3, B), dtype=dt, device=dev).unbind(0)
     step_count, n_attempts, reason = torch.empty(
         (3, B), dtype=torch.int32, device=dev).unbind(0)
-    err = entry(*(t.data_ptr() for t in ins), B, ctypes.byref(_c_params(prm)),
+    err = entry(p0.data_ptr(), *ins, B, ctypes.byref(_c_params(prm)),
                 p.data_ptr(), jtx.data_ptr(), jtj.data_ptr(), norm2.data_ptr(),
                 tr.data_ptr(), lam.data_ptr(), step_count.data_ptr(),
                 n_attempts.data_ptr(), reason.data_ptr(), *launch_target(dev))
@@ -165,6 +176,12 @@ def _launch_solve(name: str, ins, prm: DoglegParameters) -> SolveResult:
     return SolveResult(p=p, norm2_x=norm2, Jt_x=jtx, JtJ=jtj,
                        step_count=step_count, n_attempts=n_attempts,
                        reason=reason, trustregion=tr, lam=lam)
+
+
+def _named_entry(name: str, dtype: torch.dtype):
+    from libdogleg_tpu_torch.native.loader import load_library
+    return getattr(load_library(),
+                   name + ("_f32" if dtype == torch.float32 else "_f64"))
 
 
 def _require_cuda(t: torch.Tensor) -> None:
@@ -205,8 +222,9 @@ def megakernel_optimize(p0: torch.Tensor, meas: torch.Tensor,
     if p0.device.type == "cpu":
         return megakernel_optimize_reference(p0, meas, gx, gy, prm)
     _require_cuda(p0)
-    result = _launch_solve("dogleg_mega", _general_inputs(p0, meas, gx, gy),
-                           prm)
+    ins = _general_inputs(p0, meas, gx, gy)
+    result = _launch_solve(_named_entry("dogleg_mega", p0.dtype), ins[0],
+                           [t.data_ptr() for t in ins[1:]], prm)
     launch_count += 1
     return result
 
@@ -251,11 +269,119 @@ def megakernel_optimize_factored(p0: torch.Tensor, h_hi: torch.Tensor,
         return megakernel_optimize_factored_reference(
             p0, h_hi, h_lo, n2m_hi, n2m_lo, G_pair, prm)
     _require_cuda(p0)
-    result = _launch_solve(
-        "dogleg_mega_factored",
-        _factored_inputs(p0, h_hi, h_lo, n2m_hi, n2m_lo, G_pair), prm)
+    ins = _factored_inputs(p0, h_hi, h_lo, n2m_hi, n2m_lo, G_pair)
+    result = _launch_solve(_named_entry("dogleg_mega_factored", p0.dtype),
+                           ins[0], [t.data_ptr() for t in ins[1:]], prm)
     factored_launch_count += 1
     return result
+
+
+def _check_generated(kernel, p: torch.Tensor, data_leaves) -> None:
+    """p is (B, n) float32 or float64 for the kernel's n; each data leaf
+    (B, ...) with the element size the kernel was generated for, p's dtype
+    and device."""
+    src = kernel.source
+    if p.dim() != 2 or p.shape[1] != src.nstate:
+        raise ValueError(f"p0 must be (B, {src.nstate}), got "
+                         f"{tuple(p.shape)}")
+    if p.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"p0 must be float32 or float64, got {p.dtype}")
+    if p.shape[0] >= 2 ** 31:
+        raise ValueError("batch too large for the kernel's int indexing")
+    if len(data_leaves) != len(src.data_numel):
+        raise ValueError(f"the kernel takes {len(src.data_numel)} "
+                         f"problem-data leaves, got {len(data_leaves)}")
+    for k, (t, numel) in enumerate(zip(data_leaves, src.data_numel)):
+        if t.dim() < 1 or t.shape[0] != p.shape[0] or \
+                t[0].numel() != numel:
+            raise ValueError(f"problem-data leaf {k} must be (B, ...) with "
+                             f"{numel} values an element, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != p.dtype or t.device != p.device:
+            raise ValueError(f"problem-data leaf {k} must match p0's dtype "
+                             "and device")
+
+
+def _generated_ins(kernel, p: torch.Tensor, data_leaves):
+    """The input tensors (contiguous data leaves, then the constants on p's
+    device and dtype) and a ctypes array of their pointers."""
+    tensors = [t.contiguous() for t in data_leaves] + list(
+        kernel.consts_on(p.device, p.dtype))
+    ptrs = (ctypes.c_void_p * max(len(tensors), 1))(
+        *(t.data_ptr() for t in tensors))
+    return tensors, ptrs
+
+
+def megakernel_optimize_generated_reference(
+        kernel, p0: torch.Tensor, data_leaves=(),
+        parameters: Optional[DoglegParameters] = None) -> SolveResult:
+    """The generated K1's plain version: the masked batched solver of
+    solver.py on the traced graph (parallel/mega_auto.AdaptedProducts.
+    plain), vmapped over the batch, on any device."""
+    _check_generated(kernel, p0, data_leaves)
+    consts = kernel.consts_on(p0.device, p0.dtype)
+    vf = torch.func.vmap(functools.partial(kernel.adapted.plain,
+                                           consts=consts))
+    return solve_products_batched(lambda p: vf(p, *data_leaves), p0,
+                                  parameters)
+
+
+def megakernel_optimize_generated(kernel, p0: torch.Tensor, data_leaves=(),
+                                  parameters: Optional[DoglegParameters]
+                                  = None) -> SolveResult:
+    """Solve B problems on K1 with a generated products functor: `kernel` a
+    parallel/mega_auto.GeneratedKernel, p0 (B, n), data_leaves the
+    problem data's leaves, each (B, ...). Returns a batch-leading
+    SolveResult (history=None, JtJ its lower triangle mirrored).
+
+    CPU tensors go to megakernel_optimize_generated_reference. Otherwise
+    the kernel's library is built (or found) first, which raises
+    RuntimeError where nvcc fails, and then the kernel is launched on the
+    current stream without synchronizing; a tensor on any other device than
+    CUDA raises."""
+    global auto_launch_count
+    prm = parameters if parameters is not None else DoglegParameters()
+    _check_generated(kernel, p0, data_leaves)
+    if p0.device.type == "cpu":
+        return megakernel_optimize_generated_reference(kernel, p0,
+                                                       data_leaves, prm)
+    lib = kernel.library()
+    _require_cuda(p0)
+    p0 = p0.contiguous()
+    tensors, ptrs = _generated_ins(kernel, p0, data_leaves)
+    entry = (lib.dogleg_auto_solve_f32 if p0.dtype == torch.float32
+             else lib.dogleg_auto_solve_f64)
+    result = _launch_solve(entry, p0, [ctypes.addressof(ptrs)], prm)
+    del tensors
+    auto_launch_count += 1
+    return result
+
+
+def products_generated(kernel, p: torch.Tensor, data_leaves=()):
+    """The generated functor alone at p (B, n) -> (norm2 (B,), Jt_x (B, n),
+    JtJ (B, n, n), the lower triangle mirrored, as the kernel keeps it).
+    CPU tensors take its plain version, the graph vmapped."""
+    _check_generated(kernel, p, data_leaves)
+    if p.device.type == "cpu":
+        consts = kernel.consts_on(p.device, p.dtype)
+        r = torch.func.vmap(functools.partial(kernel.adapted.plain,
+                                              consts=consts))(p, *data_leaves)
+        return r.norm2_x, r.Jt_x, _lower_mirrored(r.JtJ)
+    from libdogleg_tpu_torch.native.loader import launch_target
+    lib = kernel.library()
+    _require_cuda(p)
+    p = p.contiguous()
+    tensors, ptrs = _generated_ins(kernel, p, data_leaves)
+    outs = _products_out(p)
+    entry = (lib.dogleg_auto_products_f32 if p.dtype == torch.float32
+             else lib.dogleg_auto_products_f64)
+    err = entry(p.data_ptr(), ctypes.addressof(ptrs), p.shape[0],
+                *(t.data_ptr() for t in outs), *launch_target(p.device))
+    if err:
+        raise RuntimeError(f"dogleg_auto_products launch failed: "
+                           f"cudaError_t {err}")
+    del tensors
+    return outs
 
 
 def _lower_mirrored(jtj: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,12 @@
 """Batched independent solves (counterpart of
 libdogleg_tpu/parallel/batched.py:121-406).
 
-A batch of independent problem instances goes either to the whole-solve
-kernel K1 (ops/mega.py), in the instance whose device function the products
-function names, or to the masked batched solver of solver.py, with
+A batch of independent problem instances goes to the whole-solve kernel K1
+(ops/mega.py) in the instance whose device function the products function
+names; else, where parallel/mega_auto.py can take the products function (a
+(B, n <= 16) state, a dense JtJ, float32 on the card from a batch of 1024,
+or use_megakernel=True), to K1 on a functor generated from it; else to the
+masked batched solver of solver.py, with
 the per-element products function batched by torch.func.vmap. On the masked
 path a dense mid-size JtJ in a large batch takes BlockedDenseNewtonSolver
 by default (_auto_newton), whose factorization is kernel K5 on CUDA tensors,
@@ -42,38 +45,64 @@ def _check_layout(layout: str) -> None:
 
 def _kernel_takes(products_fn, p0_batch, newton_solver, record_history,
                   use_megakernel) -> bool:
-    """The gate in front of kernel K1.
+    """The gate in front of kernel K1's named instances, which comes first.
 
-    The kernel takes the batch when the products function names a device
-    function it has (in its `cuda_device_function` attribute: the general
-    instance for quadratic_surface.products, the factored one for
+    A named instance takes the batch when the products function names a
+    device function it has (in its `cuda_device_function` attribute: the
+    general instance for quadratic_surface.products, the factored one for
     quadratic_surface.factored_products_fn(G_pair)), the states are one
     tensor on CUDA, and neither a custom Newton strategy nor a History is
-    asked for. use_megakernel=True raises where the kernel cannot take the
-    batch; False disables it. There is no
-    minimum batch (the JAX package's AUTO_MEGA_MIN_BATCH amortizes a Mosaic
-    compile; here the build happens once per process and the kernel is the
-    faster path at any batch), and no fallback: a batch the kernel takes
-    runs on it or raises.
+    asked for; use_megakernel=True raises where it cannot, and False
+    disables it. There is no minimum batch (the library is built once per
+    process, and the kernel is the faster path at any batch) and no
+    fallback: a batch it takes runs on it or raises. A products function
+    that names no device function goes on to _try_megakernel.
     """
     if use_megakernel is False:
         return False
     from libdogleg_tpu_torch.ops.mega import DEVICE_FUNCTIONS
-    known = getattr(products_fn, "cuda_device_function",
-                    None) in DEVICE_FUNCTIONS
+    if getattr(products_fn, "cuda_device_function",
+               None) not in DEVICE_FUNCTIONS:
+        return False
     flat = isinstance(p0_batch, torch.Tensor)
     if use_megakernel:
-        if not known or not flat:
-            raise ValueError(
-                "use_megakernel=True needs a (B, Nstate) start and a "
-                "products function the kernel computes on the device (one "
-                f"of {sorted(DEVICE_FUNCTIONS)})")
+        if not flat:
+            raise ValueError("use_megakernel=True needs a (B, Nstate) start")
         if newton_solver is not None or record_history:
             raise ValueError("use_megakernel=True is incompatible with "
                              "record_history and newton_solver")
         return True
-    return (known and flat and p0_batch.is_cuda and newton_solver is None
+    return (flat and p0_batch.is_cuda and newton_solver is None
             and not record_history)
+
+
+def _try_megakernel(products_fn, p0_batch, prm, problem_data, newton_solver,
+                    record_history, use_megakernel):
+    """Auto-promotion into K1 on a generated functor (the JAX package's
+    parallel/batched.py:87-119): a plan (parallel/mega_auto.plan_megakernel)
+    to call, or None for the masked path. None as well where
+    use_megakernel is False or LIBDOGLEG_TPU_NO_MEGAKERNEL is set, and for a
+    History or a custom strategy; with use_megakernel=True those, and a
+    function outside the regime, raise. Once a plan exists nothing falls
+    back: its build or launch errors raise."""
+    from libdogleg_tpu_torch.parallel.mega_auto import (_env_disabled,
+                                                        plan_megakernel)
+    if use_megakernel is False or _env_disabled():
+        return None
+    forced = bool(use_megakernel)
+    if record_history or newton_solver is not None:
+        if forced:
+            raise ValueError("use_megakernel=True is incompatible with "
+                             "record_history and newton_solver")
+        return None
+    plan = plan_megakernel(products_fn, p0_batch, prm,
+                           problem_data=problem_data, forced=forced)
+    if plan is None and forced:
+        raise ValueError(
+            "use_megakernel=True but the problem is outside the megakernel "
+            "regime (needs a single (B, n <= 16) state batch and a dense "
+            "JtJ)")
+    return plan
 
 
 def _auto_newton(products_fn, p0_batch, problem_data):
@@ -124,19 +153,25 @@ def _prepare(products_fn, p0_batch, parameters, mesh, problem_data,
              newton_solver, layout, record_history, use_megakernel):
     """What both entry points do first: refuse what is not ported or what
     the masked solver cannot take, resolve the parameters, and pick the
-    path. Returns (parameters, newton_solver,
-    batched_of): batched_of is None when kernel K1 takes the batch;
-    otherwise batched_of() is the batch-leading products function of the
-    whole batch for the masked solver and batched_of(idx) that of the
-    elements idx (their problem_data gathered), and newton_solver is the
-    given or auto-selected strategy."""
+    path. Returns (parameters, newton_solver, batched_of, kernel):
+    kernel is a zero-argument callable that runs the solve on K1 (a named
+    instance, else a generated one) or None; when it is None, batched_of()
+    is the batch-leading products function of the whole batch for the
+    masked solver and batched_of(idx) that of the elements idx (their
+    problem_data gathered), and newton_solver is the given or
+    auto-selected strategy."""
     _check_layout(layout)
     if mesh is not None:
         raise NotImplementedError("mesh= is not ported yet")
     prm = parameters if parameters is not None else DoglegParameters()
     if _kernel_takes(products_fn, p0_batch, newton_solver, record_history,
                      use_megakernel):
-        return prm, None, None
+        return prm, None, None, lambda: _run_megakernel(
+            products_fn, p0_batch, problem_data, prm)
+    plan = _try_megakernel(products_fn, p0_batch, prm, problem_data,
+                           newton_solver, record_history, use_megakernel)
+    if plan is not None:
+        return prm, None, None, plan
     _check_start(p0_batch, newton_solver)
     if newton_solver is None:
         newton_solver = _auto_newton(products_fn, p0_batch, problem_data)
@@ -148,7 +183,7 @@ def _prepare(products_fn, p0_batch, parameters, mesh, problem_data,
         data = (problem_data if idx is None else
                 pytree.tree_map(lambda a: a[idx], problem_data))
         return lambda p: vf(p, data)
-    return prm, newton_solver, batched_of
+    return prm, newton_solver, batched_of, None
 
 
 def _run_megakernel(products_fn, p0_batch, problem_data,
@@ -208,18 +243,24 @@ def batched_optimize(products_fn,
       layout, wavefront_unroll: accepted and ignored. In the JAX package they
         tune the XLA program's carry layout and fusion on a TPU; the masked
         solver's decisions do not depend on them.
-      use_megakernel: None selects kernel K1 when it can take the batch (see
-        _kernel_takes); True requires it; False disables it.
+      use_megakernel: None selects kernel K1 when it can take the batch: a
+        named instance (_kernel_takes), else, for float32 CUDA states (B,
+        n <= 16) with B >= 1024 and a dense JtJ, a functor generated from
+        products_fn (parallel/mega_auto.py; not under
+        LIBDOGLEG_TPU_NO_MEGAKERNEL). True requires K1 (a generated functor
+        at any batch and in float64 too, the plain version on CPU tensors)
+        and raises where it cannot; False disables both. A batch K1 takes
+        runs on it or raises: nvcc and launch errors are not caught.
       mesh, axis_name: sharding is not ported yet; mesh= raises
         NotImplementedError.
 
     Returns a SolveResult whose leaves carry the leading batch axis.
     """
-    prm, newton_solver, batched_of = _prepare(
+    prm, newton_solver, batched_of, kernel = _prepare(
         products_fn, p0_batch, parameters, mesh, problem_data, newton_solver,
         layout, record_history, use_megakernel)
-    if batched_of is None:
-        return _run_megakernel(products_fn, p0_batch, problem_data, prm)
+    if kernel is not None:
+        return kernel()
     return solve_products_batched(batched_of(), p0_batch, prm,
                                   newton_solver=newton_solver,
                                   record_history=record_history,
@@ -263,14 +304,15 @@ def batched_optimize_compacted(products_fn,
     elements, padded with duplicates of element 0, because a jitted program
     needs static shapes; eager PyTorch gathers exactly the live elements (at
     most compact_capacity of them) and needs no fill. When kernel K1 takes
-    the batch, compaction is moot and the kernel runs it, as in
-    batched_optimize. The other arguments are batched_optimize's.
+    the batch (a named instance or a generated functor), compaction is moot
+    and the kernel runs it, as in batched_optimize. The other arguments
+    are batched_optimize's.
     """
-    prm, newton_solver, batched_of = _prepare(
+    prm, newton_solver, batched_of, kernel = _prepare(
         products_fn, p0_batch, parameters, mesh, problem_data, newton_solver,
         layout, record_history, use_megakernel)
-    if batched_of is None:
-        return _run_megakernel(products_fn, p0_batch, problem_data, prm)
+    if kernel is not None:
+        return kernel()
     batch = tv.tree_leaves(p0_batch)[0].shape[0]
     cap = compact_capacity or max(batch // 16, 1)
     full = batched_of()

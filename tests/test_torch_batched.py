@@ -96,8 +96,10 @@ def test_shared_data_products_without_problem_data():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(use_megakernel=True, products=lambda p, m: tsp.products(p, m)),
-     ValueError),
+    # a function outside K1's regime (cumsum has no generated code): a
+    # forced call raises; an ordinary one is promoted (test_torch_mega_auto)
+    (dict(use_megakernel=True,
+          products=lambda p, m: tsp.products(p.cumsum(0), m)), ValueError),
     (dict(use_megakernel=True, newton_solver=DenseNewtonSolver()),
      ValueError),
     (dict(mesh=object()), NotImplementedError),
@@ -199,9 +201,10 @@ def test_compacted_kernel_gate_on_cpu_runs_the_twin():
     assert mega.launch_count == before
     for field in _DECISIONS + _VALUES:
         assert torch.equal(getattr(r_c, field), getattr(r_k, field)), field
-    with pytest.raises(ValueError):
-        batched_optimize_compacted(lambda p, m: tsp.products(p, m), p0, prm,
-                                   problem_data=meas, use_megakernel=True)
+    with pytest.raises(ValueError):    # outside K1's regime: cumsum
+        batched_optimize_compacted(lambda p, m: tsp.products(p.cumsum(0), m),
+                                   p0, prm, problem_data=meas,
+                                   use_megakernel=True)
 
 
 @pytest.mark.parametrize("kw,exc", [

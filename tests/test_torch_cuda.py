@@ -1,5 +1,5 @@
-"""Kernels K1-K7 (K1 in both of its instances) on a CUDA card against
-their plain twins on the same card.
+"""Kernels K1-K7 (K1 in its two named instances and on generated functors)
+on a CUDA card against their plain twins on the same card.
 
 These tests need an NVIDIA GPU and skip without one. This file imports no
 jax, so it runs on a machine that has only PyTorch:
@@ -1469,3 +1469,67 @@ def test_batched_sparse_solve_f64_card_equals_cpu(cuda, amalgamate):
     assert bool((r_d.reason > 0).all())
     np.testing.assert_allclose(r_d.p.cpu().numpy(), r_c.p.numpy(),
                                rtol=1e-9, atol=1e-9)
+
+
+def _smoke():
+    """chip_smoke.py of this tree, for its inputs and recorded digests."""
+    import pathlib
+    import sys
+    root = str(pathlib.Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["config 3", "config 2", "config 8 n16"])
+def test_generated_k1_f64_decisions_equal_plain_version(cuda, case):
+    """K1 on a generated functor (Nstate 6, 3 and 16) against its plain
+    version on the card: identical decisions, p within 1e-10; the functor
+    alone against the traced graph on the CPU within 1e-12."""
+    from libdogleg_tpu_torch.parallel import mega_auto
+    c = _smoke()
+    cases = {label: rest for label, *rest in
+             c.auto_cases(torch.float64, cuda, (256, 256, 64))}
+    fn, p0, data = cases[case]
+    plan = mega_auto.plan_megakernel(fn, p0, None, problem_data=data,
+                                     forced=True)
+    before = mega.auto_launch_count
+    r = plan()
+    assert mega.auto_launch_count == before + 1
+    ref = mega.megakernel_optimize_generated_reference(plan.kernel, p0,
+                                                       plan.data_leaves)
+    for field in ("step_count", "n_attempts", "reason"):
+        assert torch.equal(getattr(r, field), getattr(ref, field)), field
+    assert torch.allclose(r.p, ref.p, rtol=1e-10, atol=1e-12)
+    got = mega.products_generated(plan.kernel, p0, plan.data_leaves)
+    want = mega.products_generated(plan.kernel, p0.cpu(),
+                                   tuple(t.cpu() for t in plan.data_leaves))
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max() / w.abs().max()) <= 1e-12
+
+
+@pytest.mark.cuda
+def test_ordinary_closure_is_promoted_to_k1(cuda):
+    """Config 3's ordinary closure through batched_optimize_compacted at
+    B=1024 float32: one K1-auto launch, no masked run, recovered."""
+    c = _smoke()
+    _, fn, p0, meas = c.auto_cases(torch.float32, cuda, (1024, 1, 1))[0]
+    before = mega.auto_launch_count
+    with c.masked_runs() as masked:
+        from libdogleg_tpu_torch.parallel import batched_optimize_compacted
+        r = batched_optimize_compacted(fn, p0, BENCH, problem_data=meas)
+        torch.cuda.synchronize()
+    assert mega.auto_launch_count == before + 1
+    assert masked.count == 0
+    assert bool((r.reason > 0).all())
+    assert c.recovered_frac(r.p) >= 0.99
+
+
+@pytest.mark.cuda
+def test_named_k1_bits_unchanged(cuda):
+    """Both named instances give the parent's bits (chip_smoke.K1_DIGESTS,
+    recorded before dogleg_solve moved into csrc/dogleg_solve.cuh)."""
+    c = _smoke()
+    assert c.k1_digests(cuda) == c.K1_DIGESTS

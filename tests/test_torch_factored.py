@@ -330,10 +330,12 @@ def test_factored_wrapper_and_gate_reject_what_they_cannot_take():
     assert torch.equal(eft[0] + eft[1], hh[:, 0] * hl[:, 0] + eft[1])
     assert torch.equal(eft[2], hh[:, 0] + hl[:, 0])
 
-    # a products function the kernel does not know, with use_megakernel=True
+    # a products function no instance of K1 computes, with
+    # use_megakernel=True: outside the generated functors' regime too
+    # (cumsum has no generated code), so the forced call raises
     def products(p, st):
-        return tsp.factored_products(p, st, G)
-    with pytest.raises(ValueError, match="use_megakernel=True"):
+        return tsp.factored_products(p.cumsum(0), st, G)
+    with pytest.raises(ValueError, match="cumsum"):
         batched_optimize(products, p0, problem_data=(hh, hl, nh, nl),
                          use_megakernel=True)
     # the factored instance needs the statistics as problem_data

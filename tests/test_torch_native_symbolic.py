@@ -11,7 +11,11 @@ Replays tests/test_native.py:51-104 and tests/test_sparse_cholesky.py:
 tests hold outputs only, no timing.
 """
 
+import ctypes
 import functools
+import os
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -19,6 +23,7 @@ import torch
 
 from libdogleg_tpu import ordering as jord
 from libdogleg_tpu import sparse_cholesky as jsc
+from libdogleg_tpu.native import loader as jloader
 from libdogleg_tpu.native import native_available
 from libdogleg_tpu.native import symbolic as jnat
 from libdogleg_tpu.ops import bcsr as jbcsr
@@ -36,10 +41,40 @@ from libdogleg_tpu_torch.ops import bcsr_kernels as tk
 torch.set_num_threads(1)
 
 
+@pytest.fixture(scope="session")
+def _jax_native_build(tmp_path_factory):
+    """The JAX package's native library where its own loader has none: a
+    copy built here from the same sources (libdogleg_tpu/csrc/*.cpp, the
+    loader's command) into a file of this session's temporary directory,
+    written under a temporary name and renamed, and bound by the loader's
+    `_bind`. The loader builds straight onto one shared file, so test
+    workers that start together on a fresh tree race, and a worker that
+    loads a half-written file keeps None for the rest of its process.
+    None where the loader's library loaded."""
+    if native_available():
+        return None
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return "g++ not found on PATH"
+    out = tmp_path_factory.mktemp("jax_native") / "libdogleg_tpu_symbolic.so"
+    tmp = out.with_suffix(".so.tmp")
+    subprocess.run([gxx, "-O3", "-shared", "-fPIC", "-std=c++17",
+                    *map(str, sorted(jloader._SRC.glob("*.cpp"))), "-o",
+                    str(tmp)], check=True, capture_output=True, timeout=300)
+    os.replace(tmp, out)
+    return jloader._bind(ctypes.CDLL(str(out)))
+
+
 @pytest.fixture
-def jax_native():
-    if not native_available():
-        pytest.skip("the JAX package's native library is unavailable")
+def jax_native(_jax_native_build, monkeypatch):
+    """The JAX package's native library loaded, whichever worker built it."""
+    if isinstance(_jax_native_build, str):
+        pytest.skip(_jax_native_build)
+    if _jax_native_build is not None:
+        monkeypatch.delenv("LIBDOGLEG_TPU_NATIVE", raising=False)
+        monkeypatch.setattr(jloader, "_LIB", _jax_native_build)
+        monkeypatch.setattr(jloader, "_TRIED", True)
+    assert native_available()
 
 
 @pytest.fixture
