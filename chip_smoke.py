@@ -239,7 +239,24 @@ Phases, each printing its own lines:
      functor alone within 1e-12 of the graph on the CPU; config 3's public
      call with and without promotion in turns (CUDA events, a dependent
      fetch), the trace's host ms, K1-auto with its wrapper, alone
-     (profiler) and its plain version, and its bound.
+     (profiler) and its plain version, and its bound;
+ 24. ahead-of-time export (libdogleg_tpu_torch/export.py): three artifacts
+     exported on the card in float32 under PRM, each saved, loaded and run
+     in a fresh Python process that imports libdogleg_tpu_torch.export and
+     no problem module, its result held against the live eager run in this
+     one: (a) the sample problem's serving configuration (one measurement
+     set, 8192 distinct starts; every reason > 0, recovered_frac >= 0.99,
+     the artifact's bits those of the traced loop run eagerly); (b) config
+     6's supernodal grid MRF at full width (32x32x8, rcm/amalgamate 16, a
+     single solve from 0; K3, K6 and K7 inside the artifact, their
+     launches those of the live traced loop; reason > 0, max|Jt_x| <=
+     1e-3, p within 1e-3 of float64), and its float64 artifact at
+     16x16x8 taking the eager solve's decisions; (c) config 8's tanh
+     family at Nstate 64, one instance shared by 512 starts, with
+     BlockedDenseNewtonSolver (K5 inside; recovered_frac >= 0.99). Each
+     prints the trace's seconds, the artifact's bytes, the fresh process's
+     load seconds, the artifact's call and the live eager call in turns
+     (CUDA events, a dependent fetch) and the kernels' launches inside.
      Each phase prints its seconds.
 Then one JSON line about the kernels (time, plain version's time, the
 library call's where one exists, and the bound from this run's shapes; K1
@@ -3945,6 +3962,301 @@ def phase23_mega_auto(dev, bench, card) -> dict:
                 plain_ms=plain_ms, library_ms=None, alone_us=alone, **limit)
 
 
+# The serving process of phase 24: it imports the export module (which
+# registers the kernels' operators and the result types) and nothing of the
+# problem, loads the artifact, runs it once on the saved start and writes
+# the result, its seconds and the kernels' launches.
+EXPORT_CHILD = """
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+from libdogleg_tpu_torch import export
+from libdogleg_tpu_torch.ops import batchchol, bcsr_kernels, tilechol
+t1 = time.perf_counter()
+solver = export.load_exported(sys.argv[1])
+t2 = time.perf_counter()
+r = solver.call(torch.load(sys.argv[2]))
+if torch.cuda.is_available():
+    torch.cuda.synchronize()
+t3 = time.perf_counter()
+torch.save(r, sys.argv[3])
+json.dump({"import_s": t1 - t0, "load_s": t2 - t1, "call_s": t3 - t2,
+           "launches": {"K3": bcsr_kernels.launch_counts[
+                            "bcsr_jtj_blocks_kernel"],
+                        "K5": batchchol.launch_count,
+                        "K6": tilechol.launch_counts["tile_cholesky"],
+                        "K7": tilechol.launch_counts["tri_solve_right"]},
+           "modules": sorted(m for m in sys.modules
+                             if m.split(".")[0] in ("chip_smoke", "jax",
+                                                    "libdogleg_tpu"))},
+          open(sys.argv[4], "w"))
+"""
+
+
+def export_launches() -> dict:
+    from libdogleg_tpu_torch.ops import batchchol, bcsr_kernels, tilechol
+    return {"K3": bcsr_kernels.launch_counts["bcsr_jtj_blocks_kernel"],
+            "K5": batchchol.launch_count,
+            "K6": tilechol.launch_counts["tile_cholesky"],
+            "K7": tilechol.launch_counts["tri_solve_right"]}
+
+
+def reset_export_launches() -> None:
+    from libdogleg_tpu_torch.ops import batchchol, bcsr_kernels, tilechol
+    bcsr_kernels.launch_counts["bcsr_jtj_blocks_kernel"] = 0
+    batchchol.launch_count = 0
+    for k in tilechol.launch_counts:
+        tilechol.launch_counts[k] = 0
+
+
+def export_leg(label, products_fn, nstate, p0, bench, tmp, newton_solver=None,
+               batch_size=None, bits=True):
+    """Export one artifact on the card, save it, run it in a fresh process
+    and in this one (launches counted from 0 around that run), and hold the
+    two runs to the same bits, or where the solve sums with atomics (bits
+    False: the sparse factorization's index_add_) to the same decisions.
+    Returns the fresh process's result, the program, the loaded solver, the
+    launches and the fresh process's report."""
+    import os
+
+    import torch
+
+    from libdogleg_tpu_torch import export
+    t0 = time.perf_counter()
+    exp = export.export_solver(products_fn, nstate, bench,
+                               batch_size=batch_size,
+                               dtype=p0.dtype, newton_solver=newton_solver,
+                               device=p0.device)
+    trace_s = time.perf_counter() - t0
+    art = os.path.join(tmp, f"{label}.pt2")
+    start, out, info = (os.path.join(tmp, f"{label}.{x}")
+                        for x in ("p0.pt", "r.pt", "json"))
+    export.save_exported(art, exp)
+    torch.save(p0, start)
+    proc = subprocess.run([sys.executable, "-c", EXPORT_CHILD, art, start,
+                           out, info], capture_output=True, text=True,
+                          timeout=600)
+    check(proc.returncode == 0,
+          f"{label}: the fresh process ran the artifact: "
+          f"{proc.stderr[-3000:]}")
+    child = json.loads(open(info).read())
+    check(not child["modules"], f"{label}: the fresh process imported "
+          f"{child['modules']}")
+
+    fresh = torch.load(out, map_location=p0.device, weights_only=False)
+    solver = export.load_exported(art)
+    solver.call(p0)
+    torch.cuda.synchronize()
+    reset_export_launches()
+    here = solver.call(p0)
+    torch.cuda.synchronize()
+    launches = export_launches()
+    fields = ("step_count", "n_attempts", "reason") + (("p",) if bits
+                                                         else ())
+    check(all(torch.equal(getattr(fresh, f), getattr(here, f))
+              for f in fields),
+          f"{label}: the fresh process's {', '.join(fields)} are this "
+          f"process's (max |dp| {float((fresh.p - here.p).abs().max()):.3e})")
+    print(f"[24 {label}] trace {trace_s:.2f} s; artifact "
+          f"{os.path.getsize(art)} bytes; fresh process: import "
+          f"{child['import_s']:.2f} s, load {child['load_s']:.2f} s, first "
+          f"call {child['call_s']:.2f} s, kernel launches "
+          f"{child['launches']}; launches of one call here {launches}",
+          flush=True)
+    return fresh, exp, solver, launches, child
+
+
+def export_turns(label, solver, live, loop, p0, card, groups) -> None:
+    """The artifact's call, the live eager call and the traced loop run
+    eagerly (the artifact's program without torch.export) in turns
+    (artifact, live, loop, loop, live, artifact), CUDA events with a
+    dependent fetch; then one call of the first two split by the profiler
+    into device time by kernel group and host."""
+    from libdogleg_tpu_torch.utils.benchtime import measure_ms
+
+    def art():
+        return float(solver.call(p0).norm2_x.sum())
+
+    def eager():
+        return float(live(p0).norm2_x.sum())
+
+    def traced():
+        return float(loop(p0).norm2_x.sum())
+    turns = [measure_ms(fn, warmup=1, reps=3)
+             for fn in (art, eager, traced, traced, eager, art)]
+    print(f"[24 {label} timing] in turns: artifact "
+          f"{turns[0]:.2f}, {turns[5]:.2f} ms; live eager call "
+          f"{turns[1]:.2f}, {turns[4]:.2f} ms; the traced loop run eagerly "
+          f"{turns[2]:.2f}, {turns[3]:.2f} ms; card {card}", flush=True)
+    for name, fn in (("artifact", art), ("live", eager)):
+        print(f"[24 {label} split {name}] {device_split(fn, groups=groups)}",
+              flush=True)
+
+
+def phase24_export(dev, bench, card) -> dict:
+    """Ahead-of-time export at full width: three artifacts, each run in a
+    fresh process and held against the live eager run."""
+    import tempfile
+
+    import torch
+
+    from libdogleg_tpu_torch import (BlockedDenseNewtonSolver, SparseProblem,
+                                     optimize, solve_products_batched)
+    from libdogleg_tpu_torch import export
+    from libdogleg_tpu_torch.models import grid_mrf
+    from libdogleg_tpu_torch.models import quadratic_surface as qs
+
+    decisions = ("step_count", "n_attempts", "reason")
+    launches = {}
+    tmp = tempfile.mkdtemp(prefix="dogleg_export_")
+
+    # (a) the serving configuration: one measurement set, distinct starts
+    p0, meas, _, _ = instances(24, BATCH, torch.float32, dev)
+    m0 = meas[0]
+
+    def sample_products(p):
+        return qs.products(p, m0)
+    fresh, exp, solver, _, _ = export_leg(
+        f"a sample B={BATCH}", sample_products, qs.NSTATE, p0, bench, tmp,
+        batch_size=BATCH)
+    flat = export.flatten_products(sample_products, p0)
+    loop = export.solve_traced(flat, p0, bench)
+    eager = solve_products_batched(torch.func.vmap(sample_products), p0,
+                                   bench)
+    torch.cuda.synchronize()
+    err = (fresh.p.double() - torch.as_tensor(qs.P_TRUE, device=dev)).abs()
+    rec = float((err < 5e-2).all(-1).double().mean())
+    check(bool((fresh.reason > 0).all()), "(a) every reason > 0")
+    check(rec >= 0.99, f"(a) recovered_frac {rec} >= 0.99")
+    check(all(torch.equal(getattr(fresh, f), getattr(loop, f))
+              for f in ("p",) + decisions),
+          "(a) the artifact's bits are the traced loop's run eagerly")
+    same_eager = all(torch.equal(getattr(fresh, f), getattr(eager, f))
+                     for f in ("p",) + decisions)
+    print(f"[24 a sample B={BATCH} f32 PRM] reasons "
+          f"{torch.bincount(fresh.reason, minlength=7).tolist()} (all > 0); "
+          f"recovered_frac {rec:.4f} (>= 0.99); bits of the traced loop "
+          f"run eagerly; bits of the eager masked loop "
+          f"(solve_products_batched): {same_eager}", flush=True)
+    export_turns("a", solver, lambda q: solve_products_batched(
+        torch.func.vmap(sample_products), q, bench),
+                 lambda q: export.solve_traced(flat, q, bench), p0, card,
+                 (("cholesky", ("chol", "potrf")),) + K2_GROUPS[1:])
+    del exp, solver, loop, eager, fresh, flat
+
+    # (b) config 6's supernodal grid MRF, a single solve from 0
+    g = grid_mrf.make_grid_mrf(*GRID, dtype=torch.float32, device=dev)
+    prob = SparseProblem(f=g.problem(jtj="dense").f, structure=g.structure,
+                         jtj="sparse", ordering="rcm", amalgamate=16)
+    ns = prob.default_newton_solver()
+    z = torch.zeros(g.nstate, dtype=torch.float32, device=dev)
+    fresh, exp, solver, launches_b, child = export_leg(
+        f"b grid {GRID} supernodal", prob.products, g.nstate, z, bench, tmp,
+        newton_solver=ns, bits=False)
+    flat = export.flatten_products(prob.products, z[None], batched=False)
+    reset_export_launches()
+    loop = export.solve_traced(flat, z, bench, newton_solver=ns,
+                               batched=False)
+    torch.cuda.synchronize()
+    live_launches = export_launches()
+    for k in ("K3", "K6", "K7"):
+        check(launches_b[k] > 0, f"(b) the artifact launched {k}")
+        check(launches_b[k] == live_launches[k] == child["launches"][k],
+              f"(b) {k} launches: artifact {launches_b[k]}, fresh process "
+              f"{child['launches'][k]}, live traced loop {live_launches[k]}")
+    launches.update({k: launches_b[k] for k in ("K3", "K6", "K7")})
+    jtx = float(fresh.Jt_x.abs().max())
+    g64 = grid_mrf.make_grid_mrf(*GRID, dtype=torch.float64, device=dev)
+    r64 = optimize(with_residual(prob, g64), z.double(), bench)
+    dp = float((fresh.p.double() - r64.p).abs().max())
+    check(int(fresh.reason) > 0, "(b) the artifact's solve terminated")
+    check(jtx <= 1e-3, f"(b) max|Jt_x| {jtx:.3e} <= 1e-3")
+    check(dp <= 1e-3, f"(b) p within 1e-3 of float64: {dp:.3e}")
+    print(f"[24 b grid {GRID} supernodal f32 PRM] reason "
+          f"{int(fresh.reason)} step_count {int(fresh.step_count)} "
+          f"n_attempts {int(fresh.n_attempts)}; max|Jt_x| {jtx:.3e} (<= "
+          f"1e-3); max |p - p64| {dp:.3e} (<= 1e-3); K3/K6/K7 launches in "
+          f"the artifact {launches_b} = the live traced loop's "
+          f"{live_launches}", flush=True)
+    export_turns("b", solver, lambda q: optimize(prob, q, bench),
+                 lambda q: export.solve_traced(flat, q, bench,
+                                               newton_solver=ns,
+                                               batched=False), z, card,
+                 K3_GROUPS)
+    del exp, solver, loop, fresh, flat
+    # the float64 decisions at 16x16x8: the artifact against the eager solve
+    g16 = grid_mrf.make_grid_mrf(16, 16, 8, dtype=torch.float64, device=dev)
+    prob16 = SparseProblem(f=g16.problem(jtj="dense").f,
+                           structure=g16.structure, jtj="sparse",
+                           ordering="rcm", amalgamate=16)
+    z16 = torch.zeros(g16.nstate, dtype=torch.float64, device=dev)
+    fresh16, _, _, _, _ = export_leg(
+        "b grid 16x16x8 supernodal f64", prob16.products, g16.nstate, z16,
+        bench, tmp, newton_solver=prob16.default_newton_solver(), bits=False)
+    r16 = optimize(prob16, z16, bench)
+    for field in decisions:
+        check(int(getattr(fresh16, field)) == int(getattr(r16, field)),
+              f"(b) f64 {field}: the artifact's is the eager solve's")
+    dp16 = float((fresh16.p - r16.p).abs().max())
+    check(torch.allclose(fresh16.p, r16.p, rtol=1e-9, atol=1e-12),
+          f"(b) f64 p within rtol 1e-9 of the eager solve's: {dp16:.3e}")
+    print(f"[24 b grid 16x16x8 f64 PRM] the artifact takes the eager "
+          f"solve's decisions (step_count {int(r16.step_count)}, n_attempts "
+          f"{int(r16.n_attempts)}, reason {int(r16.reason)}); max |dp| "
+          f"{dp16:.3e} (rtol 1e-9)", flush=True)
+
+    # (c) config 8's tanh family at Nstate 64: one instance, 512 starts
+    nstate, batch = MIDSIZE[0]
+    data, p0s, p_true = midsize_family(nstate, batch, torch.float32, dev)
+    shared = tuple(t[0] for t in data)
+    truth = p_true[0]
+    starts = (torch.as_tensor(truth, dtype=torch.float32, device=dev)
+              + (p0s - torch.as_tensor(p_true, dtype=torch.float32,
+                                       device=dev)))
+
+    def tanh_products(p):
+        return midsize_products(p, shared)
+    bns = BlockedDenseNewtonSolver()
+    fresh, exp, solver, launches_c, child = export_leg(
+        f"c tanh Nstate {nstate} B={batch}", tanh_products, nstate, starts,
+        bench, tmp, newton_solver=bns, batch_size=batch)
+    check(launches_c["K5"] > 0 and child["launches"]["K5"] > 0,
+          "(c) the artifact launched K5")
+    launches["K5"] = launches_c["K5"]
+    rec = midsize_recovered(fresh.p, truth[None])
+    check(bool((fresh.reason > 0).all()), "(c) every reason > 0")
+    check(rec >= 0.99, f"(c) recovered_frac {rec} >= 0.99")
+    eager = solve_products_batched(torch.func.vmap(tanh_products), starts,
+                                   bench, newton_solver=bns)
+    same = float((eager.step_count == fresh.step_count).double().mean())
+    print(f"[24 c tanh Nstate {nstate} B={batch} f32 PRM] K5 launches in "
+          f"the artifact {launches_c['K5']}; reasons "
+          f"{torch.bincount(fresh.reason, minlength=7).tolist()}; "
+          f"recovered_frac {rec:.4f} (>= 0.99); step_count agreement with "
+          f"the eager masked loop {same:.4f}", flush=True)
+    flat = export.flatten_products(tanh_products, starts)
+    export_turns("c", solver, lambda q: solve_products_batched(
+        torch.func.vmap(tanh_products), q, bench, newton_solver=bns),
+                 lambda q: export.solve_traced(flat, q, bench,
+                                               newton_solver=bns),
+                 starts, card, MIDSIZE_GROUPS)
+    # with the card hidden, the serving process raises: no fallback
+    import os
+    label = f"c tanh Nstate {nstate} B={batch}"
+    art, start, out, info = (os.path.join(tmp, f"{label}.{x}") for x in
+                             ("pt2", "p0.pt", "hidden.pt", "hidden.json"))
+    hidden = subprocess.run([sys.executable, "-c", EXPORT_CHILD, art, start,
+                             out, info], capture_output=True, text=True,
+                            timeout=600,
+                            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    check(hidden.returncode != 0 and "no CUDA device" in hidden.stderr,
+          f"(c) without a visible card the artifact raised: "
+          f"{hidden.stderr[-500:]}")
+    print(f"[24 c without a card] the serving process raised: "
+          f"{hidden.stderr.strip().splitlines()[-1][:160]}", flush=True)
+    return launches
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -4148,8 +4460,13 @@ def main() -> int:
     timed("21", phase21_surface, dev, bench, card)
     p22 = timed("22", phase22_sparse_batched, dev, bench, card, host_build)
     k1a = timed("23", phase23_mega_auto, dev, bench, card)
+    p24 = timed("24", phase24_export, dev, bench, card)
     print(f"[all seconds] {time.perf_counter() - started:.1f}", flush=True)
     paths.update({f"phase 22 ({k})": v for k, v in p22["paths"].items()})
+    paths["phase 24 (export)"] = {k: p24[k] for k in ("K3", "K6", "K7")}
+    k5["launches_by_path"] = {"phase 15 (config 8)": mid["launches"],
+                              "phase 24 (export)": p24["K5"]}
+    k5["launches"] = sum(k5["launches_by_path"].values())
     # K3, K6 and K7 run on several paths: each path's count, read with the
     # counts set to 0 just before it, and their sum
     for key, d in (("K3", k34["K3"]), ("K6", tiles["K6"]),

@@ -18,6 +18,7 @@ import torch
 
 from libdogleg_tpu_torch.native.loader import launch_target, load_library
 from libdogleg_tpu_torch.ops import smallchol
+from libdogleg_tpu_torch.ops.traced import is_traced
 
 BLOCK = 16
 # Largest matrix the kernel takes (csrc/batchchol.cu MAX_N).
@@ -82,27 +83,10 @@ def batched_blocked_cholesky_reference(A: torch.Tensor, block: int = BLOCK):
     return L[..., :n, :n], ok
 
 
-def batched_blocked_cholesky(A: torch.Tensor):
-    """Cholesky of a (B, n, n) batch of SPD matrices, 1 <= n <= 256, float32
-    or float64. Returns (L, ok): L (B, n, n) lower-triangular with zeros
-    above the diagonal; ok (B,) bool, every pivot of that matrix positive
-    and finite. The pivot rule is L_jj = d * rsqrt(d), unclamped, so a
-    matrix that is not SPD leaves NaN or a non-positive diagonal in its own
-    factor. CUDA tensors go to kernel K5 (padded to a multiple of 16 with an
-    identity block, which the result drops again), CPU tensors to
-    batched_blocked_cholesky_reference."""
+def _launch(A: torch.Tensor):
+    """K5's launch on a CUDA (B, n, n) batch: (L, ok)."""
     global launch_count
-    if A.dim() != 3 or A.shape[-2] != A.shape[-1]:
-        raise ValueError(f"A must be (B, n, n), got {tuple(A.shape)}")
     n = A.shape[-1]
-    if not 0 < n <= MAX_N:
-        raise ValueError(f"A must have 1 <= n <= {MAX_N}, got n = {n}")
-    if A.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"A must be float32 or float64, got {A.dtype}")
-    if A.device.type == "cpu":
-        return batched_blocked_cholesky_reference(A)
-    if A.device.type != "cuda":
-        raise ValueError(f"no kernel for device {A.device}")
     W = pad_to_block(A)
     if not W.is_contiguous() or W.data_ptr() % 16:  # 16-byte words
         W = W.clone(memory_format=torch.contiguous_format)
@@ -120,3 +104,44 @@ def batched_blocked_cholesky(A: torch.Tensor):
                                f"cudaError_t {err}")
         launch_count += 1
     return (L if npad == n else L[:, :n, :n]), ok
+
+
+@torch.library.custom_op("libdogleg_tpu_torch::batched_blocked_cholesky",
+                         mutates_args=(), device_types="cuda")
+def _op(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5 as an operator: the node a traced solve (export.py) carries, which
+    launches the kernel when the graph runs."""
+    L, ok = _launch(A)
+    return L.contiguous(), ok
+
+
+@_op.register_fake
+def _(A):
+    return A.new_empty(A.shape), A.new_empty(A.shape[:1], dtype=torch.bool)
+
+
+def batched_blocked_cholesky(A: torch.Tensor):
+    """Cholesky of a (B, n, n) batch of SPD matrices, 1 <= n <= 256, float32
+    or float64. Returns (L, ok): L (B, n, n) lower-triangular with zeros
+    above the diagonal; ok (B,) bool, every pivot of that matrix positive
+    and finite. The pivot rule is L_jj = d * rsqrt(d), unclamped, so a
+    matrix that is not SPD leaves NaN or a non-positive diagonal in its own
+    factor. CUDA tensors go to kernel K5 (padded to a multiple of 16 with an
+    identity block, which the result drops again): directly, or through
+    the operator libdogleg_tpu_torch::batched_blocked_cholesky while traced
+    (ops/traced.is_traced). CPU tensors go to
+    batched_blocked_cholesky_reference."""
+    if A.dim() != 3 or A.shape[-2] != A.shape[-1]:
+        raise ValueError(f"A must be (B, n, n), got {tuple(A.shape)}")
+    n = A.shape[-1]
+    if not 0 < n <= MAX_N:
+        raise ValueError(f"A must have 1 <= n <= {MAX_N}, got n = {n}")
+    if A.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"A must be float32 or float64, got {A.dtype}")
+    if A.device.type == "cpu":
+        return batched_blocked_cholesky_reference(A)
+    if A.device.type != "cuda":
+        raise ValueError(f"no kernel for device {A.device}")
+    if is_traced(A):
+        return _op(A)
+    return _launch(A)

@@ -8,17 +8,21 @@ forms J v. K3 forms the lower JtJ blocks of the block-sparse path
 batch of Jacobians that share a structure. Under torch.func.vmap it is
 reached through the custom operator libdogleg_tpu_torch::bcsr_jtj_blocks,
 whose vmap rule is that batched launch, so torch.func.vmap of a products
-function launches it once for the batch; other values launch it directly.
-K4 is opt-in, as in the JAX package. Each kernel's wrapper
-launches the hand-written kernel in csrc/bcsr.cu for CUDA tensors and runs
-its plain twin (`*_reference`) for CPU tensors; a CUDA tensor launches the
-kernel or raises.
+function launches it once for the batch; so is a traced call
+(ops/traced.is_traced: torch.export's fake tensors, or make_fx recording),
+which is how an exported artifact (export.py) carries it. Other values
+launch it directly. K4 is opt-in, as in the JAX package. Each kernel's
+wrapper launches the hand-written kernel in csrc/bcsr.cu for CUDA tensors
+and runs its plain twin (`*_reference`) for CPU tensors; a CUDA tensor
+launches the kernel or raises.
 
 A structure's and a schedule's index arrays are numpy arrays on the host.
 The wrappers copy each to the card once (`device_indices`) and keep the
 tensor for as long as the array lives, so a second product on one structure
-copies nothing. The arrays are static by contract: one changed in place
-after its first product would leave a stale copy behind.
+copies nothing. The copy is a real tensor even when made while torch.export
+traces (ops/traced.real_constant), so a trace leaves no fake tensor
+behind. The arrays are static by contract: one changed in place after its
+first product would leave a stale copy behind.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from libdogleg_tpu_torch.native.loader import launch_target, load_library
 from libdogleg_tpu_torch.ops.bcsr import (BCSRJacobian, BCSRStructure,
                                          JtJLowerSchedule, _index,
                                          bcsr_matvec, jtj_pair_sum)
+from libdogleg_tpu_torch.ops.traced import is_traced, real_constant
 
 # Kernel launches made in this process, per wrapper.
 launch_counts = {"bcsr_jtj_blocks_kernel": 0, "bcsr_matvec_kernel": 0}
@@ -121,9 +126,9 @@ def device_indices(owner: np.ndarray, device, name: str = "",
     if t is None:
         a = owner if make is None else make()
         # a copy on every device: a tensor sharing the array's memory would
-        # keep the owner alive
-        t = held[(name, device)] = torch.tensor(
-            np.ascontiguousarray(a, np.int32), device=device)
+        # keep the owner alive; a real tensor even while traced
+        t = held[(name, device)] = real_constant(lambda: torch.tensor(
+            np.ascontiguousarray(a, np.int32), device=device))
     return t
 
 
@@ -207,9 +212,10 @@ def _jtj_batched_launch(values: torch.Tensor, operands: torch.Tensor,
 def _jtj_op(values: torch.Tensor, operands: torch.Tensor, npairs: int,
             nout: int) -> torch.Tensor:
     """_jtj_batched_launch as an operator, so that torch.func.vmap reaches
-    it through its vmap rule (_jtj_op_vmap). The operator's dispatch costs
-    the host about 20 us a call (measured beside the direct launch on an
-    H100 machine), so only values under a functorch transform take it
+    it through its vmap rule (_jtj_op_vmap) and a traced program (make_fx,
+    torch.export) keeps it as a node. The operator's dispatch costs the
+    host about 20 us a call (measured beside the direct launch on an H100
+    machine), so only values under a functorch transform or traced take it
     (_jtj_launcher)."""
     return _jtj_batched_launch(values, operands, npairs, nout)
 
@@ -232,13 +238,21 @@ def _jtj_op_vmap(info, in_dims, values, operands, npairs, nout):
 torch.library.register_vmap(_jtj_op, _jtj_op_vmap)
 
 
+@_jtj_op.register_fake
+def _(values, operands, npairs, nout):
+    B, bn = values.shape[0], values.shape[-1]
+    return values.new_empty((B, nout, bn, bn))
+
+
 def _jtj_launcher(values: torch.Tensor):
     """K3's launch for `values`: the operator _jtj_op for values under a
     functorch transform (torch.func.vmap gives a BatchedTensor, which has
     no data pointer; the operator's vmap rule folds its batch into one
-    launch), else _jtj_batched_launch itself, without the operator's
-    dispatch."""
-    if torch._C._functorch.is_functorch_wrapped_tensor(values):
+    launch) and for traced values (ops/traced.is_traced: the operator is
+    the node the graph keeps), else _jtj_batched_launch itself, without
+    the operator's dispatch."""
+    if (torch._C._functorch.is_functorch_wrapped_tensor(values)
+            or is_traced(values)):
         return _jtj_op
     return _jtj_batched_launch
 

@@ -16,6 +16,7 @@ its own.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -42,6 +43,25 @@ def _try_factor(JtJ: torch.Tensor, lam: torch.Tensor):
     return L, ok
 
 
+# Set while a solve runs in its traced form (traced_loops): every
+# escalating_lambda then takes its while_loop form.
+_TRACED = False
+
+
+@contextlib.contextmanager
+def traced_loops():
+    """Within this block escalating_lambda runs as a traced while_loop
+    (ops/traced.py), the form torch.export captures. The solver's traced
+    loop (solver.run_batched_solver_traced) enters it; the strategies call
+    escalating_lambda as before."""
+    global _TRACED
+    old, _TRACED = _TRACED, True
+    try:
+        yield
+    finally:
+        _TRACED = old
+
+
 def escalating_lambda(try_factor: Callable, lam: torch.Tensor, *,
                       lambda_initial: float = 1e-10,
                       lambda_max_tries: int = 60,
@@ -51,22 +71,44 @@ def escalating_lambda(try_factor: Callable, lam: torch.Tensor, *,
     and retry, at most lambda_max_tries times (reference dogleg.c:670-676,
     811-815).
 
-    try_factor(lam) -> (state, ok). `active` (bool, shaped like lam) limits
-    the escalation to those elements; the others keep their lambda. Returns
-    (state, lam, ok) with ok as computed for every element.
+    try_factor(lam) -> (state, ok), state a tensor or a tuple of them.
+    `active` (bool, shaped like lam) limits the escalation to those
+    elements; the others keep their lambda. Returns (state, lam, ok) with
+    ok as computed for every element. Inside traced_loops() the loop is a
+    while_loop carrying (tries, lam, ok, state) while tries <
+    lambda_max_tries and an active element failed: the same decisions,
+    since elements that kept their lambda refactor to the same factor.
     """
     state, ok = try_factor(lam)
     if active is None:
         active = torch.ones_like(ok)
-    for _ in range(lambda_max_tries):
+
+    def escalate(lam, ok):
         fail = active & ~ok
-        if not bool(fail.any()):
+        return torch.where(fail,
+                           torch.where(lam == 0.0,
+                                       torch.full_like(lam, lambda_initial),
+                                       lam * 10.0),
+                           lam)
+
+    if _TRACED:
+        from libdogleg_tpu_torch.ops import traced
+
+        def body(tries, lam, ok, state):
+            lam = escalate(lam, ok)
+            state, ok = try_factor(lam)
+            return tries + 1, lam, ok, state
+
+        _, lam, ok, state = traced.while_loop(
+            lambda tries, lam, ok, state: ((tries < lambda_max_tries)
+                                           & (active & ~ok).any()),
+            body, (torch.zeros((), dtype=torch.int64, device=ok.device),
+                   lam, ok, state))
+        return state, lam, ok
+    for _ in range(lambda_max_tries):
+        if not bool((active & ~ok).any()):
             break
-        lam = torch.where(fail,
-                          torch.where(lam == 0.0,
-                                      torch.full_like(lam, lambda_initial),
-                                      lam * 10.0),
-                          lam)
+        lam = escalate(lam, ok)
         # Elements that kept their lambda refactor to the same factor.
         state, ok = try_factor(lam)
     return state, lam, ok

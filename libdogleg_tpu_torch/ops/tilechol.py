@@ -20,6 +20,7 @@ import functools
 import torch
 
 from libdogleg_tpu_torch.ops import batchchol, smallchol
+from libdogleg_tpu_torch.ops.traced import is_traced
 
 # Largest tile the kernels take (csrc/tilechol.cu MAX_N).
 MAX_N = 256
@@ -94,13 +95,22 @@ def tile_cholesky(blocks: torch.Tensor):
     is L_jj = d * rsqrt(d), unclamped, so a non-SPD tile leaves NaN or a
     non-positive diagonal. CUDA tensors go to kernel K6 (a tile too large
     for shared memory whose n is no multiple of 16 is padded to one with an
-    identity block first, which the result drops again), CPU tensors to
+    identity block first, which the result drops again; while traced,
+    ops/traced.is_traced, through the operator
+    libdogleg_tpu_torch::tile_cholesky), CPU tensors to
     tile_cholesky_reference."""
     _check_square("blocks", blocks)
     if blocks.device.type == "cpu":
         return tile_cholesky_reference(blocks)
     if blocks.device.type != "cuda":
         raise ValueError(f"no kernel for device {blocks.device}")
+    if is_traced(blocks):
+        return _tile_cholesky_op(blocks)
+    return _tile_cholesky_launch(blocks)
+
+
+def _tile_cholesky_launch(blocks: torch.Tensor):
+    """K6's launch on CUDA tiles (k, n, n): (L, ok), L contiguous."""
     k, n = blocks.shape[0], blocks.shape[-1]
     A = blocks.contiguous()
     if n % batchchol.BLOCK and not _works_in_shared(
@@ -114,6 +124,20 @@ def tile_cholesky(blocks: torch.Tensor):
                 A.shape[-1], L.data_ptr(), ok.data_ptr())
         launch_counts["tile_cholesky"] += 1
     return (L if A.shape[-1] == n else L[:, :n, :n].contiguous()), ok
+
+
+@torch.library.custom_op("libdogleg_tpu_torch::tile_cholesky",
+                         mutates_args=(), device_types="cuda")
+def _tile_cholesky_op(blocks: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6 as an operator, the node a traced solve (export.py) carries."""
+    return _tile_cholesky_launch(blocks)
+
+
+@_tile_cholesky_op.register_fake
+def _(blocks):
+    return (blocks.new_empty(blocks.shape),
+            blocks.new_empty(blocks.shape[:1], dtype=torch.bool))
 
 
 def tri_solve_right_reference(D: torch.Tensor, C: torch.Tensor):
@@ -143,8 +167,9 @@ def tri_solve_right_blocked_reference(D: torch.Tensor, C: torch.Tensor,
 def tri_solve_right(D: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     """X with X D^T = C, for D (k, n, n) lower-triangular (its strict upper
     part is not used) and C (k, m, n), 1 <= n <= 256, m >= 1. The quotient
-    by D_jj is a true division. CUDA tensors go to kernel K7, CPU tensors
-    to tri_solve_right_reference."""
+    by D_jj is a true division. CUDA tensors go to kernel K7 (while traced
+    through the operator libdogleg_tpu_torch::tri_solve_right), CPU
+    tensors to tri_solve_right_reference."""
     _check_square("D", D)
     _check_tiles("C", C)
     k, n = D.shape[0], D.shape[-1]
@@ -156,6 +181,14 @@ def tri_solve_right(D: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
         return tri_solve_right_reference(D, C)
     if D.device.type != "cuda":
         raise ValueError(f"no kernel for device {D.device}")
+    if is_traced(D) or is_traced(C):
+        return _tri_solve_right_op(D, C)
+    return _tri_solve_right_launch(D, C)
+
+
+def _tri_solve_right_launch(D: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """K7's launch on CUDA D (k, n, n) and C (k, m, n)."""
+    k, n = D.shape[0], D.shape[-1]
     Dc, Cc = D.contiguous(), C.contiguous()
     X = torch.empty_like(Cc)
     if k:
@@ -164,3 +197,15 @@ def tri_solve_right(D: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
                 Cc.data_ptr(), k, n, C.shape[1], X.data_ptr())
         launch_counts["tri_solve_right"] += 1
     return X
+
+
+@torch.library.custom_op("libdogleg_tpu_torch::tri_solve_right",
+                         mutates_args=(), device_types="cuda")
+def _tri_solve_right_op(D: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """K7 as an operator, the node a traced solve (export.py) carries."""
+    return _tri_solve_right_launch(D, C)
+
+
+@_tri_solve_right_op.register_fake
+def _(D, C):
+    return C.new_empty(C.shape)

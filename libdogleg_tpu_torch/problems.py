@@ -90,9 +90,11 @@ class SparseProblem:
     def _schedule_on(self, device: torch.device) -> bops.JtJLowerSchedule:
         sched = self._sched_on.get(device)
         if sched is None:
+            from libdogleg_tpu_torch.ops.traced import real_constant
             sched = self._jtj_sched._replace(**{
-                k: torch.as_tensor(np.asarray(getattr(self._jtj_sched, k),
-                                              np.int64), device=device)
+                k: real_constant(lambda k=k: torch.as_tensor(
+                    np.asarray(getattr(self._jtj_sched, k), np.int64),
+                    device=device))
                 for k in ("pair_i", "pair_j", "out_idx")})
             self._sched_on[device] = sched
         return sched

@@ -17,7 +17,8 @@ Two solve loops carry the same decision rules (reference dogleg.c:1172-1476):
   batched with torch.func.vmap, hence the masks. It is the composition of
   `init_batched_state`, `run_batched_solver` (which can stop after a given
   number of attempts, for straggler compaction) and
-  `result_from_batched_state`. Its states are (B, n) tensors or trees of
+  `result_from_batched_state`. `run_batched_solver_traced` runs the same
+  attempt to the end with no host read (a while_loop, export.py's form). Its states are (B, n) tensors or trees of
   (B, ...) leaves, its JtJ whatever the products return (a SchurJtJ of
   (B, ...) fields for bundle adjustment), and it can record the History,
   one (B, cap) buffer a field.
@@ -526,11 +527,14 @@ def _history_rows(c: BatchedSolverState, step, norm2_step, step_type,
 
 def _batched_attempt(products_fn: ProductsFn, c: BatchedSolverState,
                      prm: DoglegParameters, ns, max_attempts: int,
-                     frozen: torch.Tensor) -> BatchedSolverState:
+                     frozen: torch.Tensor,
+                     traced: bool = False) -> BatchedSolverState:
     """One attempt for every element; the caller keeps the old state of the
     `frozen` elements (done, or out of this segment's attempts). Every
     reduction is per element (ops/treevec.py's batch_* form), so nothing
-    of one element, a NaN included, reaches another."""
+    of one element, a NaN included, reaches another. traced=True reads no
+    value on the host: whether any element needs a Gauss-Newton step is a
+    cond (ops/traced.py), which torch.export captures."""
     R = StopReason
     tr = c.trustregion
     tr_sq = tr * tr
@@ -545,17 +549,30 @@ def _batched_attempt(products_fn: ProductsFn, c: BatchedSolverState,
     # Gauss-Newton under the masked escalating lambda: only elements that
     # need a fresh GN step escalate.
     need_gn = ~use_cauchy & ~c.have_gn & ~frozen
-    gn, norm2_gn, lam = c.gn, c.norm2_gn, c.lam
-    fac_ok = torch.ones_like(c.done)
-    if bool(need_gn.any()):
-        res = ns.gauss_newton(c.JtJ, c.Jt_x, c.lam,
+
+    def fresh_gn(JtJ, Jt_x, gn, norm2_gn, lam, need_gn):
+        res = ns.gauss_newton(JtJ, Jt_x, lam,
                               lambda_initial=prm.lambda_initial,
                               lambda_max_tries=prm.lambda_max_tries,
                               active=need_gn)
-        gn = tv.batch_where(need_gn, res.step, gn)
-        norm2_gn = torch.where(need_gn, res.norm2_step, norm2_gn)
-        lam = torch.where(need_gn, res.lam, lam)
-        fac_ok = res.ok | ~need_gn
+        return (tv.batch_where(need_gn, res.step, gn),
+                torch.where(need_gn, res.norm2_step, norm2_gn),
+                torch.where(need_gn, res.lam, lam), res.ok | ~need_gn)
+
+    def kept_gn(JtJ, Jt_x, gn, norm2_gn, lam, need_gn):
+        return (tv.tree_map(torch.clone, gn), norm2_gn.clone(), lam.clone(),
+                torch.ones_like(need_gn))
+
+    operands = (c.JtJ, c.Jt_x, c.gn, c.norm2_gn, c.lam, need_gn)
+    if traced:
+        from libdogleg_tpu_torch.ops import traced as hop
+        gn, norm2_gn, lam, fac_ok = hop.cond(need_gn.any(), fresh_gn,
+                                             kept_gn, operands)
+    elif bool(need_gn.any()):
+        gn, norm2_gn, lam, fac_ok = fresh_gn(*operands)
+    else:
+        gn, norm2_gn, lam = c.gn, c.norm2_gn, c.lam
+        fac_ok = torch.ones_like(c.done)
     have_gn = c.have_gn | need_gn
 
     use_gn = ~use_cauchy & (norm2_gn <= tr_sq)
@@ -713,6 +730,36 @@ def run_batched_solver(products_fn: ProductsFn, state: BatchedSolverState,
             return c
         out = _batched_attempt(products_fn, c, prm, ns, max_attempts, frozen)
         c = tv.batch_where(frozen, c, out)
+
+
+def run_batched_solver_traced(products_fn: ProductsFn,
+                              state: BatchedSolverState,
+                              parameters: Optional[DoglegParameters] = None,
+                              *,
+                              newton_solver=None) -> BatchedSolverState:
+    """run_batched_solver to the end in the form torch.export captures:
+    the wavefront loop is a while_loop over the state while any element
+    runs, the Gauss-Newton step a cond, and every escalating lambda a
+    while_loop of its own (ops/traced.py, ops/cholesky.traced_loops). No
+    value is read on the host, so the same function runs eagerly (a Python
+    loop over the same body) and traced, with the same decisions as
+    run_batched_solver. The History is not recorded here."""
+    from libdogleg_tpu_torch.ops import cholesky as chol
+    from libdogleg_tpu_torch.ops import traced as hop
+    prm = parameters if parameters is not None else DoglegParameters()
+    if state.history is not None:
+        raise ValueError("the traced solve records no History")
+    ns = newton_solver if newton_solver is not None else DenseNewtonSolver()
+    max_attempts = prm.resolved_max_attempts()
+
+    def body(c):
+        out = _batched_attempt(products_fn, c, prm, ns, max_attempts, c.done,
+                               traced=True)
+        return (tv.batch_where(c.done, c, out),)
+
+    with chol.traced_loops():
+        (c,) = hop.while_loop(lambda c: (~c.done).any(), body, (state,))
+    return c
 
 
 def result_from_batched_state(state: BatchedSolverState) -> SolveResult:

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from libdogleg_tpu_torch.ops import tilechol
+from libdogleg_tpu_torch.ops.traced import real_constant
 
 
 # --------------------------------------------------------------------------
@@ -148,7 +149,9 @@ def device_array(sym, device: torch.device, name: str,
             a = np.asarray(a)
         if a.dtype != np.bool_:
             a = a.astype(np.int64)
-        t = torch.as_tensor(a, device=device)
+        # a real tensor even while torch.export traces (a fake one kept here
+        # would break the next eager solve)
+        t = real_constant(lambda: torch.as_tensor(a, device=device))
         sym._device[key] = t
     return t
 

@@ -1533,3 +1533,89 @@ def test_named_k1_bits_unchanged(cuda):
     recorded before dogleg_solve moved into csrc/dogleg_solve.cuh)."""
     c = _smoke()
     assert c.k1_digests(cuda) == c.K1_DIGESTS
+
+
+def _operator_cases(dtype, device):
+    """Each kernel's operator with inputs at a shape of the export path:
+    (name, operator, its direct launch, arguments)."""
+    from libdogleg_tpu_torch.models import grid_mrf
+    from libdogleg_tpu_torch.ops import batchchol, bcsr_kernels, tilechol
+    from libdogleg_tpu_torch.problems import SparseProblem
+    g = torch.Generator().manual_seed(5)
+
+    def spd(k, n):
+        a = torch.randn(k, n, n, dtype=dtype, generator=g)
+        return (a @ a.mT + n * torch.eye(n, dtype=dtype)).to(device)
+    A, T = spd(6, 64), spd(5, 40)
+    L = torch.linalg.cholesky(T)
+    C = torch.randn(5, 9, 40, dtype=dtype, generator=g).to(device)
+    grid = grid_mrf.make_grid_mrf(4, 4, 8, dtype=dtype, device=device)
+    sched = SparseProblem(f=None, structure=grid.structure,
+                          jtj="sparse")._jtj_sched
+    values = torch.randn((3, grid.structure.nnzb, 8, 8), dtype=dtype,
+                         generator=g).to(device)
+    ops = torch.as_tensor(bcsr_kernels._jtj_operands(sched),
+                          dtype=torch.int32, device=device)
+    npairs, nout = len(sched.pair_i), bcsr_kernels._nout(sched)
+    return [
+        ("K3", bcsr_kernels._jtj_op, bcsr_kernels._jtj_batched_launch,
+         (values, ops, npairs, nout)),
+        ("K5", batchchol._op, batchchol._launch, (A,)),
+        ("K6", tilechol._tile_cholesky_op, tilechol._tile_cholesky_launch,
+         (T,)),
+        ("K7", tilechol._tri_solve_right_op, tilechol._tri_solve_right_launch,
+         (L, C)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_export_operators_opcheck_and_bits(cuda, dtype):
+    """The operators that carry K3, K5, K6 and K7 inside an exported
+    artifact: torch.library.opcheck (schema, fake tensor, dispatch), and
+    each operator's output is its direct launch's, bit for bit."""
+    for name, op, launch, args in _operator_cases(dtype, cuda):
+        torch.library.opcheck(op, args)
+        got, want = op(*args), launch(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+def test_export_grid_artifact_on_card(cuda, tmp_path):
+    """A float64 supernodal grid solve exported on the card: the artifact
+    launches K3, K6 and K7, takes the eager solve's decisions and the
+    traced loop's p within 1e-12 (the factorization's index_add_ sums with
+    atomics on the card, so two runs need not give the same bits)."""
+    from libdogleg_tpu_torch import SparseProblem, export, optimize
+    from libdogleg_tpu_torch.models import grid_mrf
+    from libdogleg_tpu_torch.ops import bcsr_kernels, tilechol
+    g = grid_mrf.make_grid_mrf(8, 8, 8, dtype=torch.float64, device=cuda)
+    prob = SparseProblem(f=g.problem(jtj="dense").f, structure=g.structure,
+                         jtj="sparse", ordering="rcm", amalgamate=16)
+    ns = prob.default_newton_solver()
+    z = torch.zeros(g.nstate, dtype=torch.float64, device=cuda)
+    exp = export.export_solver(prob.products, g.nstate, BENCH,
+                               dtype=torch.float64, newton_solver=ns)
+    path = str(tmp_path / "grid.pt2")
+    export.save_exported(path, exp)
+    solver = export.load_exported(path)
+    k3 = bcsr_kernels.launch_counts["bcsr_jtj_blocks_kernel"]
+    k6, k7 = (tilechol.launch_counts[k] for k in ("tile_cholesky",
+                                                  "tri_solve_right"))
+    r = solver.call(z)
+    torch.cuda.synchronize()
+    assert bcsr_kernels.launch_counts["bcsr_jtj_blocks_kernel"] > k3
+    assert tilechol.launch_counts["tile_cholesky"] > k6
+    assert tilechol.launch_counts["tri_solve_right"] > k7
+    live = optimize(prob, z, BENCH)
+    for field in ("step_count", "n_attempts", "reason"):
+        assert torch.equal(getattr(r, field), getattr(live, field)), field
+    loop = export.solve_traced(
+        export.flatten_products(prob.products, z[None], batched=False), z,
+        BENCH, newton_solver=ns, batched=False)
+    for field in ("step_count", "n_attempts", "reason"):
+        assert torch.equal(getattr(r, field), getattr(loop, field)), field
+    torch.testing.assert_close(r.p, loop.p, rtol=1e-12, atol=1e-12)
