@@ -229,17 +229,24 @@ Phases, each printing its own lines:
      SHA-256 digests (every field, f32 B=8192 and f64 B=1024) against the
      parent's, K1_DIGESTS; config 3 (bench_all.py:156-184's closure over
      the grid, B=10000), config 2's curve fit (Nstate 3, B=4096) and config
-     8's tanh family at Nstate 16 (nmeas 64, B=1024) planned, their sources
-     built together (nvcc seconds, ptxas registers, stack frame and spills
-     per N); config 3 through batched_optimize_compacted launching K1-auto
-     once and the masked driver never, recovered_frac >= 0.99, step-count
+     8's tanh family at Nstate 16 (nmeas 64, B=1024) planned, each in the
+     row form (its G and rows printed), their sources built together with
+     config 3's array form and row form at G=1 (nvcc seconds, ptxas
+     registers, stack frame and spills of each); the row form at G=1
+     giving the array form's bits (every field of config 3's solve);
+     config 3 through batched_optimize_compacted launching K1-auto once
+     and the masked driver never, recovered_frac >= 0.99, step-count
      agreement >= 0.85 with the masked driver; configs 2 and 8 the same
      way through batched_optimize; in float64 at B=1024 each generated
-     kernel's decisions its plain version's (p within 1e-10) and its
-     functor alone within 1e-12 of the graph on the CPU; config 3's public
+     kernel's decisions its plain version's on the CPU (p within 1e-10;
+     the elements where the plain version run on the card decides
+     otherwise printed) and its functor alone within 1e-12 of the graph on
+     the CPU; config 3's public
      call with and without promotion in turns (CUDA events, a dependent
-     fetch), the trace's host ms, K1-auto with its wrapper, alone
-     (profiler) and its plain version, and its bound;
+     fetch) with the traces it made (the plan cache: none), a cached
+     plan's host ms, K1-auto with its wrapper and alone (profiler) in
+     turns with the array form and the named general instance on the
+     same problems, its plain version, and its bound;
  24. ahead-of-time export (libdogleg_tpu_torch/export.py): three artifacts
      exported on the card in float32 under PRM, each saved, loaded and run
      in a fresh Python process that imports libdogleg_tpu_torch.export and
@@ -3643,6 +3650,14 @@ CONFIG3_BATCH = 10000     # bench_all.py:156 config3_batched(batch=10000)
 CONFIG2_BATCH = 4096
 CONFIG8_N16 = (16, 1024)  # config 8's family at Nstate 16: nmeas 64
 AUTO_F64_BATCH = 1024
+# The float64 elements of phase 23's instances at which the plain version
+# run on the card's tensors (sums in cuBLAS's order) may take other
+# decisions than the kernel: config 3's element 587, where max|Jt_x| after
+# the fourth step straddles the 1e-8 threshold. There the kernel takes the
+# plain version's decisions on the CPU, and the JAX package's (the CPU
+# test test_phase23_f64_instances_take_jax_decisions).
+AUTO_F64_ORDER_ELEMENTS = {"config 3": (587,), "config 2": (),
+                           "config 8 n16": ()}
 # SHA-256 of every field of the named instances' results (k1_digests), as
 # the kernel stood before its solve moved into csrc/dogleg_solve.cuh (H100,
 # CUDA 12.8): the move changed no bit.
@@ -3792,6 +3807,7 @@ def decisions_agree(r, ref) -> float:
 def phase23_mega_auto(dev, bench, card) -> dict:
     import torch
 
+    from libdogleg_tpu_torch.models import quadratic_surface as qs
     from libdogleg_tpu_torch.native import loader
     from libdogleg_tpu_torch.ops import mega
     from libdogleg_tpu_torch.parallel import (batched_optimize,
@@ -3808,31 +3824,58 @@ def phase23_mega_auto(dev, bench, card) -> dict:
     print(f"[23 named K1 digests] {len(digests)} results bit for bit the "
           f"parent's: {json.dumps(digests)}", flush=True)
 
-    # plans for the three functions at full width, and their builds
+    # plans for the three functions at full width, each in the row form;
+    # config 3's array form and row form at G = 1 beside them; their builds
     cases = auto_cases(torch.float32, dev,
                        (CONFIG3_BATCH, CONFIG2_BATCH, CONFIG8_N16[1]))
     plans = []
     for label, fn, p0, data in cases:
+        traces = mega_auto.trace_count
         t0 = time.perf_counter()
         plan = mega_auto.plan_megakernel(fn, p0, bench, problem_data=data)
         trace_ms = (time.perf_counter() - t0) * 1e3
-        check(plan is not None, f"{label}: auto-promotion plans K1")
+        check(plan is not None and plan.kernel.source.form == "row",
+              f"{label}: auto-promotion plans K1 in the row form")
         src = plan.kernel.source
         plans.append(plan)
         print(f"[23 plan {label}] B={p0.shape[0]} Nstate {src.nstate} f32: "
-              f"traced and generated in {trace_ms:.1f} ms; {src.n_inputs} "
-              f"inputs, {src.local_values} local values a problem, "
-              f"{src.operations} operations an evaluation", flush=True)
-    infos = loader.build_generated(*(p.kernel.source.text for p in plans))
+              f"the {src.form} form, G={src.group} lanes a problem over "
+              f"{src.rows} rows; {mega_auto.trace_count - traces} trace and "
+              f"the generation in {trace_ms:.1f} ms; {src.n_inputs} inputs, "
+              f"{src.local_values} local values a problem, {src.operations} "
+              f"operations an evaluation", flush=True)
+    a3 = plans[0].kernel.adapted
+    array3, row3 = (mega_auto.GeneratedKernel(
+        a3, mega_auto.generate_source(a3, torch.float32, _form=form,
+                                      _group=1))
+        for form in ("array", "row"))
+    built = ([(label, p.kernel) for (label, *_), p in zip(cases, plans)]
+             + [("config 3 array form", array3),
+                ("config 3 row form G=1", row3)])
+    infos = loader.build_generated(*(k.source.text for _, k in built))
     print(f"[23 build] {len(infos)} generated sources, one nvcc process "
           f"each, started together: {infos[0].seconds:.2f} s; card {card}",
           flush=True)
-    for (label, *_), info in zip(cases, infos):
-        print(f"[23 ptxas {label}] {'; '.join(ptxas_auto(info.log))}",
+    for (label, k), info in zip(built, infos):
+        print(f"[23 ptxas {label}] the {k.source.form} form, "
+              f"G={k.source.group}: {'; '.join(ptxas_auto(info.log))}",
               flush=True)
 
+    # the row form at G = 1 gives the array form's bits, every field
+    _, fn3, p0, meas = cases[0]
+    leaves3, consts3 = plans[0].data_leaves, plans[0].consts
+    r_row1, r_array = (mega.megakernel_optimize_generated(
+        k, p0, leaves3, bench, consts3) for k in (row3, array3))
+    torch.cuda.synchronize()
+    differ = [f for f, x, y in zip(r_row1._fields, r_row1, r_array)
+              if x is not None and not torch.equal(x, y)]
+    check(not differ, f"config 3: the row form at G=1 gives the array "
+          f"form's bits (fields that differ: {differ})")
+    print(f"[23 config 3 forms B={CONFIG3_BATCH} f32] the row form at G=1 "
+          f"and the array form, both built in this run: every field of the "
+          f"solve bit for bit", flush=True)
+
     # config 3's public call: exactly one K1-auto launch, no masked run
-    label, fn3, p0, meas = cases[0]
     for key in ("launch_count", "factored_launch_count",
                 "auto_launch_count"):
         setattr(mega, key, 0)
@@ -3886,55 +3929,94 @@ def phase23_mega_auto(dev, bench, card) -> dict:
               f"reasons {torch.bincount(r.reason, minlength=7).tolist()}; "
               f"{attempts_text(r.n_attempts)}", flush=True)
 
-    # float64: the generated kernel against its plain version
+    # float64: the generated kernel against its plain version, as the CPU
+    # path runs it (the oracle of the CPU tests, which there takes the JAX
+    # package's decisions), and against the plain version run on the card's
+    # tensors, which sums in cuBLAS's order: they may differ only at the
+    # elements of AUTO_F64_ORDER_ELEMENTS, whose decisions follow the order
+    # of the sums
     for (label, fn, p0_, data) in auto_cases(
             torch.float64, dev, (AUTO_F64_BATCH,) * 3):
         plan = mega_auto.plan_megakernel(fn, p0_, None, problem_data=data,
                                          forced=True)
+        check(plan.kernel.source.form == "row", f"{label} f64: the row form")
         r_k = plan()
+        cpu = (p0_.cpu(), tuple(t.cpu() for t in plan.data_leaves),
+               tuple(t.cpu() for t in plan.consts))
         r_p = mega.megakernel_optimize_generated_reference(
-            plan.kernel, p0_, plan.data_leaves)
-        got = mega.products_generated(plan.kernel, p0_, plan.data_leaves)
-        want = mega.products_generated(plan.kernel, p0_.cpu(),
-                                       tuple(t.cpu() for t in
-                                             plan.data_leaves))
+            plan.kernel, cpu[0], cpu[1], None, cpu[2])
+        r_card = mega.megakernel_optimize_generated_reference(
+            plan.kernel, p0_, plan.data_leaves, None, plan.consts)
+        got = mega.products_generated(plan.kernel, p0_, plan.data_leaves,
+                                      plan.consts)
+        want = mega.products_generated(plan.kernel, *cpu)
         torch.cuda.synchronize()
         for field in ("step_count", "n_attempts", "reason"):
-            check(torch.equal(getattr(r_k, field), getattr(r_p, field)),
+            check(torch.equal(getattr(r_k, field).cpu(), getattr(r_p, field)),
                   f"{label} f64 {field} identical to the plain version's")
-        check(torch.allclose(r_k.p, r_p.p, rtol=1e-10, atol=1e-12),
+        check(torch.allclose(r_k.p.cpu(), r_p.p, rtol=1e-10, atol=1e-12),
               f"{label} f64 p within 1e-10 of the plain version's")
+        on_card = sorted(set().union(*(
+            torch.nonzero(getattr(r_k, f) != getattr(r_card, f)).flatten()
+            .tolist() for f in ("step_count", "n_attempts", "reason"))))
+        check(set(on_card) <= set(AUTO_F64_ORDER_ELEMENTS[label]),
+              f"{label} f64: decisions identical to the plain version's on "
+              f"the card but at {AUTO_F64_ORDER_ELEMENTS[label]}: they "
+              f"differ at {on_card}")
         perr = [rel_err(g.cpu(), w) for g, w in zip(got, want)]
         check(max(perr) <= 1e-12, f"{label} f64 products within 1e-12 of "
               f"the plain version's: {perr}")
         print(f"[23 {label} f64 B={AUTO_F64_BATCH}] Nstate "
-              f"{plan.kernel.source.nstate}: step_count, n_attempts, reason "
-              f"identical to the plain version's; max |dp| "
-              f"{(r_k.p - r_p.p).abs().max().item():.3e} (1e-10); the "
-              f"functor alone against the graph on the CPU, largest "
-              f"difference over largest value: norm2 {perr[0]:.2e}, Jt_x "
-              f"{perr[1]:.2e}, JtJ {perr[2]:.2e}", flush=True)
+              f"{plan.kernel.source.nstate}, the row form at G="
+              f"{plan.kernel.source.group}: step_count, n_attempts, reason "
+              f"identical to the plain version's (on the CPU); max |dp| "
+              f"{(r_k.p.cpu() - r_p.p).abs().max().item():.3e} (1e-10); the "
+              f"plain version run on the card's tensors takes other "
+              f"decisions at elements {on_card} (allowed: "
+              f"{list(AUTO_F64_ORDER_ELEMENTS[label])}); the functor alone "
+              f"against the graph on the CPU, largest difference over largest "
+              f"value: norm2 {perr[0]:.2e}, Jt_x {perr[1]:.2e}, JtJ "
+              f"{perr[2]:.2e}", flush=True)
 
-    # timing: config 3's public call with and without promotion, in turns
+    # timing: config 3's public call with and without promotion, in turns,
+    # and the traces it makes (the plan cache: none after the first)
     def public(mk):
         return float(batched_optimize_compacted(
             fn3, p0, bench, problem_data=meas,
             use_megakernel=mk).norm2_x.sum())
+    traces = mega_auto.trace_count
     turns = [measure_ms(public, mk, warmup=1, reps=3)
              for mk in (None, False, False, None)]
+    traces = mega_auto.trace_count - traces
+    check(traces == 0, f"config 3's repeated public calls trace nothing "
+          f"({traces})")
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
         mega_auto.plan_megakernel(fn3, p0, bench, problem_data=meas)
         walls.append((time.perf_counter() - t0) * 1e3)
+    # K1-auto (the row form) with its wrapper and alone, in turns with the
+    # array form and the named general instance on the same problems
     plan = plans[0]
-    args = (plan.kernel, p0, plan.data_leaves, bench)
-    ms = measure_ms(mega.megakernel_optimize_generated, *args, warmup=3,
-                    reps=20)
+    gx, gy = qs.make_grid(torch.float32, dev)
+    legs = {"row": (mega.megakernel_optimize_generated,
+                    (plan.kernel, p0, leaves3, bench, consts3),
+                    "dogleg_auto_kernel"),
+            "array": (mega.megakernel_optimize_generated,
+                      (array3, p0, leaves3, bench, consts3),
+                      "dogleg_auto_kernel"),
+            "named": (mega.megakernel_optimize, (p0, meas, gx, gy, bench),
+                      "dogleg_mega_kernel")}
+    readings = {k: [] for k in legs}
+    for k in ("row", "array", "named", "named", "array", "row"):
+        fn, args, name = legs[k]
+        readings[k].append((measure_ms(fn, *args, warmup=3, reps=20),
+                            kernel_us(fn, args, name)))
+    args = legs["row"][1]
+    ms = min(m for m, _ in readings["row"])
+    alone = readings["row"][0][1]
     plain_ms = measure_ms(mega.megakernel_optimize_generated_reference,
                           *args, warmup=1, reps=3)
-    alone = kernel_us(mega.megakernel_optimize_generated, args,
-                      "dogleg_auto_kernel")
     # the bound: the graph's operations an evaluation, one evaluation at the
     # start and one an attempt, the step math an attempt as phase 6 counts
     # it; p0, the data, the constants in and the results out
@@ -3942,18 +4024,23 @@ def phase23_mega_auto(dev, bench, card) -> dict:
     n = plan.kernel.source.nstate
     evals = float((r_b.n_attempts + 1).sum())
     limit = bound(
-        nbytes_of(p0, *plan.data_leaves,
-                  *plan.kernel.consts_on(dev, torch.float32))
+        nbytes_of(p0, *plan.data_leaves, *consts3)
         + nbytes_of(*(t for t in r_b if t is not None)),
         evals * plan.kernel.source.operations
         + float(r_b.n_attempts.sum()) * (n ** 3 / 3 + 6 * n * n + 10 * n))
+
+    def leg_text(k):
+        return ", ".join(f"{m:.4f} ms ({us_text(u)})" for m, u in readings[k])
     print(f"[23 timing config 3 B={CONFIG3_BATCH} f32] the public call "
           f"with a dependent fetch, in turns (auto, masked, masked, auto): "
-          f"{', '.join(f'{t:.3f}' for t in turns)} ms; trace and "
-          f"generation a call, host ms {', '.join(f'{w:.1f}' for w in walls)}"
-          f"; K1-auto with its wrapper {ms:.4f} ms "
-          f"({CONFIG3_BATCH / ms * 1e3:.0f} solves/s), alone {us_text(alone)}"
-          f"; plain version {plain_ms:.2f} ms; bound "
+          f"{', '.join(f'{t:.3f}' for t in turns)} ms, {traces} traces over "
+          f"its calls; planning a call (the plan cache), host ms "
+          f"{', '.join(f'{w:.3f}' for w in walls)}; in turns with the "
+          f"wrapper (CUDA events) and alone: K1-auto, the row form at G="
+          f"{plan.kernel.source.group}, {leg_text('row')}; the array form "
+          f"{leg_text('array')}; the named general instance "
+          f"{leg_text('named')}; K1-auto {CONFIG3_BATCH / ms * 1e3:.0f} "
+          f"solves/s; plain version {plain_ms:.2f} ms; bound "
           f"{limit['bound_ms'] * 1e3:.2f} us by {limit['bound_by']} "
           f"({evals / CONFIG3_BATCH:.2f} evaluations of "
           f"{plan.kernel.source.operations} operations a problem); card "

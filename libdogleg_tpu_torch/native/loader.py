@@ -45,6 +45,12 @@ _BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# The generated sources (K1 on a traced functor): no fused multiply-add in
+# the solve's step math either (F2), so that a source's bits do not follow
+# how nvcc happens to contract the code around its functor; the card then
+# rounds as the host build does (GENERATED_HOST_FLAGS).
+GENERATED_NVCC_FLAGS = ("-shared", *NVCC_FLAGS, "-fmad=false")
+
 _HOST_SRC = _SRC / "host"
 HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 # The generated sources on the host, for the CPU tests: no fused
@@ -194,7 +200,7 @@ def _generated_path(stem: str, source: str, flags) -> pathlib.Path:
 
 
 def generated_library_path(source: str) -> pathlib.Path:
-    return _generated_path("libdogleg_auto", source, NVCC_FLAGS)
+    return _generated_path("libdogleg_auto", source, GENERATED_NVCC_FLAGS)
 
 
 def _build_sources(sources, compiler, flags, path_of):
@@ -229,11 +235,11 @@ def _build_sources(sources, compiler, flags, path_of):
 
 def build_generated(*sources: str):
     """Compile generated sources (parallel/mega_auto.py) with nvcc and
-    NVCC_FLAGS, one shared library each holding both types' entries, unless
-    a build of the same text, headers and flags exists under _build/.
-    Returns a BuildInfo per source. Raises RuntimeError where nvcc is
-    missing, cannot be started or fails."""
-    return _build_sources(sources, find_nvcc, ("-shared", *NVCC_FLAGS),
+    GENERATED_NVCC_FLAGS, one shared library each holding both types'
+    entries, unless a build of the same text, headers and flags exists
+    under _build/. Returns a BuildInfo per source. Raises RuntimeError
+    where nvcc is missing, cannot be started or fails."""
+    return _build_sources(sources, find_nvcc, GENERATED_NVCC_FLAGS,
                           generated_library_path)
 
 
@@ -269,7 +275,8 @@ def bind_generated(lib: ctypes.CDLL) -> ctypes.CDLL:
                 fn = getattr(lib, f"{prefix}products_{dt}")
                 fn.argtypes = [ptr, ptr, i32] + [ptr] * 3 + tail
                 fn.restype = i32
-    for name in ("dogleg_auto_nstate", "dogleg_auto_inputs"):
+    for name in ("dogleg_auto_nstate", "dogleg_auto_inputs",
+                 "dogleg_auto_group"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32
     return lib

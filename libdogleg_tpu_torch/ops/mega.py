@@ -302,11 +302,20 @@ def _check_generated(kernel, p: torch.Tensor, data_leaves) -> None:
                              "and device")
 
 
-def _generated_ins(kernel, p: torch.Tensor, data_leaves):
-    """The input tensors (contiguous data leaves, then the constants on p's
-    device and dtype) and a ctypes array of their pointers."""
+def _generated_consts(kernel, p: torch.Tensor, consts):
+    """The constants a call reads (`consts`, or the trace's where None) on
+    p's device and in its dtype, contiguous: taken fresh each call, so that
+    a cached kernel reads the values the call's function closes over."""
+    return tuple(c.to(device=p.device, dtype=p.dtype).contiguous()
+                 for c in (kernel.adapted.consts if consts is None
+                           else consts))
+
+
+def _generated_ins(kernel, p: torch.Tensor, data_leaves, consts):
+    """The input tensors (contiguous data leaves, then the constants) and a
+    ctypes array of their pointers."""
     tensors = [t.contiguous() for t in data_leaves] + list(
-        kernel.consts_on(p.device, p.dtype))
+        _generated_consts(kernel, p, consts))
     ptrs = (ctypes.c_void_p * max(len(tensors), 1))(
         *(t.data_ptr() for t in tensors))
     return tensors, ptrs
@@ -314,24 +323,25 @@ def _generated_ins(kernel, p: torch.Tensor, data_leaves):
 
 def megakernel_optimize_generated_reference(
         kernel, p0: torch.Tensor, data_leaves=(),
-        parameters: Optional[DoglegParameters] = None) -> SolveResult:
+        parameters: Optional[DoglegParameters] = None,
+        consts=None) -> SolveResult:
     """The generated K1's plain version: the masked batched solver of
     solver.py on the traced graph (parallel/mega_auto.AdaptedProducts.
     plain), vmapped over the batch, on any device."""
     _check_generated(kernel, p0, data_leaves)
-    consts = kernel.consts_on(p0.device, p0.dtype)
-    vf = torch.func.vmap(functools.partial(kernel.adapted.plain,
-                                           consts=consts))
+    vf = torch.func.vmap(functools.partial(
+        kernel.adapted.plain, consts=_generated_consts(kernel, p0, consts)))
     return solve_products_batched(lambda p: vf(p, *data_leaves), p0,
                                   parameters)
 
 
 def megakernel_optimize_generated(kernel, p0: torch.Tensor, data_leaves=(),
                                   parameters: Optional[DoglegParameters]
-                                  = None) -> SolveResult:
+                                  = None, consts=None) -> SolveResult:
     """Solve B problems on K1 with a generated products functor: `kernel` a
     parallel/mega_auto.GeneratedKernel, p0 (B, n), data_leaves the
-    problem data's leaves, each (B, ...). Returns a batch-leading
+    problem data's leaves, each (B, ...), consts the tensors the function
+    closes over (None: those of the trace). Returns a batch-leading
     SolveResult (history=None, JtJ its lower triangle mirrored).
 
     CPU tensors go to megakernel_optimize_generated_reference. Otherwise
@@ -344,11 +354,12 @@ def megakernel_optimize_generated(kernel, p0: torch.Tensor, data_leaves=(),
     _check_generated(kernel, p0, data_leaves)
     if p0.device.type == "cpu":
         return megakernel_optimize_generated_reference(kernel, p0,
-                                                       data_leaves, prm)
+                                                       data_leaves, prm,
+                                                       consts)
     lib = kernel.library()
     _require_cuda(p0)
     p0 = p0.contiguous()
-    tensors, ptrs = _generated_ins(kernel, p0, data_leaves)
+    tensors, ptrs = _generated_ins(kernel, p0, data_leaves, consts)
     entry = (lib.dogleg_auto_solve_f32 if p0.dtype == torch.float32
              else lib.dogleg_auto_solve_f64)
     result = _launch_solve(entry, p0, [ctypes.addressof(ptrs)], prm)
@@ -357,21 +368,21 @@ def megakernel_optimize_generated(kernel, p0: torch.Tensor, data_leaves=(),
     return result
 
 
-def products_generated(kernel, p: torch.Tensor, data_leaves=()):
+def products_generated(kernel, p: torch.Tensor, data_leaves=(), consts=None):
     """The generated functor alone at p (B, n) -> (norm2 (B,), Jt_x (B, n),
     JtJ (B, n, n), the lower triangle mirrored, as the kernel keeps it).
     CPU tensors take its plain version, the graph vmapped."""
     _check_generated(kernel, p, data_leaves)
     if p.device.type == "cpu":
-        consts = kernel.consts_on(p.device, p.dtype)
-        r = torch.func.vmap(functools.partial(kernel.adapted.plain,
-                                              consts=consts))(p, *data_leaves)
+        r = torch.func.vmap(functools.partial(
+            kernel.adapted.plain,
+            consts=_generated_consts(kernel, p, consts)))(p, *data_leaves)
         return r.norm2_x, r.Jt_x, _lower_mirrored(r.JtJ)
     from libdogleg_tpu_torch.native.loader import launch_target
     lib = kernel.library()
     _require_cuda(p)
     p = p.contiguous()
-    tensors, ptrs = _generated_ins(kernel, p, data_leaves)
+    tensors, ptrs = _generated_ins(kernel, p, data_leaves, consts)
     outs = _products_out(p)
     entry = (lib.dogleg_auto_products_f32 if p.dtype == torch.float32
              else lib.dogleg_auto_products_f64)

@@ -84,7 +84,10 @@ def _try_megakernel(products_fn, p0_batch, prm, problem_data, newton_solver,
     use_megakernel is False or LIBDOGLEG_TPU_NO_MEGAKERNEL is set, and for a
     History or a custom strategy; with use_megakernel=True those, and a
     function outside the regime, raise. Once a plan exists nothing falls
-    back: its build or launch errors raise."""
+    back: its build or launch errors raise. The JAX package traces the
+    function once under jax.jit's cache; here plan_megakernel's plan cache
+    takes that role: a repeated call with the same function and shapes
+    traces nothing (mega_auto.trace_count)."""
     from libdogleg_tpu_torch.parallel.mega_auto import (_env_disabled,
                                                         plan_megakernel)
     if use_megakernel is False or _env_disabled():

@@ -11,10 +11,13 @@ around which a plan could be traced).
 
 The generated source itself, the text nvcc compiles on the card, is built
 here as host C++ with g++ (native/loader.build_generated_host) and called
-through ctypes: its functor against the traced torch function at 1e-12 in
-float64 for Nstate 3, 6 and 16 and for each supported op alone, and its
-whole K1 solve against the JAX package's decisions. JAX-side results are
-computed once per module.
+through ctypes, its G lanes run in turn and summed in the butterfly's
+order: its functor against the traced torch function at 1e-12 in float64
+for Nstate 3, 6 and 16 and for each supported op alone, and its whole K1
+solve against the JAX package's decisions. The row form at one lane is
+held to the array form's bits (functor and solve, float32 and float64),
+and each op's graph to the form it takes. JAX-side results are computed
+once per module.
 """
 
 import ctypes
@@ -243,18 +246,19 @@ def _host_library(kernel):
     return loader.load_generated(kernel.source.text, host=True)
 
 
-def _host_ins(kernel, p, data_leaves):
-    tensors = [t.contiguous() for t in data_leaves] + list(
-        kernel.consts_on(p.device, p.dtype))
+def _host_ins(kernel, p, data_leaves, consts=None):
+    tensors = [t.contiguous() for t in data_leaves] + [
+        c.to(p.dtype).contiguous() for c in
+        (kernel.adapted.consts if consts is None else consts)]
     ptrs = (ctypes.c_void_p * max(len(tensors), 1))(
         *(t.data_ptr() for t in tensors))
     return tensors, ptrs
 
 
-def _host_products(kernel, p, data_leaves):
+def _host_products(kernel, p, data_leaves, consts=None):
     """The generated functor at p (B, n), run by the g++ build."""
     lib = _host_library(kernel)
-    tensors, ptrs = _host_ins(kernel, p, data_leaves)
+    tensors, ptrs = _host_ins(kernel, p, data_leaves, consts)
     B, n = p.shape
     outs = (torch.empty(B, dtype=p.dtype), torch.empty(B, n, dtype=p.dtype),
             torch.empty(B, n, n, dtype=p.dtype))
@@ -267,20 +271,30 @@ def _host_products(kernel, p, data_leaves):
     return outs
 
 
-def _host_solve(kernel, p0, data_leaves, prm):
-    """The generated K1's whole solve of every element, by the g++ build:
-    (p, step_count, n_attempts, reason)."""
+def _host_solve_all(kernel, p0, data_leaves, prm, consts=None):
+    """The generated K1's whole solve of every element, by the g++ build,
+    in p0's dtype: its nine outputs (p, Jt_x, JtJ, norm2_x, trust region,
+    lambda, step_count, n_attempts, reason)."""
     lib = _host_library(kernel)
-    tensors, ptrs = _host_ins(kernel, p0, data_leaves)
+    tensors, ptrs = _host_ins(kernel, p0, data_leaves, consts)
     B, n = p0.shape
     dt = p0.dtype
     outs = ([torch.empty(B, n, dtype=dt), torch.empty(B, n, dtype=dt),
              torch.empty(B, n, n, dtype=dt)]
             + [torch.empty(B, dtype=dt) for _ in range(3)]
             + [torch.empty(B, dtype=torch.int32) for _ in range(3)])
-    assert lib.dogleg_auto_host_solve_f64(
+    entry = (lib.dogleg_auto_host_solve_f64 if dt == torch.float64
+             else lib.dogleg_auto_host_solve_f32)
+    assert entry(
         p0.contiguous().data_ptr(), ctypes.addressof(ptrs), B,
         ctypes.byref(mega._c_params(prm)), *(t.data_ptr() for t in outs)) == 0
+    return outs
+
+
+def _host_solve(kernel, p0, data_leaves, prm, consts=None):
+    """The generated K1's whole solve of every element, by the g++ build:
+    (p, step_count, n_attempts, reason)."""
+    outs = _host_solve_all(kernel, p0, data_leaves, prm, consts)
     return outs[0], outs[6], outs[7], outs[8]
 
 
@@ -396,9 +410,13 @@ def _jax_case_decisions(nstate, batch):
 @pytest.mark.parametrize("nstate,batch", [(3, 32), (6, 32), (16, 8)])
 def test_generated_solve_takes_jax_decisions(nstate, batch):
     """The generated K1's whole solve (dogleg_solve.cuh on the generated
-    functor, built by g++) takes the JAX package's float64 decisions, and
-    so does the forced call's plain version."""
+    functor, built by g++: the row form at the card's G, its lanes run in
+    turn and summed in the butterfly's order) takes the JAX package's
+    float64 decisions, and so does the forced call's plain version."""
     plan, p0, data, _, _, _ = _case_plan(nstate, batch)
+    src = plan.kernel.source
+    assert (src.form, src.group) == ("row", mega_auto.ROW_GROUP)
+    assert _host_library(plan.kernel).dogleg_auto_group() == src.group
     ref = _jax_case_decisions(nstate, batch)
     p, step_count, n_attempts, reason = _host_solve(
         plan.kernel, p0, plan.data_leaves, DoglegParameters())
@@ -408,6 +426,131 @@ def test_generated_solve_takes_jax_decisions(nstate, batch):
     r = plan()
     _assert_decisions_equal(r, ref)
     np.testing.assert_allclose(r.p.numpy(), ref["p"], rtol=1e-10, atol=1e-12)
+
+
+ROWS = {3: 64, 6: 100, 16: 64}
+
+
+@pytest.mark.parametrize("nstate", [3, 6, 16])
+def test_promoted_functions_take_the_row_form(nstate):
+    """Configs 2, 3 and 8's functions take the row form at the card's G,
+    with config 8's Ab @ t and Bb @ p inner sums over other axes; the
+    operations an evaluation are the array form's (the bound counts the
+    graph's work whatever form runs it)."""
+    plan, *_ = _case_plan(nstate, 4)
+    src = plan.kernel.source
+    assert (src.form, src.group, src.rows) == (
+        "row", mega_auto.ROW_GROUP, ROWS[nstate])
+    array = mega_auto.generate_source(plan.kernel.adapted, torch.float64,
+                                      _form="array")
+    assert (array.form, array.group, array.rows) == ("array", 1, 0)
+    assert src.operations == array.operations
+    assert src.local_values < array.local_values
+
+
+def _same_bits(got, want):
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nstate", [3, 6, 16])
+def test_row_form_at_one_lane_gives_array_bits(nstate, dtype):
+    """At G = 1 each element of the row form does the array form's
+    operations in the array form's order: both g++ builds give the same
+    bits, for the functor alone (at the starts and near them) and for the
+    whole solve, in float32 and float64."""
+    plan, p0, _, _, _, _ = _case_plan(nstate, 16)
+    a = plan.kernel.adapted
+    row, array = (mega_auto.GeneratedKernel(a, mega_auto.generate_source(
+        a, torch.float64, _form=form, _group=1)) for form in ("row", "array"))
+    assert (row.source.form, array.source.form) == ("row", "array")
+    p0 = p0.to(dtype)
+    leaves = tuple(t.to(dtype) for t in plan.data_leaves)
+    for p in (p0, p0 * (1 + 1e-3)):
+        assert _same_bits(_host_products(row, p, leaves),
+                          _host_products(array, p, leaves))
+    prm = DoglegParameters(**F32_PRM) if dtype == torch.float32 else \
+        DoglegParameters()
+    assert _same_bits(_host_solve_all(row, p0, leaves, prm),
+                      _host_solve_all(array, p0, leaves, prm))
+
+
+@pytest.mark.parametrize("group", [2, 4, 8])
+def test_row_form_lanes_sum_in_the_butterfly_order(group):
+    """At G > 1 only the order of the row sums changes: the g++ build at G
+    gives Jt_x and JtJ within float64 rounding of the array form's, the
+    same decisions in a whole solve, and the library reports its G."""
+    plan, p0, _, _, _, _ = _case_plan(6, 16)
+    a = plan.kernel.adapted
+    k = mega_auto.GeneratedKernel(a, mega_auto.generate_source(
+        a, torch.float64, _form="row", _group=group))
+    array = mega_auto.GeneratedKernel(a, mega_auto.generate_source(
+        a, torch.float64, _form="array"))
+    assert _host_library(k).dogleg_auto_group() == group
+    _assert_products_close(_host_products(k, p0, plan.data_leaves),
+                           _host_products(array, p0, plan.data_leaves))
+    got = _host_solve(k, p0, plan.data_leaves, DoglegParameters())
+    want = _host_solve(array, p0, plan.data_leaves, DoglegParameters())
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+
+
+def _smoke():
+    """chip_smoke.py of this tree, for phase 23's inputs."""
+    import pathlib
+    import sys
+    root = str(pathlib.Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_phase23(label):
+    """The JAX package's float64 decisions on chip_smoke.py phase 23's
+    float64 instance of config 3 or config 2 (B=1024)."""
+    c = _smoke()
+    _, _, p0, data = {x[0]: x for x in c.auto_cases(
+        torch.float64, torch.device("cpu"), (c.AUTO_F64_BATCH,) * 3)}[label]
+    if label == "config 3":
+        jproducts = _jax_products(jnp.float64)
+    else:
+        t = jnp.asarray(np.linspace(0.0, 1.0, c.CONFIG2_NMEAS))
+
+        def jproducts(p, m):
+            x = jcf.model(p, t) - m
+            J = jcf.jacobian(p, t)
+            return JProducts(norm2_x=x @ x, Jt_x=J.T @ x, JtJ=J.T @ J)
+    r = j_batched(jproducts, jnp.asarray(p0.numpy()), JParams(),
+                  problem_data=jnp.asarray(data.numpy()),
+                  use_megakernel=False)
+    return {f: np.asarray(getattr(r, f)) for f in DECISIONS + ("p",)}
+
+
+@pytest.mark.parametrize("label", ["config 3", "config 2"])
+def test_phase23_f64_instances_take_jax_decisions(label):
+    """chip_smoke.py phase 23 holds the card's float64 decisions to the
+    plain version on the CPU. The g++ build of the same source at the
+    card's G (the card's bits where no transcendental function differs)
+    takes the JAX package's decisions on those instances, element 587 of
+    config 3's too, where max|Jt_x| after the fourth step straddles the
+    1e-8 threshold (the array form stops an attempt later there)."""
+    c = _smoke()
+    _, fn, p0, data = {x[0]: x for x in c.auto_cases(
+        torch.float64, torch.device("cpu"), (c.AUTO_F64_BATCH,) * 3)}[label]
+    plan = mega_auto.plan_megakernel(fn, p0, None, problem_data=data,
+                                     forced=True)
+    assert plan.kernel.source.group == mega_auto.ROW_GROUP
+    ref = _jax_phase23(label)
+    p, *decisions = _host_solve(plan.kernel, p0, plan.data_leaves,
+                                DoglegParameters(), plan.consts)
+    for f, got in zip(DECISIONS, decisions):
+        np.testing.assert_array_equal(got.numpy(), ref[f], err_msg=f)
+    np.testing.assert_allclose(p.numpy(), ref["p"], rtol=1e-10, atol=1e-12)
+    r = mega.megakernel_optimize_generated_reference(
+        plan.kernel, p0, plan.data_leaves, None, plan.consts)
+    _assert_decisions_equal(r, ref)
 
 
 # Each supported op alone, as f(p (4,), d (3, 4)) -> a tensor v; the
@@ -495,6 +638,33 @@ def test_generated_op(op):
     # and the graph, the plain version, gives the function's products
     plain = mega.products_generated(plan.kernel, p, plan.data_leaves)
     _assert_products_close(plain, want, rtol=1e-15)
+
+
+@pytest.mark.parametrize("op", sorted(OPS))
+def test_generated_op_form(op):
+    """Each op's graph takes the row form where its products are sums over
+    one row axis that every value on the way keeps whole, and there the row
+    form at G = 1 gives the array form's bits; a graph without one (a
+    reshape that merges the row axis, a sum over it that is not a product)
+    keeps the array form, and a forced row form raises."""
+    rng = np.random.default_rng(11)
+    p = torch.as_tensor(rng.normal(size=(5, 4)))
+    d = torch.as_tensor(rng.normal(size=(5, 3, 4)))
+    plan = mega_auto.plan_megakernel(_op_products(OPS[op]), p, None,
+                                     problem_data=d, forced=True)
+    a, src = plan.kernel.adapted, plan.kernel.source
+    array = mega_auto.generate_source(a, torch.float64, _form="array")
+    if src.form == "array":
+        assert src.text == array.text
+        with pytest.raises(mega_auto.UnsupportedProducts, match="row"):
+            mega_auto.generate_source(a, torch.float64, _form="row")
+        return
+    row1 = mega_auto.generate_source(a, torch.float64, _form="row", _group=1)
+    assert _same_bits(
+        _host_products(mega_auto.GeneratedKernel(a, row1), p,
+                       plan.data_leaves),
+        _host_products(mega_auto.GeneratedKernel(a, array), p,
+                       plan.data_leaves))
 
 
 def _unsupported(dtype, device):
