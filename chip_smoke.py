@@ -218,8 +218,18 @@ Phases, each printing its own lines:
      singles', one factorization of the batch launching K6 and K7 as
      often as a single one (by wrapper count and by kernel name in a
      trace), device events and host synchronizations a wavefront, the
-     lambda histogram, peak memory, whether two runs give the same bits,
-     a profiler split; K3 at both runs' shapes against its plain version
+     lambda histogram, peak memory, two runs the same bits (a check, as
+     for config 6b's later solves: the sums in a fixed order of
+     ops/segsum.py), a profiler split; both solves with the sums in each
+     form in turns (sums_as: index_add_, the form before; plain,
+     segsum.reference on the card; kernel, the segment-add kernel
+     csrc/segsum.cu as shipped), plain and kernel the same bits twice
+     and each other's; 6b simplicial's first and second call after its
+     analysis and the time to build its level plans; the segment-add kernel at
+     the batch's widest UPDATE level and its forward level with the most
+     terms on one row, against its plain version (the same bits) and in
+     turns with it and index_add_; K3 at both runs' shapes against its
+     plain version
      (the index_add form) and in turns with it; K6 and K7 at the batch's
      widest FACTOR and SOLVE levels (16 x k tiles of 128 x 128) against
      their plain versions and in turns with cholesky_ex and
@@ -263,12 +273,37 @@ Phases, each printing its own lines:
      BlockedDenseNewtonSolver (K5 inside; recovered_frac >= 0.99). Each
      prints the trace's seconds, the artifact's bytes, the fresh process's
      load seconds, the artifact's call and the live eager call in turns
-     (CUDA events, a dependent fetch) and the kernels' launches inside.
+     (CUDA events, a dependent fetch) and the kernels' launches inside;
+     the fresh process's decisions and p this process's, bit for bit;
+ 25. the parallel layer (parallel/mesh.py, parallel/sharded.py, mesh= in
+     the batched entry points, checkpoint.save_state_orbax on
+     torch.distributed.checkpoint): (a) a world of one on NCCL
+     (make_mesh(("dp",))), config 3 at B=10000 through
+     batched_optimize(mesh=) on quadratic_surface.products (K1 named) and
+     on config 3's closure (K1 generated), and batched_optimize_compacted
+     (mesh=), each result field the unsharded call's bits, p a DTensor
+     with Shard(0), one K1 launch a call, the walls with and without the
+     mesh in turns; (b) two ranks on the one card over gloo, each a
+     process of its own (phase25_rank) under a 600 s wall limit: config
+     3's 10000 problems 5000 a rank through K1 named and generated (each
+     element the unsharded call's bits), the sample problem's 100 rows 50
+     a rank in float64 with History (the unsharded solve's decisions and
+     step types), config 6's grid (32x32x8, Nstate 8192, 24064
+     measurements, 3008 stored lower blocks, rcm/amalgamate 16) with
+     12032 dense J rows a rank through MeasurementShardedSparseProblem in
+     float32 under metric 2's gate (reason > 0, max|Jt_x| <= 1e-3, p
+     within 1e-3 of float64), both ranks and a second solve the same
+     bits, K6 and K7 launched; a dp-sharded batched state through the
+     distributed checkpoint, resumed to the one-shot run's bits; all_reduce
+     calls and bytes an evaluation, walls in turns, peak memory.
      Each phase prints its seconds.
 Then one JSON line about the kernels (time, plain version's time, the
 library call's where one exists, and the bound from this run's shapes; K1
-once per instance, the generated one's from phase 23; K3, K6 and K7 with their launches on each path that
-runs them, `launches` their sum), the card line again, and a last JSON
+once per instance, the generated one's from phase 23; K1 (by instance),
+K3, K6, K7 and the segment add with their launches on each path that runs
+them, phase 25's mesh paths among them, `launches` their sum; the segment
+add, the sparse path's port-only kernel, names the XLA scatter it replaces
+in the JAX package), the card line again, and a last JSON
 line with "ok": true. Any failure exits non-zero before the last line; so
 does a machine without a CUDA device, or a directory without the package.
 """
@@ -1079,10 +1114,13 @@ def phase12_sparse(dev, bench) -> dict:
     from libdogleg_tpu_torch.ops import bcsr_kernels as tk
     from libdogleg_tpu_torch.ops import tilechol
 
+    from libdogleg_tpu_torch.ops import segsum
+
     def counts():
         return {"bcsr_jtj_blocks_kernel":
                 tk.launch_counts["bcsr_jtj_blocks_kernel"],
-                **tilechol.launch_counts}
+                **tilechol.launch_counts,
+                "segment_add": segsum.launch_count}
 
     g = grid_mrf.make_grid_mrf(*GRID, dtype=torch.float32, device=dev)
     t0 = time.perf_counter()
@@ -1110,6 +1148,7 @@ def phase12_sparse(dev, bench) -> dict:
     tk.launch_counts["bcsr_jtj_blocks_kernel"] = 0
     for k in tilechol.launch_counts:
         tilechol.launch_counts[k] = 0
+    segsum.launch_count = 0
     r32, walls, per_leg = {}, {}, {}
     for name, prob in probs.items():
         before = counts()
@@ -1121,7 +1160,8 @@ def phase12_sparse(dev, bench) -> dict:
     # read here, before the float64 and coupling="dense" solves below
     launches = counts()
     check(all(v > 0 for v in launches.values()),
-          f"K3, K6 and K7 launched on the main path: {launches}")
+          f"K3, K6, K7 and the segment add launched on the main path: "
+          f"{launches}")
 
     g64 = grid_mrf.make_grid_mrf(*GRID, dtype=torch.float64, device=dev)
     g64c = grid_mrf.make_grid_mrf(*GRID, dtype=torch.float64, device="cpu")
@@ -3168,15 +3208,19 @@ def phase22_sparse_batched(dev, bench, card, host_build) -> dict:
     from libdogleg_tpu_torch.parallel import batched_optimize
     from libdogleg_tpu_torch.utils.benchtime import measure_ms
 
+    from libdogleg_tpu_torch.ops import segsum
+
     def counts():
         return {"K3": tk.launch_counts["bcsr_jtj_blocks_kernel"],
                 "K6": tilechol.launch_counts["tile_cholesky"],
-                "K7": tilechol.launch_counts["tri_solve_right"]}
+                "K7": tilechol.launch_counts["tri_solve_right"],
+                "SEG": segsum.launch_count}
 
     def zero_counts():
         tk.launch_counts["bcsr_jtj_blocks_kernel"] = 0
         for k in tilechol.launch_counts:
             tilechol.launch_counts[k] = 0
+        segsum.launch_count = 0
 
     def since(before):
         now = counts()
@@ -3218,8 +3262,8 @@ def phase22_sparse_batched(dev, bench, card, host_build) -> dict:
             on_card = device.type == "cuda"
             check(all(v > 0 if on_card else v == 0
                       for v in launched.values()),
-                  f"f64 batch on {device}: K3, K6, K7 launched on the card "
-                  f"only: {launched}")
+                  f"f64 batch on {device}: K3, K6, K7 and the segment add "
+                  f"launched on the card only: {launched}")
         r_d, r_c = runs
         for field in decisions:
             check(torch.equal(getattr(r_d, field).cpu(), getattr(r_c, field)),
@@ -3274,8 +3318,8 @@ def phase22_sparse_batched(dev, bench, card, host_build) -> dict:
     first = time.perf_counter() - t0
     launched = counts()
     out["paths"]["config 6b supernodal"] = launched
-    check(all(launched.values()), f"config 6b: K3, K6, K7 launched: "
-          f"{launched}")
+    check(all(launched.values()), f"config 6b: K3, K6, K7 and the segment "
+          f"add launched: {launched}")
     r64 = optimize(with_residual(prob, g64),
                    torch.zeros(g.nstate, dtype=torch.float64, device=dev))
     jtx = float(r.Jt_x.abs().max())
@@ -3287,9 +3331,11 @@ def phase22_sparse_batched(dev, bench, card, host_build) -> dict:
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        optimize(prob, p0, bench)
+        again = optimize(prob, p0, bench)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
+        check(same_bits(again.p, r.p), "config 6b: a later solve the same "
+              "bits")
     ev_ms = measure_ms(lambda: float(optimize(prob, p0, bench).norm2_x),
                        warmup=0, reps=3)
     print(f"[22 grid-mrf-64x64x8-supernodal-f32 PRM] reason {int(r.reason)}"
@@ -3316,12 +3362,39 @@ def phase22_sparse_batched(dev, bench, card, host_build) -> dict:
           and dps <= 1e-3,
           f"config 6b simplicial f32: reason {int(rs.reason)}, p within "
           f"1e-3 of f64: {dps:.3e}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs2 = optimize(simple, p0, bench)
+    torch.cuda.synchronize()
+    wall_s2 = time.perf_counter() - t0
+    check(same_bits(rs2.p, rs.p), "config 6b simplicial: a second solve "
+          "the same bits")
+    # what the first call adds for the fixed order: the plans of the
+    # analysis's three schedules, built again on the host, and their
+    # kernel operands copied to the card
+    t0 = time.perf_counter()
+    nplans = 0
+    for sched_name, tgt, off in (("sched", "upd_tgt", "upd_off"),
+                                 ("fwd", "pair_j", "pair_off"),
+                                 ("bwd", "pair_j", "pair_off")):
+        ss = getattr(simple_sym, sched_name)
+        for plan in segsum.level_plans(getattr(ss, tgt), getattr(ss, off)):
+            plan.kernel_operands(dev)
+            nplans += 1
+    torch.cuda.synchronize()
+    t_plans = time.perf_counter() - t0
     print(f"[22 grid-mrf-64x64x8-simplicial-f32 PRM] the model's default "
           f"problem (mindeg, {simple_sym.sched.nlevels} levels): reason "
           f"{int(rs.reason)} n_attempts {int(rs.n_attempts)}; max|Jt_x| "
           f"{jtx_s:.3e}; max |p32 - p64| {dps:.3e}; launches {launched}; "
-          f"wall {wall_s * 1e3:.1f} ms (one call); card {card}", flush=True)
+          f"wall {wall_s * 1e3:.1f} ms (the first call after the analysis),"
+          f" {wall_s2 * 1e3:.1f} ms (the second); the {nplans} level plans "
+          f"of its three schedules built and copied to the card in "
+          f"{t_plans * 1e3:.1f} ms; card {card}", flush=True)
 
+    p10_forms("config 6b supernodal", lambda: float(
+        optimize(prob, p0, bench).norm2_x), lambda: optimize(prob, p0,
+                                                            bench).p, card)
     # K3 at config 6b's shape: against its plain version, in turns
     k3 = {}
     J6 = bcsr.BCSRJacobian(g.structure, prob.f(p0)[1])
@@ -3385,6 +3458,8 @@ def phase22_sparse_batched(dev, bench, card, host_build) -> dict:
     del singles
     rb2 = solve()
     same = same_bits(rb2.p, rb.p)
+    # the sums in a fixed order (ops/segsum.py) make a second run the same
+    check(same, f"B{B}: two runs the same bits")
     turns = []
     for _ in range(2):
         turns.append((
@@ -3435,9 +3510,10 @@ def phase22_sparse_batched(dev, bench, card, host_build) -> dict:
           f"{s_ms / b_ms:.2f}x; launches a batch {per_batch} against "
           f"{per_singles} for the {B} singles; device events {event_text}; "
           f"host synchronizations {sync_text}; max_memory_allocated "
-          f"{peak / 2 ** 30:.2f} GiB; two runs "
-          f"{'the same bits' if same else 'NOT the same bits'}; card {card}",
+          f"{peak / 2 ** 30:.2f} GiB; two runs the same bits; card {card}",
           flush=True)
+    p10_forms(f"B{B} batch", lambda: float(solve().norm2_x.sum()),
+              lambda: solve().p, card)
     print(f"[22 B{B} one factorization] K6/K7 launches, by wrapper count and"
           f" by kernel name in a trace: the batch {fac['batch'][0]} / "
           f"{fac['batch'][1]}, a single element {fac['single'][0]} / "
@@ -3450,9 +3526,152 @@ def phase22_sparse_batched(dev, bench, card, host_build) -> dict:
     tiles_at_batch(
         B * int(np.diff(inner.sched.fac_off).max()),
         B * int(np.diff(inner.sched.sol_off).max()), inner.b, card)
+    out["SEG"] = segment_add_readings(inner, B, card)
     print(f"[22 B{B} seconds] {time.perf_counter() - t_leg:.1f}", flush=True)
     out["K3"] = k3
     return out
+
+
+def segment_add_readings(sym, B, card) -> dict:
+    """The segment-add kernel (csrc/segsum.cu) at the B16 batch's shapes:
+    its UPDATE level with the most terms on one block (the (B, nslots, b,
+    b) blocks) and its forward substitution's ((B, nb, b, 1)), on seeded
+    values, against its plain version on the same CUDA tensors
+    (segsum.reference; the same bits) and in turns with it and with
+    index_add_ (the library call, the form before P10's repair; CUDA
+    events over 20 calls, in place). Returns the UPDATE level's readings
+    for the kernels line."""
+    import torch
+
+    from libdogleg_tpu_torch import sparse_cholesky as sc
+    from libdogleg_tpu_torch.ops import segsum
+    from libdogleg_tpu_torch.utils.benchtime import measure_ms
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(22)
+    b = sym.b
+    cases = []
+    for label, sched, tgt, off, width, inner in (
+            ("UPDATE", "sched", "upd_tgt", "upd_off", sym.nslots, (b, b)),
+            ("forward pairs", "fwd", "pair_j", "pair_off", sym.nb, (b, 1))):
+        plans = sc._level_plans(sym, sched, tgt, off)
+        k = max(range(len(plans)), key=lambda i: (plans[i].rounds,
+                                                   plans[i].n))
+        base = torch.randn((B, width) + inner, generator=gen).to(dev)
+        terms = torch.randn((B, plans[k].n) + inner, generator=gen).to(dev)
+        cases.append((label, plans[k], base, terms))
+    rows, first = [], None
+    for label, plan, base, terms in cases:
+        got = segsum.add_(base.clone(), 1, plan, terms, alpha=-1)
+        want = segsum.reference(base.clone(), 1, plan, terms, alpha=-1)
+        err = float((got - want).abs().max())
+        check(same_bits(got, want), f"segment add {label}: the kernel "
+              f"gives its plain version's bits")
+        targets = torch.as_tensor(plan.targets, device=dev)
+        fns = {"kernel": lambda: segsum.add_(base, 1, plan, terms, alpha=-1),
+               "plain": lambda: segsum.reference(base, 1, plan, terms,
+                                                 alpha=-1, in_place=True),
+               "library": lambda: base.index_add_(1, targets, terms,
+                                                  alpha=-1)}
+        ms = {f: [] for f in fns}
+        for form in ("kernel", "plain", "library", "library", "plain",
+                     "kernel"):
+            ms[form].append(measure_ms(fns[form], warmup=2, reps=20))
+        nrow = base[0, 0].numel() * base.element_size()
+        bnd = bound(nbytes_of(terms) + 2 * B * len(plan.uniq) * nrow,
+                    terms.numel())
+        rows.append(f"{label} level: {plan.n} terms on "
+                    f"{len(plan.uniq)} blocks, at most {plan.rounds} on "
+                    f"one, of {tuple(base.shape)}: max |kernel - plain| "
+                    f"{err:.1e} (the same bits); ms a call, kernel "
+                    f"{'/'.join(f'{v:.4f}' for v in ms['kernel'])}, "
+                    f"plain (rounds) "
+                    f"{'/'.join(f'{v:.4f}' for v in ms['plain'])}, "
+                    f"index_add_ "
+                    f"{'/'.join(f'{v:.4f}' for v in ms['library'])}; "
+                    f"bound {bnd['bound_ms'] * 1e3:.2f} us by "
+                    f"{bnd['bound_by']}")
+        if first is None:
+            first = dict(max_abs_err=err, ms=min(ms["kernel"]),
+                         plain_ms=min(ms["plain"]),
+                         library_ms=min(ms["library"]), **bnd)
+    print(f"[22 segment add at B{B}] {'; '.join(rows)}; card {card}",
+          flush=True)
+    return first
+
+
+# the plans' targets on the card for sums_as("index_add_"), each kept with
+# its plan
+_INDEX_ADD_TARGETS: dict = {}
+
+
+@contextlib.contextmanager
+def sums_as(form):
+    """ops/segsum.py's two entry points as another form while the block
+    runs, for a comparison: "index_add_" (atomics on the plan's targets,
+    the form before P10's repair, not reproducible on the card), "plain"
+    (segsum.reference, the kernel's plain version, on the card) or
+    "kernel" (as shipped)."""
+    import torch
+
+    from libdogleg_tpu_torch.ops import segsum
+    shipped = segsum.add_, segsum.add
+
+    def targets(plan, device):
+        key = (id(plan), device)
+        if key not in _INDEX_ADD_TARGETS:
+            _INDEX_ADD_TARGETS[key] = (plan, torch.as_tensor(
+                plan.targets, device=device))
+        return _INDEX_ADD_TARGETS[key][1]
+    if form == "plain":
+        segsum.add_ = lambda base, dim, plan, terms, alpha=1: \
+            segsum.reference(base, dim, plan, terms, alpha=alpha,
+                             in_place=True)
+        segsum.add = lambda base, dim, plan, terms: segsum.reference(
+            base, dim, plan, terms)
+    elif form == "index_add_":
+        segsum.add_ = lambda base, dim, plan, terms, alpha=1: \
+            base.index_add_(dim, targets(plan, base.device), terms,
+                            alpha=alpha)
+        segsum.add = lambda base, dim, plan, terms: base.index_add(
+            dim, targets(plan, base.device), terms)
+    try:
+        yield
+    finally:
+        segsum.add_, segsum.add = shipped
+
+
+def p10_forms(label, timed, result, card) -> None:
+    """The sparse path's sums where several terms meet one target
+    (ops/segsum.py) in each form, in turns (index_add_, plain, kernel,
+    then back; CUDA events, a dependent fetch; sums_as): the kernel (as
+    shipped) and its plain version add in a fixed order and must give the
+    same bits on two runs, and the kernel's the plain version's;
+    index_add_ is the form before the repair. Prints the times and
+    whether each form gives the same bits twice and the shipped form's
+    bits."""
+    from libdogleg_tpu_torch.utils.benchtime import measure_ms
+    forms = ("index_add_", "plain", "kernel")
+    ms = {f: [] for f in forms}
+    bits = {}
+    ref = result()
+    for f in forms + forms[::-1]:
+        with sums_as(f):
+            ms[f].append(measure_ms(timed, warmup=1, reps=2))
+    for f in forms:
+        with sums_as(f):
+            a, b = result(), result()
+        bits[f] = (same_bits(a, b), same_bits(a, ref))
+    for f in ("plain", "kernel"):
+        check(bits[f][0] and bits[f][1], f"{label}: the {f} form gives the "
+              f"same bits twice, and the shipped form's")
+    text = "; ".join(
+        f"{f}{' (shipped)' if f == 'kernel' else ''} "
+        f"{'/'.join(f'{v:.2f}' for v in ms[f])} ms, two runs "
+        f"{'the same' if bits[f][0] else 'NOT the same'} bits, "
+        f"{'the same' if bits[f][1] else 'other'} bits than the shipped form"
+        for f in forms)
+    print(f"[22 {label} P10 forms, in turns] {text}; card {card}",
+          flush=True)
 
 
 def tiles_at_batch(kf, ks, n, card) -> None:
@@ -4058,7 +4277,7 @@ import json, sys, time
 t0 = time.perf_counter()
 import torch
 from libdogleg_tpu_torch import export
-from libdogleg_tpu_torch.ops import batchchol, bcsr_kernels, tilechol
+from libdogleg_tpu_torch.ops import batchchol, bcsr_kernels, segsum, tilechol
 t1 = time.perf_counter()
 solver = export.load_exported(sys.argv[1])
 t2 = time.perf_counter()
@@ -4072,7 +4291,8 @@ json.dump({"import_s": t1 - t0, "load_s": t2 - t1, "call_s": t3 - t2,
                             "bcsr_jtj_blocks_kernel"],
                         "K5": batchchol.launch_count,
                         "K6": tilechol.launch_counts["tile_cholesky"],
-                        "K7": tilechol.launch_counts["tri_solve_right"]},
+                        "K7": tilechol.launch_counts["tri_solve_right"],
+                        "SEG": segsum.launch_count},
            "modules": sorted(m for m in sys.modules
                              if m.split(".")[0] in ("chip_smoke", "jax",
                                                     "libdogleg_tpu"))},
@@ -4081,27 +4301,31 @@ json.dump({"import_s": t1 - t0, "load_s": t2 - t1, "call_s": t3 - t2,
 
 
 def export_launches() -> dict:
-    from libdogleg_tpu_torch.ops import batchchol, bcsr_kernels, tilechol
+    from libdogleg_tpu_torch.ops import (batchchol, bcsr_kernels, segsum,
+                                         tilechol)
     return {"K3": bcsr_kernels.launch_counts["bcsr_jtj_blocks_kernel"],
             "K5": batchchol.launch_count,
             "K6": tilechol.launch_counts["tile_cholesky"],
-            "K7": tilechol.launch_counts["tri_solve_right"]}
+            "K7": tilechol.launch_counts["tri_solve_right"],
+            "SEG": segsum.launch_count}
 
 
 def reset_export_launches() -> None:
-    from libdogleg_tpu_torch.ops import batchchol, bcsr_kernels, tilechol
+    from libdogleg_tpu_torch.ops import (batchchol, bcsr_kernels, segsum,
+                                         tilechol)
     bcsr_kernels.launch_counts["bcsr_jtj_blocks_kernel"] = 0
     batchchol.launch_count = 0
     for k in tilechol.launch_counts:
         tilechol.launch_counts[k] = 0
+    segsum.launch_count = 0
 
 
 def export_leg(label, products_fn, nstate, p0, bench, tmp, newton_solver=None,
-               batch_size=None, bits=True):
+               batch_size=None):
     """Export one artifact on the card, save it, run it in a fresh process
     and in this one (launches counted from 0 around that run), and hold the
-    two runs to the same bits, or where the solve sums with atomics (bits
-    False: the sparse factorization's index_add_) to the same decisions.
+    two runs to the same decisions and the same bits of p (the sparse
+    factorization's sums in a fixed order since ops/segsum.py).
     Returns the fresh process's result, the program, the loaded solver, the
     launches and the fresh process's report."""
     import os
@@ -4138,8 +4362,7 @@ def export_leg(label, products_fn, nstate, p0, bench, tmp, newton_solver=None,
     here = solver.call(p0)
     torch.cuda.synchronize()
     launches = export_launches()
-    fields = ("step_count", "n_attempts", "reason") + (("p",) if bits
-                                                         else ())
+    fields = ("step_count", "n_attempts", "reason", "p")
     check(all(torch.equal(getattr(fresh, f), getattr(here, f))
               for f in fields),
           f"{label}: the fresh process's {', '.join(fields)} are this "
@@ -4239,19 +4462,19 @@ def phase24_export(dev, bench, card) -> dict:
     z = torch.zeros(g.nstate, dtype=torch.float32, device=dev)
     fresh, exp, solver, launches_b, child = export_leg(
         f"b grid {GRID} supernodal", prob.products, g.nstate, z, bench, tmp,
-        newton_solver=ns, bits=False)
+        newton_solver=ns)
     flat = export.flatten_products(prob.products, z[None], batched=False)
     reset_export_launches()
     loop = export.solve_traced(flat, z, bench, newton_solver=ns,
                                batched=False)
     torch.cuda.synchronize()
     live_launches = export_launches()
-    for k in ("K3", "K6", "K7"):
+    for k in ("K3", "K6", "K7", "SEG"):
         check(launches_b[k] > 0, f"(b) the artifact launched {k}")
         check(launches_b[k] == live_launches[k] == child["launches"][k],
               f"(b) {k} launches: artifact {launches_b[k]}, fresh process "
               f"{child['launches'][k]}, live traced loop {live_launches[k]}")
-    launches.update({k: launches_b[k] for k in ("K3", "K6", "K7")})
+    launches.update({k: launches_b[k] for k in ("K3", "K6", "K7", "SEG")})
     jtx = float(fresh.Jt_x.abs().max())
     g64 = grid_mrf.make_grid_mrf(*GRID, dtype=torch.float64, device=dev)
     r64 = optimize(with_residual(prob, g64), z.double(), bench)
@@ -4279,7 +4502,7 @@ def phase24_export(dev, bench, card) -> dict:
     z16 = torch.zeros(g16.nstate, dtype=torch.float64, device=dev)
     fresh16, _, _, _, _ = export_leg(
         "b grid 16x16x8 supernodal f64", prob16.products, g16.nstate, z16,
-        bench, tmp, newton_solver=prob16.default_newton_solver(), bits=False)
+        bench, tmp, newton_solver=prob16.default_newton_solver())
     r16 = optimize(prob16, z16, bench)
     for field in decisions:
         check(int(getattr(fresh16, field)) == int(getattr(r16, field)),
@@ -4342,6 +4565,462 @@ def phase24_export(dev, bench, card) -> dict:
     print(f"[24 c without a card] the serving process raised: "
           f"{hidden.stderr.strip().splitlines()[-1][:160]}", flush=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the parallel layer (parallel/mesh.py, parallel/sharded.py, mesh=
+# in the batched entry points, the distributed checkpoint)
+# ---------------------------------------------------------------------------
+
+P25_RANKS = 2
+P25_LIMIT_S = 600.0      # the two ranks' wall limit; past it both are killed
+P25_CKPT_BATCH = 2048    # the checkpointed batch (the masked driver)
+
+
+def p25_same(a, b) -> bool:
+    """The same dtype, shape and bits (NaN included)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype in (torch.float32, torch.float64):
+        return same_bits(a.cpu(), b.cpu())
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def p25_turns(fns, reps=3, timing=True) -> list:
+    """CUDA-event ms a call of each fn, in turns a b b a (two readings
+    each); "not measured" without timing (a CPU rehearsal)."""
+    from libdogleg_tpu_torch.utils.benchtime import measure_ms
+    if not timing:
+        return [("not measured", "not measured") for _ in fns]
+    order = list(range(len(fns))) + list(reversed(range(len(fns))))
+    got = {i: [] for i in range(len(fns))}
+    for i in order:
+        got[i].append(measure_ms(fns[i], warmup=1, reps=reps))
+    return [tuple(f"{v:.3f}" for v in got[i]) for i in range(len(fns))]
+
+
+def p25_grid_problem(grid, dtype, dev):
+    """Config 6's grid MRF as dense J rows: the model is linear, so x(p) =
+    J p - target with J (nmeas, Nstate) constant; the stored lower JtJ
+    pattern of its block structure."""
+    import torch
+
+    from libdogleg_tpu_torch.models import grid_mrf
+    from libdogleg_tpu_torch.ops import bcsr
+    g = grid_mrf.make_grid_mrf(*grid, dtype=dtype, device=dev)
+    x0, J = g.problem(jtj="dense").full(torch.zeros(g.nstate, dtype=dtype,
+                                                    device=dev))
+    sched = bcsr.jtj_lower_schedule(g.structure)
+    return g, J, -x0, sched
+
+
+def p25_grid_f(p, data):
+    J_rows, t_rows = data
+    return J_rows @ p - t_rows, J_rows
+
+
+def phase25_rank(rank, port, tmp, device, b3, grid, timing) -> int:
+    """One of the two ranks of phase 25 (b), run in a process of its own
+    by phase25_parallel on one gloo group whose tensors live on the card:
+    the dp leg (config 3, K1 named and generated on this rank's half), the
+    measurement-sharded sample problem in float64 with History, config 6's
+    measurement-sharded sparse solve at full width (K6, K7), and the
+    distributed checkpoint. Writes what it got to tmp/rank<r>.pt; any
+    failed check raises, and the process exits non-zero."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    rank, port, b3 = int(rank), int(port), int(b3)
+    grid = tuple(int(v) for v in grid.split("x"))
+    timing = timing == "1"
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.cuda.reset_peak_memory_stats()
+        check(torch.backends.cuda.matmul.allow_tf32 is False,
+              "rank: allow_tf32 is False")
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=P25_RANKS, timeout=datetime.timedelta(seconds=60))
+    from libdogleg_tpu_torch import (DoglegParameters, checkpoint, optimize,
+                                     solve_products)
+    from libdogleg_tpu_torch.models import quadratic_surface as qs
+    from libdogleg_tpu_torch.ops import mega, segsum, tilechol
+    from libdogleg_tpu_torch.parallel import (MeasurementShardedProblem,
+                                              MeasurementShardedSparseProblem,
+                                              batched_optimize, make_mesh)
+    from libdogleg_tpu_torch.parallel import sharded
+    from libdogleg_tpu_torch.parallel.batched import (local_blocks,
+                                                      sharded_like)
+    from libdogleg_tpu_torch.solver import (init_batched_state,
+                                            result_from_batched_state,
+                                            run_batched_solver)
+    bench = DoglegParameters(**BENCH)
+    t_start = time.perf_counter()
+    mesh = make_mesh(("dp",), device_type=dev.type)
+    check(mesh.size() == P25_RANKS and dist.get_backend() == "gloo",
+          f"rank {rank}: a mesh of {mesh.size()} ranks over "
+          f"{dist.get_backend()}")
+    out = {"rank": rank}
+
+    # dp leg: config 3, each rank its half, K1 named then generated
+    p0, meas, gx, gy = instances(25, b3, torch.float32, dev)
+    closure = config3_products(gx, gy)
+    # on the card K1 takes these by itself; a CPU rehearsal forces its
+    # plain versions
+    kw, once = ({}, 1) if dev.type == "cuda" else ({"use_megakernel": True},
+                                                   0)
+    for label, fn, counter in (("named", qs.products, "launch_count"),
+                               ("generated", closure, "auto_launch_count")):
+        before = getattr(mega, counter)
+        r = batched_optimize(fn, p0, bench, problem_data=meas, mesh=mesh,
+                             **kw)
+        out[f"{label} launches"] = getattr(mega, counter) - before
+        check(out[f"{label} launches"] == once,
+              f"rank {rank}: K1 {label} launched once: "
+              f"{out[f'{label} launches']}")
+        check(str(tuple(r.p.placements)) == "(Shard(dim=0),)",
+              f"rank {rank}: {label} p sharded: {r.p.placements}")
+        out[label] = {f: getattr(r, f).to_local().cpu() for f in
+                      ("p", "step_count", "n_attempts", "reason")}
+        dist.barrier()
+        out[f"{label} turns"] = p25_turns(
+            [lambda: float(batched_optimize(
+                fn, p0, bench, problem_data=meas, mesh=mesh,
+                **kw).norm2_x.to_local().sum()),
+             lambda: float(batched_optimize(
+                 fn, p0, bench, problem_data=meas, **kw).norm2_x.sum())],
+            timing=timing)
+        dist.barrier()
+
+    # meas leg: the sample problem's 100 rows, 50 a rank, float64, History
+    p1, m1, gx64, gy64 = instances(26, 1, torch.float64, dev)
+
+    def f_rows(p, data):
+        gx_s, gy_s, m_s = data
+        return qs.model(p, gx_s, gy_s) - m_s, qs.jacobian(p, gx_s, gy_s)
+    # the same two ranks as a measurement axis
+    mmesh = make_mesh(("meas",), device_type=dev.type)
+    prob = MeasurementShardedProblem(f=f_rows, data=(gx64, gy64, m1[0]),
+                                     mesh=mmesh, axis_name="meas")
+    sharded.reset_counts()
+    r = optimize(prob, p1[0], bench, record_history=True)
+    evals = int(r.n_attempts) + 1
+    out["meas"] = {"p": r.p.cpu(), "step_count": int(r.step_count),
+                   "n_attempts": int(r.n_attempts), "reason": int(r.reason),
+                   "step_type": r.history.step_type.cpu(),
+                   "calls": sharded.all_reduce_calls / evals,
+                   "bytes": sharded.all_reduce_bytes / evals}
+
+    # sparse leg: config 6 at full width, measurement-sharded, float32
+    t0 = time.perf_counter()
+    g, J, target, sched = p25_grid_problem(grid, torch.float32, dev)
+    # this rank's rows as DTensors of the whole, sharded over the axis
+    data = sharded_like(local_blocks((J, target), mmesh, "meas"), mmesh,
+                        "meas")
+    data = sharded_like(tuple(d.to_local().contiguous() for d in data),
+                        mmesh, "meas")
+    del J, target
+    sp = MeasurementShardedSparseProblem(
+        f=p25_grid_f, data=data, pattern_rows=sched.rows,
+        pattern_cols=sched.cols, b=g.structure.block_cols, mesh=mmesh,
+        axis_name="meas", ordering="rcm", amalgamate=16)
+    setup_s = time.perf_counter() - t0
+    ns = sp.newton_solver()
+    z = torch.zeros(g.nstate, dtype=torch.float32, device=dev)
+    for k in tilechol.launch_counts:
+        tilechol.launch_counts[k] = 0
+    segsum.launch_count = 0
+    sharded.reset_counts()
+    r = solve_products(sp.products, z, bench, newton_solver=ns)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    evals = int(r.n_attempts) + 1
+    out["sparse"] = {
+        "p": r.p.cpu(), "Jt_x": r.Jt_x.cpu(), "reason": int(r.reason),
+        "step_count": int(r.step_count), "n_attempts": int(r.n_attempts),
+        "K6": tilechol.launch_counts["tile_cholesky"],
+        "K7": tilechol.launch_counts["tri_solve_right"],
+        "SEG": segsum.launch_count,
+        "calls": sharded.all_reduce_calls / evals,
+        "bytes": sharded.all_reduce_bytes / evals,
+        "rows": int(data[0].to_local().shape[0]),
+        "blocks": len(sched.rows),
+        "setup_s": setup_s}
+    r2 = solve_products(sp.products, z, bench, newton_solver=ns)
+    out["sparse"]["second run same bits"] = p25_same(r2.p, r.p)
+    dist.barrier()
+    out["sparse turns"] = p25_turns(
+        [lambda: float(solve_products(sp.products, z, bench,
+                                      newton_solver=ns).norm2_x)],
+        reps=2, timing=timing)
+    del sp, data
+    dist.barrier()
+
+    # the distributed checkpoint: a dp-sharded batched state (the masked
+    # driver), two attempts, saved, loaded onto a fresh state, resumed
+    pc, mc, _, _ = instances(27, P25_CKPT_BATCH, torch.float32, dev)
+    pl, ml = local_blocks((pc, mc), mesh)
+    vf = torch.func.vmap(qs.products)
+
+    def fn(p):
+        return vf(p, ml)
+    st = run_batched_solver(fn, init_batched_state(fn, pl, bench), bench,
+                            max_new_attempts=2)
+    path = os.path.join(tmp, "ckpt")
+    t0 = time.perf_counter()
+    checkpoint.save_state_orbax(path, sharded_like(st, mesh))
+    dist.barrier()
+    loaded = checkpoint.load_state_orbax(path, sharded_like(
+        init_batched_state(fn, pl, bench), mesh))
+    ckpt_s = time.perf_counter() - t0
+    resumed = result_from_batched_state(run_batched_solver(
+        fn, local_blocks(loaded, mesh), bench))
+    one = batched_optimize(qs.products, pc, bench, problem_data=mc,
+                           mesh=mesh, use_megakernel=False)
+    for f in ("p", "step_count", "n_attempts", "reason", "norm2_x"):
+        check(p25_same(getattr(resumed, f), getattr(one, f).to_local()),
+              f"rank {rank}: the resumed run's {f} has the one-shot run's "
+              f"bits")
+    out["ckpt"] = {"s": ckpt_s, "attempts": int(one.n_attempts.to_local()
+                                                .max())}
+    out["max_memory_allocated"] = (torch.cuda.max_memory_allocated()
+                                   if dev.type == "cuda" else 0)
+    out["seconds"] = time.perf_counter() - t_start
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+P25_CHILD = ("import sys, chip_smoke; "
+             "sys.exit(chip_smoke.phase25_rank(*sys.argv[1:]))")
+
+
+def phase25_parallel(dev, bench, card, b3=CONFIG3_BATCH, grid=GRID,
+                     timing=True) -> dict:
+    """The parallel layer on the card: (a) a world of one on NCCL, config
+    3's batch through batched_optimize(mesh=) on K1 named and generated and
+    batched_optimize_compacted(mesh=), each with the unsharded call's bits;
+    (b) two ranks on the one card over gloo (phase25_rank), their results
+    held here against the unsharded ones and each other. Returns the
+    launches of K1 (by instance), K6 and K7 on these paths."""
+    import os
+    import socket
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from libdogleg_tpu_torch.models import quadratic_surface as qs
+    from libdogleg_tpu_torch.ops import mega
+    from libdogleg_tpu_torch.parallel import (batched_optimize,
+                                              batched_optimize_compacted,
+                                              make_mesh)
+    t_phase = time.perf_counter()
+    fields = ("p", "step_count", "n_attempts", "reason", "norm2_x")
+    out = {"K1 named": {}, "K1 generated": {}, "paths": {}}
+
+    # (a) a world of one
+    check(not dist.is_initialized(), "no process group before phase 25")
+    mesh = make_mesh(("dp",), device_type=dev.type)
+    backend = dist.get_backend()
+    check(backend == ("nccl" if dev.type == "cuda" else "gloo"),
+          f"the world of one's backend: {backend}")
+    p0, meas, gx, gy = instances(25, b3, torch.float32, dev)
+    closure = config3_products(gx, gy)
+    # on the card K1 takes these by itself; a CPU rehearsal forces its
+    # plain versions
+    kw, once = ({}, 1) if dev.type == "cuda" else ({"use_megakernel": True},
+                                                   0)
+    unsharded = {}
+    rows = []
+    for label, fn, counter in (("named", qs.products, "launch_count"),
+                               ("generated", closure, "auto_launch_count")):
+        u = batched_optimize(fn, p0, bench, problem_data=meas, **kw)
+        unsharded[label] = u
+        before = getattr(mega, counter)
+        r = batched_optimize(fn, p0, bench, problem_data=meas, mesh=mesh,
+                             **kw)
+        n = getattr(mega, counter) - before
+        check(n == once, f"(a) {label}: K1 launched once: {n}")
+        check(str(tuple(r.p.placements)) == "(Shard(dim=0),)",
+              f"(a) {label}: p a DTensor with Shard(0): {r.p.placements}")
+        for f in fields:
+            check(p25_same(getattr(r, f).to_local(), getattr(u, f)),
+                  f"(a) {label}: {f} has the unsharded call's bits")
+        before = getattr(mega, counter)
+        rc = batched_optimize_compacted(fn, p0, bench, problem_data=meas,
+                                        mesh=mesh, **kw)
+        nc = getattr(mega, counter) - before
+        check(nc == once, f"(a) {label} compacted: K1 launched once: {nc}")
+        for f in fields:
+            check(p25_same(getattr(rc, f).to_local(), getattr(u, f)),
+                  f"(a) {label} compacted: {f} has the unsharded call's "
+                  f"bits")
+        out[f"K1 {label}"]["phase 25 (world of one)"] = n + nc
+        turns = p25_turns(
+            [lambda: float(batched_optimize(
+                fn, p0, bench, problem_data=meas, mesh=mesh,
+                **kw).norm2_x.to_local().sum()),
+             lambda: float(batched_optimize(
+                 fn, p0, bench, problem_data=meas, **kw).norm2_x.sum())],
+            timing=timing)
+        rows.append(f"{label}: K1 launches {n} (batched_optimize) + {nc} "
+                    f"(compacted); ms a call, mesh {'/'.join(turns[0])}, "
+                    f"unsharded {'/'.join(turns[1])}")
+    print(f"[25 (a) world of one, {backend}, config 3 B={b3} f32 PRM] every "
+          f"result field the unsharded call's bits, p a DTensor with "
+          f"Shard(0); {'; '.join(rows)}; card {card}", flush=True)
+    dist.destroy_process_group()
+
+    # (b) two ranks on the one card over gloo; the float64 references first
+    from libdogleg_tpu_torch import SparseProblem, optimize
+    from libdogleg_tpu_torch.models import grid_mrf
+    p1, m1, _, _ = instances(26, 1, torch.float64, dev)
+    ref_meas = optimize(qs.make_dense_problem(m1[0]), p1[0], bench,
+                        record_history=True)
+    g64 = grid_mrf.make_grid_mrf(*grid, dtype=torch.float64, device=dev)
+    prob64 = SparseProblem(f=g64.problem(jtj="dense").f,
+                           structure=g64.structure, jtj="sparse",
+                           ordering="rcm", amalgamate=16)
+    p64 = optimize(prob64, torch.zeros(g64.nstate, dtype=torch.float64,
+                                       device=dev)).p
+    del prob64, g64
+    tmp = tempfile.mkdtemp(prefix="dogleg_mesh_")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+            for r in range(P25_RANKS)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", P25_CHILD, str(r), str(port), tmp, dev.type,
+         str(b3), "x".join(map(str, grid)), "1" if timing else "0"],
+        stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(P25_RANKS)]
+    hung = False
+    for p in procs:
+        try:
+            p.wait(timeout=max(P25_LIMIT_S - (time.perf_counter() - t0),
+                               0.01))
+        except subprocess.TimeoutExpired:
+            hung = True
+            break
+    if hung:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.wait()
+    wall = time.perf_counter() - t0
+    texts = []
+    for log in logs:
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+    check(not hung, f"(b) the two ranks ended within {P25_LIMIT_S} s")
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"(b) rank {r} exited {p.returncode}:\n"
+              f"{texts[r][-3000:]}")
+    got = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+           for r in range(P25_RANKS)]
+    half = b3 // P25_RANKS
+
+    # dp leg: each rank's half has the unsharded call's bits
+    rows = []
+    for label in ("named", "generated"):
+        u = unsharded[label]
+        for r, o in enumerate(got):
+            for f in ("p", "step_count", "n_attempts", "reason"):
+                check(p25_same(o[label][f],
+                               getattr(u, f)[r * half:(r + 1) * half].cpu()),
+                      f"(b) rank {r} {label}: {f} has the unsharded call's "
+                      f"bits")
+        out[f"K1 {label}"]["phase 25 (two ranks)"] = sum(
+            o[f"{label} launches"] for o in got)
+        rows.append(f"{label}: K1 launches {[o[f'{label} launches'] for o in got]}"
+                    f"; ms a call by rank, mesh / unsharded "
+                    + "; ".join(f"{'/'.join(o[f'{label} turns'][0])} / "
+                                f"{'/'.join(o[f'{label} turns'][1])}"
+                                for o in got))
+    print(f"[25 (b) two ranks, gloo, dp leg, config 3 B={b3} ({half} a "
+          f"rank) f32 PRM] each element the unsharded call's bits; "
+          f"{'; '.join(rows)}; card {card}", flush=True)
+
+    # meas leg: the unsharded solve's decisions and step types, both ranks
+    # the same bits
+    for r, o in enumerate(got):
+        m = o["meas"]
+        for f in ("step_count", "n_attempts", "reason"):
+            check(m[f] == int(getattr(ref_meas, f)),
+                  f"(b) rank {r} meas: {f} {m[f]} the unsharded solve's")
+        check(torch.equal(m["step_type"], ref_meas.history.step_type.cpu()),
+              f"(b) rank {r} meas: History step types the unsharded "
+              f"solve's")
+        check(p25_same(m["p"], got[0]["meas"]["p"]),
+              f"(b) rank {r} meas: p rank 0's bits")
+    dp_meas = float((got[0]["meas"]["p"] - ref_meas.p.cpu()).abs().max())
+    m = got[0]["meas"]
+    print(f"[25 (b) meas leg, sample problem f64, 50 rows a rank, History] "
+          f"step_count {m['step_count']} n_attempts {m['n_attempts']} "
+          f"reason {m['reason']} and the History's step types the unsharded "
+          f"solve's; max |dp| {dp_meas:.3e}; both ranks the same bits; "
+          f"all_reduce calls {m['calls']:.2f} and bytes {m['bytes']:.0f} "
+          f"an evaluation", flush=True)
+
+    # sparse leg: metric 2's gate, both ranks the same bits
+    s0 = got[0]["sparse"]
+    jtx = float(s0["Jt_x"].abs().max())
+    dp = float((s0["p"].double() - p64.cpu()).abs().max())
+    check(s0["reason"] > 0 and bool(torch.isfinite(s0["p"]).all()),
+          f"(b) sparse: reason {s0['reason']}, finite p")
+    check(jtx <= 1e-3, f"(b) sparse: max|Jt_x| {jtx:.3e} <= 1e-3")
+    check(dp <= 1e-3, f"(b) sparse: p within 1e-3 of float64: {dp:.3e}")
+    for r, o in enumerate(got):
+        s = o["sparse"]
+        check(p25_same(s["p"], s0["p"]) and p25_same(s["Jt_x"], s0["Jt_x"]),
+              f"(b) rank {r} sparse: p and Jt_x rank 0's bits")
+        check(s["second run same bits"],
+              f"(b) rank {r} sparse: a second solve the same bits")
+        check((s["K6"] > 0 and s["K7"] > 0 and s["SEG"] > 0)
+              == (dev.type == "cuda"),
+              f"(b) rank {r} sparse: K6, K7 and the segment add launched: "
+              f"{s['K6']}, {s['K7']}, {s['SEG']}")
+    out["paths"]["phase 25 (two ranks, meas-sharded sparse)"] = {
+        k: sum(o["sparse"][k] for o in got) for k in ("K6", "K7", "SEG")}
+    print(f"[25 (b) sparse leg, grid-mrf-{'x'.join(map(str, grid))} f32 "
+          f"PRM, rcm amalgamate 16, {s0['rows']} J rows a rank, "
+          f"{s0['blocks']} stored lower blocks] reason {s0['reason']} "
+          f"step_count {s0['step_count']} n_attempts {s0['n_attempts']}; "
+          f"max|Jt_x| {jtx:.3e} (<= 1e-3); max |p32 - p64| {dp:.3e} (<= "
+          f"1e-3); both ranks the same bits, and a second solve; launches "
+          f"a rank K6 {s0['K6']}, K7 {s0['K7']}, segment add {s0['SEG']}; "
+          f"all_reduce calls "
+          f"{s0['calls']:.2f} and bytes {s0['bytes']:.0f} an evaluation; "
+          f"set-up {s0['setup_s']:.1f} s; ms a solve by rank "
+          f"{'; '.join('/'.join(o['sparse turns'][0]) for o in got)}; card "
+          f"{card}", flush=True)
+    print(f"[25 (b) checkpoint] a dp-sharded batched state of "
+          f"{P25_CKPT_BATCH} (the masked driver) after two attempts, saved "
+          f"and loaded through torch.distributed.checkpoint in "
+          f"{got[0]['ckpt']['s']:.2f} s, resumed: the one-shot run's bits "
+          f"on both ranks (attempts up to {got[0]['ckpt']['attempts']})",
+          flush=True)
+    print(f"[25 (b) ranks] wall {wall:.1f} s for the two processes; "
+          f"seconds by rank {[round(o['seconds'], 1) for o in got]}; "
+          f"max_memory_allocated GiB by rank "
+          f"{[round(o['max_memory_allocated'] / 2 ** 30, 2) for o in got]}",
+          flush=True)
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if dev.type == "cuda" else 0.0)
+    print(f"[25 seconds] {time.perf_counter() - t_phase:.1f}; this "
+          f"process's max_memory_allocated {peak:.2f} GiB; card {card}",
+          flush=True)
+    return out
 
 
 def main() -> int:
@@ -4529,7 +5208,8 @@ def main() -> int:
     paths = {"phase 12 (config 6)": {
                  "K3": sparse["launches"]["bcsr_jtj_blocks_kernel"],
                  "K6": sparse["launches"]["tile_cholesky"],
-                 "K7": sparse["launches"]["tri_solve_right"]}}
+                 "K7": sparse["launches"]["tri_solve_right"],
+                 "SEG": sparse["launches"]["segment_add"]}}
     tiles["K6"]["launches"] = sparse["launches"]["tile_cholesky"]
     tiles["K7"]["launches"] = sparse["launches"]["tri_solve_right"]
     timed("13", phase13_timing, dev, bench, card, sparse, tiles, dense_walls)
@@ -4548,16 +5228,27 @@ def main() -> int:
     p22 = timed("22", phase22_sparse_batched, dev, bench, card, host_build)
     k1a = timed("23", phase23_mega_auto, dev, bench, card)
     p24 = timed("24", phase24_export, dev, bench, card)
+    p25 = timed("25", phase25_parallel, dev, bench, card)
     print(f"[all seconds] {time.perf_counter() - started:.1f}", flush=True)
     paths.update({f"phase 22 ({k})": v for k, v in p22["paths"].items()})
-    paths["phase 24 (export)"] = {k: p24[k] for k in ("K3", "K6", "K7")}
+    paths["phase 24 (export)"] = {k: p24[k] for k in ("K3", "K6", "K7",
+                                                      "SEG")}
+    paths.update(p25["paths"])
+    # K1 by instance: the public call of phase 4 (named) or 23 (generated)
+    # and the mesh paths of phase 25
+    k1_named = {"launches_by_path": {"phase 4 (public call)": launches,
+                                     **p25["K1 named"]}}
+    k1_named["launches"] = sum(k1_named["launches_by_path"].values())
+    k1a["launches_by_path"] = {"phase 23 (config 3's call)": k1a["launches"],
+                               **p25["K1 generated"]}
+    k1a["launches"] = sum(k1a["launches_by_path"].values())
     k5["launches_by_path"] = {"phase 15 (config 8)": mid["launches"],
                               "phase 24 (export)": p24["K5"]}
     k5["launches"] = sum(k5["launches_by_path"].values())
     # K3, K6 and K7 run on several paths: each path's count, read with the
     # counts set to 0 just before it, and their sum
     for key, d in (("K3", k34["K3"]), ("K6", tiles["K6"]),
-                   ("K7", tiles["K7"])):
+                   ("K7", tiles["K7"]), ("SEG", p22["SEG"])):
         d["launches_by_path"] = {path: c[key] for path, c in paths.items()
                                  if key in c}
         d["launches"] = sum(d["launches_by_path"].values())
@@ -4574,8 +5265,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("megakernel_optimize", "libdogleg_tpu_torch/csrc/mega.cu",
               "libdogleg_tpu/ops/pallas_mega.py:522",
-              dict(launches=launches, max_abs_err=max_abs_err, ms=ms,
-                   plain_ms=plain_ms, library_ms=None, **k1_bound)),
+              dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
+                   library_ms=None, **k1_named, **k1_bound)),
         entry("megakernel_optimize_factored",
               "libdogleg_tpu_torch/csrc/mega.cu",
               "libdogleg_tpu/ops/pallas_mega.py:522", k1f),
@@ -4594,7 +5285,10 @@ def main() -> int:
         entry("tile_cholesky", "libdogleg_tpu_torch/csrc/tilechol.cu",
               "libdogleg_tpu/ops/pallas_chol.py:62", tiles["K6"]),
         entry("tri_solve_right", "libdogleg_tpu_torch/csrc/tilechol.cu",
-              "libdogleg_tpu/ops/pallas_chol.py:113", tiles["K7"])]}))
+              "libdogleg_tpu/ops/pallas_chol.py:113", tiles["K7"]),
+        # no Pallas kernel: the XLA scatter-add of the sparse UPDATE
+        entry("segment_add", "libdogleg_tpu_torch/csrc/segsum.cu",
+              "libdogleg_tpu/sparse_cholesky.py:495", p22["SEG"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,9 +16,17 @@ array (the JAX package saves a vmapped _Carry so).
 
 Like the JAX module, it takes flat states whose JtJ is one tensor. A tree
 state or a structured JtJ (a NamedTuple such as SchurJtJ or
-SparseWSchurJtJ) raises ValueError at save, naming the limitation. The JAX
-package's orbax pair, for multi-host sharded states, has its counterpart
-with the parallel layer.
+SparseWSchurJtJ) raises ValueError at save, naming the limitation.
+
+save_state_orbax / load_state_orbax keep the JAX package's names for its
+orbax pair, the checkpoint of states sharded over many hosts, and are
+written on torch.distributed.checkpoint (dcp): each rank writes its own
+shards of a batched state whose leaves are DTensors sharded on the batch
+axis (parallel/batched.sharded_like; a plain tensor is written once, as
+dcp writes a replicated one), and the load restores onto the shapes and
+placements of a `like` state. The files are dcp's format, a directory, not
+orbax's: the .npz pair above stays the format both packages read. Like
+dcp, they work without a process group, in one process.
 """
 
 from __future__ import annotations
@@ -104,3 +112,66 @@ def load_state(path: str, device=None) -> State:
     state = {k: torch.as_tensor(v, device=dev) for k, v in fields.items()
              if history is not None or k not in _PREV}
     return BatchedSolverState(history=history, **state)
+
+
+def _dcp_state_dict(state: State) -> dict:
+    """The state's fields as dcp's flat state dict: tensors (DTensors
+    included) by field name, `history__<field>` for the History, the
+    single solve's Python flags and counters as 0-d tensors; absent
+    fields (None) left out."""
+    out = {}
+    for name, value in state._asdict().items():
+        if name == "history":
+            if value is not None:
+                for hname, hval in value._asdict().items():
+                    out[f"history__{hname}"] = hval
+        elif isinstance(value, torch.Tensor):
+            out[name] = value
+        elif value is not None:
+            out[name] = torch.as_tensor(_host(name, value))
+    return out
+
+
+def save_state_orbax(path: str, state: State) -> None:
+    """Write a SolverState or a BatchedSolverState with
+    torch.distributed.checkpoint into the directory `path`. With a process
+    group every rank calls it, and a state whose leaves are DTensors
+    (sharded on the batch axis) is written shard by shard, each rank its
+    own. dcp's format, not orbax's (module docstring)."""
+    import torch.distributed.checkpoint as dcp
+    dcp.save(_dcp_state_dict(state), checkpoint_id=path)
+
+
+def _empty_like(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        return DTensor.from_local(torch.empty_like(t.to_local()),
+                                  t.device_mesh, t.placements,
+                                  run_check=False, shape=t.shape,
+                                  stride=t.stride())
+    return torch.empty_like(t)
+
+
+def load_state_orbax(path: str, like: State) -> State:
+    """Restore a state saved by save_state_orbax onto the structure, shapes,
+    dtypes, devices and placements of `like` (for example the live state,
+    or a fresh init_batched_state's of the same shapes on the same mesh):
+    each rank reads the shards its DTensors hold. Returns a new state of
+    like's type; the single solve's flags and counters come back as Python
+    values."""
+    import torch.distributed.checkpoint as dcp
+    sd = {k: _empty_like(v) for k, v in _dcp_state_dict(like).items()}
+    dcp.load(sd, checkpoint_id=path)
+    fields = {}
+    for name, value in like._asdict().items():
+        if name == "history":
+            fields[name] = None if value is None else type(value)(**{
+                h: sd[f"history__{h}"] for h in value._fields})
+        elif isinstance(value, torch.Tensor):
+            fields[name] = sd[name]
+        elif value is None:
+            fields[name] = None
+        else:
+            t = sd[name]
+            fields[name] = bool(t) if name in _FLAGS else int(t)
+    return type(like)(**fields)

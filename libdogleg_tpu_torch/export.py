@@ -20,7 +20,8 @@ while_loop (solver.run_batched_solver_traced): the masked wavefront loop,
 with the Gauss-Newton step a cond and lambda's escalation a nested
 while_loop, so that no value is read on the host. The single solve is that
 loop over a batch of one. The hand-written kernels the solve reaches (K3,
-K5, K6, K7) are operators of the program (libdogleg_tpu_torch::*), which
+K5, K6, K7, and the sparse path's segment add, ops/segsum.py) are
+operators of the program (libdogleg_tpu_torch::*), which
 launch the CUDA kernels when it runs; this module registers them and the
 result types, so a process that loads an artifact imports it first.
 
@@ -39,7 +40,7 @@ from torch.utils import _pytree as pytree
 from libdogleg_tpu_torch.device import resolve_device
 # the kernels' operators, which an artifact's graph calls
 from libdogleg_tpu_torch.ops import (batchchol, bcsr_kernels,  # noqa: F401
-                                     tilechol)
+                                     segsum, tilechol)
 from libdogleg_tpu_torch.ops import treevec as tv
 from libdogleg_tpu_torch.ops.traced import materialized
 from libdogleg_tpu_torch.ops.newton import SchurJtJ, SparseWSchurJtJ

@@ -14,8 +14,11 @@ B_p (k_obs, nc):
 
 State p = [c (nc) | q (n_points * bs)] flat, or the tree
 {"c": (nc,), "q": (n_points, bs)}. The JAX package's shard and shard_p_tree
-place the per-point data over a device mesh; they belong to the parallel
-layer, which is not ported yet, and are left out here.
+place the per-point data over a device mesh, where GSPMD puts the
+all-reduces inside the tree Schur solvers; the port's parallel layer
+(parallel/) shards batches and measurement rows, and a point axis needs
+mesh-aware tree reductions (ops/treevec.py) and Schur strategies, so the
+pair is left out here until they are (ROADMAP queue 1).
 """
 
 from __future__ import annotations

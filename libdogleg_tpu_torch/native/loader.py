@@ -364,6 +364,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, f"dogleg_trisolve_right_{dt}")
         fn.argtypes = [ptr, ptr, i32, i32, i32, ptr, i32, ptr]
         fn.restype = i32
+        # base, terms, uniq, run_ptr, term_pos, n_runs, outer, nbase,
+        # nterm, inner, negate, device, stream
+        fn = getattr(lib, f"dogleg_segment_add_{dt}")
+        fn.argtypes = [ptr] * 5 + [i32] * 4 + [ctypes.c_int64, i32, i32,
+                                               ptr]
+        fn.restype = i32
     # n, element size in bytes, device
     lib.dogleg_tilechol_in_shared.argtypes = [i32, i32, i32]
     lib.dogleg_tilechol_in_shared.restype = i32

@@ -6,16 +6,19 @@ one double at a time (reference dogleg.h:11-20, dogleg.c:249-281). Here the
 Jacobian is block-CSR: a static block sparsity pattern, fixed per problem
 (the reference's one-time symbolic analysis, dogleg.c:649-654), plus a dense
 (nnzb, bm, bn) value tensor, so every product is a batch of dense block
-contractions and a segment sum (index_add / index_put_ with accumulate).
-The structure is numpy metadata on the host, identical to the JAX one.
+contractions and a segment sum. The structure is numpy metadata on the
+host, identical to the JAX one.
 
 The products of the block-sparse path (bcsr_jt_x, bcsr_matvec,
 bcsr_jtj_lower_blocks) work out of place, so that torch.func.vmap batches
-a products function built from them. On a CUDA device bcsr_jtj_lower_blocks
-forms its blocks with kernel K3 (ops/bcsr_kernels.py), which sums in a fixed
-order; index_add and index_put_(accumulate=True) add with atomics there, so
-the summation order, and the last bits of a sum, can differ from run to
-run.
+a products function built from them, and sum in a fixed order, so that a
+solve gives the same bits on every run: on a CUDA device
+bcsr_jtj_lower_blocks forms its blocks with kernel K3
+(ops/bcsr_kernels.py), and bcsr_jt_x and bcsr_matvec add their block
+contractions through ops/segsum.py's plan, in index order per target (what
+index_add does on the CPU, where its atomics on the card would not).
+bcsr_to_dense writes each block once; bcsr_jtj_dense (the dense-JtJ path,
+off the sparse one) still adds with index_put_'s atomics.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from libdogleg_tpu_torch.ops import segsum
 
 
 class BCSRStructure(NamedTuple):
@@ -107,7 +112,8 @@ def bcsr_jt_x(J: BCSRJacobian, x: torch.Tensor) -> torch.Tensor:
     xg = x.reshape(s.nbrow, s.block_rows)[_index(s.row_of_block(), v)]
     partial = (v.mT @ xg[..., None])[..., 0]          # (nnzb, bn)
     out = partial.new_zeros((s.nbcol, s.block_cols))
-    return out.index_add(0, _index(s.indices, v), partial).reshape(s.nstate)
+    plan = segsum.plan_of(s.indices, "cols", lambda: s.indices)
+    return segsum.add(out, 0, plan, partial).reshape(s.nstate)
 
 
 def bcsr_matvec(J: BCSRJacobian, vec: torch.Tensor) -> torch.Tensor:
@@ -117,8 +123,8 @@ def bcsr_matvec(J: BCSRJacobian, vec: torch.Tensor) -> torch.Tensor:
     vg = vec.reshape(s.nbcol, s.block_cols)[_index(s.indices, v)]
     partial = (v @ vg[..., None])[..., 0]             # (nnzb, bm)
     out = partial.new_zeros((s.nbrow, s.block_rows))
-    return out.index_add(0, _index(s.row_of_block(), v),
-                         partial).reshape(s.nmeas)
+    plan = segsum.plan_of(s.indptr, "rows", s.row_of_block)
+    return segsum.add(out, 0, plan, partial).reshape(s.nmeas)
 
 
 class JtJLowerSchedule(NamedTuple):

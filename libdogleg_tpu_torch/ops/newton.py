@@ -511,7 +511,8 @@ def _schur_quad(JtJ: SchurJtJ, vc, vp) -> torch.Tensor:
 class TreeSchurNewtonSolver(SchurNewtonSolver):
     """SchurNewtonSolver over tree states {"c": (..., nc), "q": (...,
     n_points, bs)} in place of one flat vector (the JAX package gives each
-    leaf its own sharding; the mesh layer is not ported yet)."""
+    leaf its own sharding, a point axis over a mesh; here the solver is not
+    aware of a mesh yet, ROADMAP queue 1)."""
 
     def quad_form(self, JtJ: SchurJtJ, v):
         return _schur_quad(JtJ, v["c"], v["q"])

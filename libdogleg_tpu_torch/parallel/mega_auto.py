@@ -1396,7 +1396,9 @@ def _planned(products_fn, p0_batch, problem_data, data_elem):
 def plan_megakernel(products_fn, p0_batch,
                     parameters: Optional[DoglegParameters], *,
                     problem_data: Any = None,
-                    forced: bool = False) -> Optional[MegaPlan]:
+                    forced: bool = False,
+                    global_batch: Optional[int] = None
+                    ) -> Optional[MegaPlan]:
     """A plan that runs this batched solve on kernel K1, or None where the
     solve is outside the kernel's regime (the counterpart of the JAX
     package's plan_megakernel, mega_auto.py:390-490).
@@ -1416,7 +1418,13 @@ def plan_megakernel(products_fn, p0_batch,
     and no fallback once a plan exists (the JAX package falls back to its
     XLA path on any fault, which would hide the kernel). On CPU tensors a
     forced plan runs the kernel's plain version: the masked batched solver
-    on the vmapped graph (ops/mega.megakernel_optimize_generated)."""
+    on the vmapped graph (ops/mega.megakernel_optimize_generated).
+
+    Under a mesh p0_batch and problem_data are the rank's blocks and the
+    kernel runs on them; B < AUTO_MEGA_MIN_BATCH reads global_batch, the
+    whole batch, as the JAX package's threshold does. The plan cache's key
+    does not see the batch: a mesh changes which block is passed, not the
+    generated source."""
     if not isinstance(p0_batch, torch.Tensor) or p0_batch.dim() != 2:
         return None
     B, n = p0_batch.shape
@@ -1425,7 +1433,7 @@ def plan_megakernel(products_fn, p0_batch,
     if p0_batch.dtype not in (torch.float32, torch.float64):
         return None
     if not forced and (p0_batch.dtype != torch.float32
-                       or B < AUTO_MEGA_MIN_BATCH
+                       or (global_batch or B) < AUTO_MEGA_MIN_BATCH
                        or p0_batch.device.type == "cpu"):
         return None
     if problem_data is None:

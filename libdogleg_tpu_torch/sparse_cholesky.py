@@ -19,7 +19,8 @@ schedule:
 
   numeric (per factorization):
     * a Python loop over the levels, each level one batch of independent
-      ops: UPDATE as one batched product and an index_add_ of its negation,
+      ops: UPDATE as one batched product whose negation is added in a
+      fixed order (ops/segsum.py: each target's terms in index order),
       FACTOR through kernel K6 (ops/tilechol.tile_cholesky, the JAX
       package's _chol_blocks), SOLVE through kernel K7
       (ops/tilechol.tri_solve_right, its _tri_solve_right).
@@ -43,9 +44,12 @@ analysis (`device_array`); each level indexes with slices of those copies.
 
 A non-SPD pivot is caught per FACTOR op and and-reduced on the device into
 `ok`, which drives the same permanent escalating lambda as the dense path
-(reference dogleg.c:670-676), per element of a batch. On a CUDA device
-index_add_ adds with atomics, so the last bits of a factor can differ from
-run to run.
+(reference dogleg.c:670-676), per element of a batch. Where several terms
+of a level land on one block (UPDATE, the substitutions' pair steps) they
+are added in the order index_add_ adds them on the CPU, fixed per level
+when the analysis is first used (`_level_plans`): the CPU's bits are
+index_add_'s, and a factorization on the card gives the same bits on
+every run (index_add_'s atomics would not).
 """
 
 from __future__ import annotations
@@ -56,7 +60,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from libdogleg_tpu_torch.ops import tilechol
+from libdogleg_tpu_torch.ops import segsum, tilechol
 from libdogleg_tpu_torch.ops.traced import real_constant
 
 
@@ -154,6 +158,30 @@ def device_array(sym, device: torch.device, name: str,
         t = real_constant(lambda: torch.as_tensor(a, device=device))
         sym._device[key] = t
     return t
+
+
+def _plan(sym, name: str) -> segsum.AddPlan:
+    """The fixed-order plan of adding into the targets sym.<name>, cached
+    on the analysis."""
+    key = ("plan", name)
+    plan = sym._device.get(key)
+    if plan is None:
+        plan = sym._device[key] = segsum.AddPlan(getattr(sym, name))
+    return plan
+
+
+def _level_plans(sym, schedule: str, target: str,
+                 offsets: str) -> List[segsum.AddPlan]:
+    """One fixed-order plan a level for the targets `<schedule>.<target>`
+    leveled by `<schedule>.<offsets>`: built on the host in one pass at
+    first use and cached on the analysis."""
+    key = ("plans", schedule, target)
+    plans = sym._device.get(key)
+    if plans is None:
+        ss = getattr(sym, schedule)
+        plans = sym._device[key] = segsum.level_plans(
+            getattr(ss, target), getattr(ss, offsets))
+    return plans
 
 
 def _flatten_level_lists(per_level: List[Dict[str, list]],
@@ -380,14 +408,16 @@ def factorize(sym: SparseCholeskySymbolic, input_blocks: torch.Tensor,
         input_blocks = torch.where(idx("a_transpose")[:, None, None],
                                    input_blocks.mT, input_blocks)
     vals = torch.zeros((B, sym.nslots, b, b), dtype=dtype, device=dev)
-    vals.index_add_(1, idx("a_slot_of_input"), input_blocks)
+    vals = segsum.add_(vals, 1, _plan(sym, "a_slot_of_input"), input_blocks)
     eye = torch.eye(b, dtype=dtype, device=dev)
     lam = _batch_lam(lam, input_blocks)
-    vals.index_add_(1, idx("diag_slot_of"),
-                    (lam[:, None, None, None] * eye).expand(B, sym.nb, b, b))
+    vals = segsum.add_(vals, 1, _plan(sym, "diag_slot_of"),
+                       (lam[:, None, None, None] * eye).expand(B, sym.nb, b,
+                                                               b))
 
     s = sym.sched
-    ut, ui, uj = idx("sched.upd_tgt"), idx("sched.upd_i"), idx("sched.upd_j")
+    plans = _level_plans(sym, "sched", "upd_tgt", "upd_off")
+    ui, uj = idx("sched.upd_i"), idx("sched.upd_j")
     fac = idx("sched.fac")
     st, sd = idx("sched.sol_tgt"), idx("sched.sol_diag")
     uoff, foff, soff = (o.tolist() for o in (s.upd_off, s.fac_off,
@@ -402,7 +432,7 @@ def factorize(sym: SparseCholeskySymbolic, input_blocks: torch.Tensor,
         if hi > lo:
             contrib = (vals.index_select(1, ui[lo:hi])
                        @ vals.index_select(1, uj[lo:hi]).mT)
-            vals.index_add_(1, ut[lo:hi], contrib, alpha=-1)
+            vals = segsum.add_(vals, 1, plans[k], contrib, alpha=-1)
         lo, hi = foff[k], foff[k + 1]
         if hi > lo:
             fc = fac[lo:hi]
@@ -428,7 +458,8 @@ def _substitute(sym: SparseCholeskySymbolic, L_blocks: torch.Tensor,
     def idx(name):
         return device_array(sym, y.device, f"{phase}.{name}")
 
-    pj, pk, ps = idx("pair_j"), idx("pair_k"), idx("pair_slot")
+    plans = _level_plans(sym, phase, "pair_j", "pair_off")
+    pk, ps = idx("pair_k"), idx("pair_slot")
     dr, ds = idx("diag_rows"), idx("diag_slot")
     poff, doff = ss.pair_off.tolist(), ss.diag_off.tolist()
     for lev in range(len(poff) - 1):
@@ -438,8 +469,8 @@ def _substitute(sym: SparseCholeskySymbolic, L_blocks: torch.Tensor,
             if back:
                 # subtract L_ij^T x_i from row j
                 blk = blk.mT
-            y.index_add_(1, pj[lo:hi], blk @ y.index_select(1, pk[lo:hi]),
-                         alpha=-1)
+            y = segsum.add_(y, 1, plans[lev],
+                            blk @ y.index_select(1, pk[lo:hi]), alpha=-1)
         lo, hi = doff[lev], doff[lev + 1]
         if hi > lo:
             rows = dr[lo:hi]

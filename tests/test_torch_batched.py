@@ -102,7 +102,7 @@ def test_shared_data_products_without_problem_data():
           products=lambda p, m: tsp.products(p.cumsum(0), m)), ValueError),
     (dict(use_megakernel=True, newton_solver=DenseNewtonSolver()),
      ValueError),
-    (dict(mesh=object()), NotImplementedError),
+    (dict(mesh=object()), TypeError),
     (dict(record_history=True, use_megakernel=True), ValueError),
     (dict(layout="diagonal"), ValueError),
 ])
@@ -208,7 +208,7 @@ def test_compacted_kernel_gate_on_cpu_runs_the_twin():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(mesh=object()), NotImplementedError),
+    (dict(mesh=object()), TypeError),
     (dict(record_history=True, use_megakernel=True), ValueError),
     (dict(layout="diagonal"), ValueError),
 ])

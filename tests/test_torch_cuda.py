@@ -1557,7 +1557,18 @@ def _operator_cases(dtype, device):
     ops = torch.as_tensor(bcsr_kernels._jtj_operands(sched),
                           dtype=torch.int32, device=device)
     npairs, nout = len(sched.pair_i), bcsr_kernels._nout(sched)
+    from libdogleg_tpu_torch.ops import segsum
+    plan = segsum.AddPlan(np.random.default_rng(5).integers(0, 7, 40))
+    base = torch.randn(3, 9, 8, 8, dtype=dtype, generator=g).to(device)
+    terms = torch.randn(3, 40, 8, 8, dtype=dtype, generator=g).to(device)
+
+    def segment_add_direct(base, terms, dim, *ops):
+        out = base.clone()
+        segsum.segment_add_kernel(out, terms, dim, *ops)
+        return out
     return [
+        ("segment add", segsum._op, segment_add_direct,
+         (base, terms, 1, *plan.kernel_operands(device), True)),
         ("K3", bcsr_kernels._jtj_op, bcsr_kernels._jtj_batched_launch,
          (values, ops, npairs, nout)),
         ("K5", batchchol._op, batchchol._launch, (A,)),
@@ -1587,8 +1598,7 @@ def test_export_operators_opcheck_and_bits(cuda, dtype):
 def test_export_grid_artifact_on_card(cuda, tmp_path):
     """A float64 supernodal grid solve exported on the card: the artifact
     launches K3, K6 and K7, takes the eager solve's decisions and the
-    traced loop's p within 1e-12 (the factorization's index_add_ sums with
-    atomics on the card, so two runs need not give the same bits)."""
+    traced loop's p within 1e-12."""
     from libdogleg_tpu_torch import SparseProblem, export, optimize
     from libdogleg_tpu_torch.models import grid_mrf
     from libdogleg_tpu_torch.ops import bcsr_kernels, tilechol
@@ -1619,3 +1629,148 @@ def test_export_grid_artifact_on_card(cuda, tmp_path):
     for field in ("step_count", "n_attempts", "reason"):
         assert torch.equal(getattr(r, field), getattr(loop, field)), field
     torch.testing.assert_close(r.p, loop.p, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amalgamate", [1, 16])
+def test_sparse_solve_f32_same_bits_twice(cuda, amalgamate):
+    """The block-sparse path sums where several terms meet one target in a
+    fixed order (ops/segsum.py): a float32 grid solve, simplicial or
+    supernodal, gives the same bits on a second run, and the plain
+    version's sums on the card (segsum.reference) the kernel's."""
+    from libdogleg_tpu_torch import SparseProblem, optimize
+    from libdogleg_tpu_torch.models import grid_mrf
+    from libdogleg_tpu_torch.ops import segsum
+    g = grid_mrf.make_grid_mrf(16, 16, 8, dtype=torch.float32, device=cuda)
+    prob = SparseProblem(f=g.problem(jtj="dense").f, structure=g.structure,
+                         jtj="sparse", amalgamate=amalgamate)
+    z = torch.zeros(g.nstate, dtype=torch.float32, device=cuda)
+    r1, r2 = optimize(prob, z, BENCH), optimize(prob, z, BENCH)
+    assert torch.equal(r1.p.view(torch.int32), r2.p.view(torch.int32))
+    shipped = segsum.add_, segsum.add
+    try:
+        segsum.add_ = segsum.reference
+        segsum.add = segsum.reference
+        r = optimize(prob, z, BENCH)
+    finally:
+        segsum.add_, segsum.add = shipped
+    assert torch.equal(r.p.view(torch.int32), r1.p.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_mesh_world_of_one_on_card(cuda):
+    """make_mesh on the card without a process group makes a world of one
+    on NCCL; batched_optimize(mesh=) gives the unsharded call's bits as a
+    DTensor sharded on the batch axis, and the group is destroyed after."""
+    import torch.distributed as dist
+
+    from libdogleg_tpu_torch.parallel import make_mesh
+    assert not dist.is_initialized()
+    try:
+        mesh = make_mesh(("dp",))
+        assert dist.get_backend() == "nccl" and mesh.size() == 1
+        args = _instances(5, 1024, torch.float32, cuda)
+        p0, meas = args[0], args[1]
+        u = batched_optimize(qs.products, p0, BENCH, problem_data=meas)
+        r = batched_optimize(qs.products, p0, BENCH, problem_data=meas,
+                             mesh=mesh)
+        assert str(tuple(r.p.placements)) == "(Shard(dim=0),)"
+        assert torch.equal(r.p.to_local().view(torch.int32),
+                           u.p.view(torch.int32))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_dp_by_meas_batch_on_card_is_not_promoted(cuda):
+    """A batch of starts over a measurement-sharded problem on a dp x meas
+    mesh (a world of one on NCCL) at a batch that auto-promotion would
+    take: its products hold an all_reduce, so K1 is never planned (no
+    trace, no launch), and the masked driver gives the bits of the same
+    call without the mesh."""
+    import torch.distributed as dist
+
+    from libdogleg_tpu_torch.parallel import (MeasurementShardedProblem,
+                                              make_mesh, mega_auto)
+    assert not dist.is_initialized()
+    try:
+        mesh = make_mesh(("dp", "meas"), (1, 1))
+        p0, meas, gx, gy = _instances(8, 1024, torch.float32, cuda)
+
+        def f_shard(p, data):
+            gx_s, gy_s, m_s = data
+            return (qs.model(p, gx_s, gy_s) - m_s,
+                    qs.jacobian(p, gx_s, gy_s))
+        sharded = MeasurementShardedProblem(f_shard, (gx, gy, meas[0]),
+                                            mesh, "meas")
+        traces, launches = mega_auto.trace_count, mega.auto_launch_count
+        r = batched_optimize(sharded.products, p0, BENCH, mesh=mesh,
+                             axis_name="dp")
+        assert mega_auto.trace_count == traces
+        assert mega.auto_launch_count == launches
+        u = batched_optimize(sharded.products, p0, BENCH,
+                             use_megakernel=False)
+        assert str(tuple(r.p.placements)) == "(Shard(dim=0), Replicate())"
+        assert torch.equal(r.p.to_local().view(torch.int32),
+                           u.p.view(torch.int32))
+        assert bool((u.reason > 0).all())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dim,shape", [(0, (5,)), (1, (4, 8, 8)),
+                                       (1, (2, 8, 1))])
+def test_segment_add_kernel_is_its_plain_version(cuda, dtype, dim, shape):
+    """The segment-add kernel against its plain version (segsum.reference
+    on the same CUDA tensors and on the CPU): the same bits, alpha 1 and
+    -1, a single plan and a schedule's level, and the same bits on a second
+    run; index_add_ within rounding."""
+    from libdogleg_tpu_torch.ops import segsum
+    rng = np.random.default_rng(3)
+    targets = np.minimum(rng.geometric(0.2, 300) - 1, 30)
+    levels = segsum.level_plans(np.r_[rng.integers(0, 31, 50), targets],
+                                [0, 50, 350])
+    lead, inner = shape[:dim], shape[dim:]
+    g = torch.Generator().manual_seed(4)
+    base = torch.randn(lead + (31,) + inner, dtype=dtype, generator=g)
+    terms = torch.randn(lead + (300,) + inner, dtype=dtype, generator=g)
+    for plan in (segsum.AddPlan(targets), levels[1]):
+        for alpha in (1, -1):
+            want = segsum.add_(base.clone(), dim, plan, terms, alpha=alpha)
+            plain = segsum.reference(base.clone().to(cuda), dim, plan,
+                                     terms.to(cuda), alpha=alpha)
+            before = segsum.launch_count
+            got = segsum.add_(base.clone().to(cuda), dim, plan,
+                              terms.to(cuda), alpha=alpha)
+            again = segsum.add_(base.clone().to(cuda), dim, plan,
+                                terms.to(cuda), alpha=alpha)
+            assert segsum.launch_count - before == 2
+            assert torch.equal(got.cpu(), want)
+            assert torch.equal(got, plain)
+            assert torch.equal(got, again)
+            ref = base.clone().index_add_(dim, torch.as_tensor(targets),
+                                          terms, alpha=alpha)
+            torch.testing.assert_close(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_segment_add_operator_under_vmap(cuda):
+    """The out-of-place add under torch.func.vmap goes through the
+    operator's vmap rule: one launch for the batch, each element its plain
+    version's bits."""
+    from libdogleg_tpu_torch.ops import segsum
+    plan = segsum.AddPlan(np.random.default_rng(6).integers(0, 12, 90))
+    g = torch.Generator().manual_seed(7)
+    base = torch.randn(12, 3, dtype=torch.float32, generator=g)
+    terms = torch.randn(5, 90, 3, dtype=torch.float32, generator=g)
+    want = torch.stack([segsum.add(base, 0, plan, t) for t in terms])
+    before = segsum.launch_count
+    got = torch.func.vmap(lambda t: segsum.add(base.to(cuda), 0, plan, t))(
+        terms.to(cuda))
+    assert segsum.launch_count - before == 1
+    assert torch.equal(got.cpu(), want)
+

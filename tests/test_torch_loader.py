@@ -11,7 +11,7 @@ from libdogleg_tpu_torch.native import loader
 def test_every_source_is_built():
     names = [s.name for s in loader._sources()]
     assert names == ["batchchol.cu", "bcsr.cu", "mega.cu", "panelchol.cu",
-                     "tilechol.cu"]
+                     "segsum.cu", "tilechol.cu"]
 
 
 def test_source_edit_renames_the_library(tmp_path, monkeypatch):

@@ -466,10 +466,10 @@ def test_analysis_caches_device_copies():
     L, _ = tsc.factorize(sym, torch.as_tensor(blocks), 0.0)
     cpu = torch.device("cpu")
     cached = dict(sym._device)
-    assert (cpu, "sched.upd_tgt") in cached
-    assert cached[(cpu, "sched.upd_tgt")].dtype == torch.int64
+    assert (cpu, "sched.upd_i") in cached
+    assert cached[(cpu, "sched.upd_i")].dtype == torch.int64
     tsc.factorize(sym, torch.as_tensor(blocks), 0.0)
     tsc.solve(sym, L, torch.ones(nb * b, dtype=torch.float64))
     for key, t in cached.items():
         assert sym._device[key] is t
-    assert (cpu, "fwd.pair_j") in sym._device and (cpu, "perm") in sym._device
+    assert (cpu, "fwd.pair_k") in sym._device and (cpu, "perm") in sym._device
