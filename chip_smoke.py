@@ -295,7 +295,21 @@ Phases, each printing its own lines:
      within 1e-3 of float64), both ranks and a second solve the same
      bits, K6 and K7 launched; a dp-sharded batched state through the
      distributed checkpoint, resumed to the one-shot run's bits; all_reduce
-     calls and bytes an evaluation, walls in turns, peak memory.
+     calls and bytes an evaluation, walls in turns, peak memory;
+ 26. point-parallel bundle adjustment (BAProblem.shard/shard_p_tree, the
+     point-sharded tree Schur strategies of ops/newton.py): configs 4 in
+     tree form (nc 64, 20000 points; norm2_x < 1e-3) and 7s (ncam 128,
+     50000 points, the jittered start; reason > 0, norm2_x < 2 nobs),
+     plain and with refine_iters=2 and a per-rank cam_gather, float32
+     under PRM, their points sharded over a "pts" axis: (a) a world of one
+     on NCCL, every result field of two sharded solves the unsharded
+     solve's bits, host walls in turns with it; (b) two ranks on the one
+     card over gloo (phase26_rank, 10000 and 25000 points a rank, a 600 s
+     wall limit), both past the gate with the same bits of c, U and every
+     decision field, a second solve the same bits, their q blocks put
+     together beside the unsharded solve (steps, reason, largest
+     difference); for each leg the host wall, attempts, all_reduce calls
+     and bytes an attempt and peak memory, by rank; no kernel of K1-K7.
      Each phase prints its seconds.
 Then one JSON line about the kernels (time, plain version's time, the
 library call's where one exists, and the bound from this run's shapes; K1
@@ -5023,6 +5037,347 @@ def phase25_parallel(dev, bench, card, b3=CONFIG3_BATCH, grid=GRID,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 26: point-parallel bundle adjustment (BAProblem.shard and
+# shard_p_tree, the point-sharded tree Schur strategies)
+# ---------------------------------------------------------------------------
+
+P26_RANKS = 2
+P26_LIMIT_S = 600.0      # the two ranks' wall limit; past it both are killed
+P26_LABELS = ("config 4 tree", "config 7s", "config 7s refine_iters=2 "
+              "cam_gather")
+
+
+def p26_cases(dev, linear, sparse):
+    """Phase 18's configurations 4 (tree form) and 7s (plain, and with
+    refine_iters=2 and a cam_gather) in float32 on `dev`: label -> (the
+    unsharded (products, p0, strategy), a function of a mesh giving the
+    point-sharded ones, the gate, its text)."""
+    import dataclasses
+
+    import torch
+
+    from libdogleg_tpu_torch.models import bundle_adjustment as lba
+    from libdogleg_tpu_torch.models import pinhole_ba as pba
+    from libdogleg_tpu_torch.ops.newton import build_cam_gather
+    from libdogleg_tpu_torch.parallel.batched import shard_batch
+    from libdogleg_tpu_torch.parallel.points import replicate
+    ba = lba.make_synthetic(dtype=torch.float32, device=dev, **linear)
+
+    def config4(mesh):
+        ba_s = ba.shard(mesh)
+        return (ba_s.products_tree, ba.shard_p_tree(ba.p0_tree(), mesh),
+                ba_s.tree_newton_solver())
+    sp = pba.make_synthetic_sparse(dtype=torch.float32, device=dev, **sparse)
+    p0 = sp.p0(torch.Generator(device=dev).manual_seed(2), jitter=0.02)
+    ns = sp.newton_solver()
+    names = ("cam_of", "obs", "pts_prior")
+
+    def config7s(refine):
+        def on(mesh):
+            sp_s = dataclasses.replace(sp, **dict(zip(names, shard_batch(
+                tuple(getattr(sp, n) for n in names), mesh, "pts"))))
+            s = (dataclasses.replace(ns, refine_iters=2,
+                                     cam_gather=build_cam_gather(
+                                         sp_s.cam_of, sp.ncam))
+                 if refine else ns)
+            return (sp_s.products, {"c": replicate(p0["c"], mesh),
+                                    "q": shard_batch(p0["q"], mesh, "pts")},
+                    s)
+        return on
+    ns_r = dataclasses.replace(ns, refine_iters=2,
+                               cam_gather=build_cam_gather(sp.cam_of,
+                                                           sp.ncam))
+    nobs = sp.nobs
+    gate7 = (lambda r: int(r.reason) > 0 and float(r.norm2_x) < 2 * nobs,
+             "reason > 0, norm2_x < 2 nobs")
+    return {
+        P26_LABELS[0]: ((ba.products_tree, ba.p0_tree(),
+                         ba.tree_newton_solver()), config4,
+                        lambda r: float(r.norm2_x) < 1e-3, "norm2_x < 1e-3"),
+        P26_LABELS[1]: ((sp.products, p0, ns), config7s(False)) + gate7,
+        P26_LABELS[2]: ((sp.products, p0, ns_r), config7s(True)) + gate7}
+
+
+def p26_solve(dev, bench, products, p0, ns) -> tuple:
+    """(result, a record of the solve: host wall s, attempts, all_reduce
+    calls and bytes of the sharded layer, peak memory and the part of it
+    above what was allocated at the call) of one solve, its host wall
+    ended by a synchronize."""
+    import torch
+
+    from libdogleg_tpu_torch import solve_products
+    from libdogleg_tpu_torch.parallel import sharded
+    base = None
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    sharded.reset_counts()
+    t0 = time.perf_counter()
+    r = solve_products(products, p0, bench, newton_solver=ns)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return r, {"wall_s": wall, "attempts": int(r.n_attempts),
+               "calls": sharded.all_reduce_calls,
+               "bytes": sharded.all_reduce_bytes,
+               "peak": (torch.cuda.max_memory_allocated()
+                        if dev.type == "cuda" else None), "base": base}
+
+
+def p26_collective_us(dev, mesh, reps: int = 200) -> str:
+    """Host microseconds a call of all_reduce_sum on the "pts" axis, for
+    one value and for config 7s's S with its ok (768^2 + 1 values), over
+    `reps` calls ended by one synchronize."""
+    import torch
+
+    from libdogleg_tpu_torch.parallel.sharded import all_reduce_sum
+    out = []
+    for n in (1, 768 * 768 + 1):
+        x = torch.ones(n, dtype=torch.float32, device=dev)
+        all_reduce_sum([x], mesh, "pts")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            all_reduce_sum([x], mesh, "pts")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out.append(f"{n} values {(time.perf_counter() - t0) / reps * 1e6:.1f}")
+    return ", ".join(out)
+
+
+def p26_local(r) -> dict:
+    """A point-sharded result's fields as this rank holds them, on the
+    host: c, Jt_x's c and the decisions replicated, q the rank's block."""
+    from libdogleg_tpu_torch.parallel.points import local_of
+    out = {f"p/{k}": local_of(v).cpu() for k, v in r.p.items()}
+    out.update({f"Jt_x/{k}": local_of(v).cpu() for k, v in r.Jt_x.items()})
+    out.update({f: getattr(r, f).cpu() for f in
+                ("norm2_x", "step_count", "n_attempts", "reason",
+                 "trustregion", "lam")})
+    out.update({f"JtJ/{k}": v.cpu() for k, v in r.JtJ._asdict().items()})
+    return out
+
+
+def p26_text(rec) -> str:
+    a = max(rec["attempts"], 1)
+    first = (f"first {rec['first_wall_s'] * 1e3:.1f} ms, "
+             if "first_wall_s" in rec else "")
+    return (f"wall {first}{rec['wall_s'] * 1e3:.1f} ms, attempts "
+            f"{rec['attempts']}"
+            f", all_reduce calls {rec['calls']} ({rec['calls'] / a:.2f} an "
+            f"attempt), bytes {rec['bytes']} ({rec['bytes'] / a:.0f} an "
+            f"attempt), peak memory {peak_text(rec)}")
+
+
+def peak_text(rec) -> str:
+    """A solve's peak device memory and the part above what was allocated
+    at its call (earlier phases' tensors still held)."""
+    if rec["peak"] is None:
+        return "not measured"
+    return (f"{gib(rec['peak'])} ({gib(rec['peak'] - rec['base'])} above "
+            f"the call's start)")
+
+
+def gib(nbytes) -> str:
+    return ("not measured" if nbytes is None
+            else f"{nbytes / 2 ** 30:.3f} GiB")
+
+
+def phase26_rank(rank, port, tmp, device, linear, sparse) -> int:
+    """One of the two ranks of phase 26 (b), a process of its own on one
+    gloo group whose tensors live on the card: the three point-sharded
+    solves on this rank's half of the points. Writes tmp/rank<r>.pt."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    rank, port = int(rank), int(port)
+    linear, sparse = json.loads(linear), json.loads(sparse)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=P26_RANKS, timeout=datetime.timedelta(seconds=60))
+    from libdogleg_tpu_torch import DoglegParameters
+    from libdogleg_tpu_torch.parallel import make_mesh
+    bench = DoglegParameters(**BENCH)
+    t_start = time.perf_counter()
+    mesh = make_mesh(("pts",), device_type=dev.type)
+    check(mesh.size() == P26_RANKS and dist.get_backend() == "gloo",
+          f"rank {rank}: a mesh of {mesh.size()} ranks over "
+          f"{dist.get_backend()}")
+    out = {"rank": rank}
+    for label, (_, sharded, gate, gate_text) in p26_cases(
+            dev, linear, sparse).items():
+        runs = []
+        for _ in range(2):
+            dist.barrier()
+            runs.append(p26_solve(dev, bench, *sharded(mesh)))
+        r, rec = runs[1]
+        check(gate(r), f"(b) rank {rank} {label}: gate {gate_text}: norm2_x "
+              f"{float(r.norm2_x):.6g}, reason {int(r.reason)}")
+        check(str(tuple(r.p["q"].placements)) == "(Shard(dim=0),)",
+              f"(b) rank {rank} {label}: q sharded over pts")
+        first, second = (p26_local(x) for x, _ in runs)
+        check(all(p25_same(first[k], second[k]) for k in first),
+              f"(b) rank {rank} {label}: a second solve the same bits")
+        out[label] = {"fields": second, "first_wall_s": runs[0][1]["wall_s"],
+                      **rec}
+    out["seconds"] = time.perf_counter() - t_start
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+P26_CHILD = ("import sys, chip_smoke; "
+             "sys.exit(chip_smoke.phase26_rank(*sys.argv[1:]))")
+
+
+def phase26_points(dev, bench, card, linear=BA_LINEAR,
+                   sparse=BA_SPARSE) -> None:
+    """Point-parallel bundle adjustment on the card: configs 4 (tree form)
+    and 7s (plain and refined) with their points sharded over a "pts"
+    axis, (a) a world of one on NCCL, every result field the unsharded
+    solve's bits, and (b) two ranks sharing the card over gloo
+    (phase26_rank), their c and decisions the same bits, their q blocks
+    put together beside the unsharded solve."""
+    import os
+    import socket
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from libdogleg_tpu_torch.parallel import make_mesh
+    t_phase = time.perf_counter()
+    cases = p26_cases(dev, linear, sparse)
+
+    # (a) a world of one
+    check(not dist.is_initialized(), "no process group before phase 26")
+    mesh = make_mesh(("pts",), device_type=dev.type)
+    backend = dist.get_backend()
+    check(backend == ("nccl" if dev.type == "cuda" else "gloo"),
+          f"the world of one's backend: {backend}")
+    unsharded = {}
+    for label, (whole, sharded, gate, gate_text) in cases.items():
+        before = kernel_launch_counts()
+        # in turns: unsharded, sharded, sharded, unsharded
+        runs = [p26_solve(dev, bench, *(sharded(mesh) if k in (1, 2)
+                                         else whole)) for k in range(4)]
+        check(kernel_launch_counts() == before,
+              f"(a) {label}: the path launches none of K1-K7")
+        want = p26_local(runs[0][0])
+        for k, (r, _) in enumerate(runs[1:], 1):
+            got = p26_local(r)
+            for f in want:
+                check(p25_same(got[f], want[f]), f"(a) {label}: run {k}'s {f} "
+                      f"has the first unsharded solve's bits")
+        r = runs[1][0]
+        check(gate(r), f"(a) {label}: gate {gate_text}")
+        check(str(tuple(r.p["q"].placements)) == "(Shard(dim=0),)"
+              and str(tuple(r.p["c"].placements)) == "(Replicate(),)",
+              f"(a) {label}: q sharded over pts, c replicated")
+        unsharded[label] = want
+        walls = [f"{rec['wall_s'] * 1e3:.1f}" for _, rec in runs]
+        print(f"[26 (a) world of one, {backend}, {label}, f32 PRM] gate "
+              f"{gate_text}: norm2_x {float(r.norm2_x):.6g}, reason "
+              f"{int(r.reason)}, steps {int(r.step_count)}; every result "
+              f"field of both sharded solves and the second unsharded one "
+              f"the first unsharded solve's bits; host wall ms in turns "
+              f"unsharded {walls[0]}, sharded {walls[1]}, {walls[2]}, "
+              f"unsharded {walls[3]}; sharded: {p26_text(runs[2][1])}; "
+              f"unsharded peak memory {peak_text(runs[3][1])}; card "
+              f"{card}",
+              flush=True)
+        if dev.type == "cuda" and label == P26_LABELS[1]:
+            from libdogleg_tpu_torch import solve_products
+            fn, p0, ns = sharded(mesh)
+            split = device_split(
+                lambda: solve_products(fn, p0, bench, newton_solver=ns),
+                groups=BA_GROUPS + (("nccl", ("nccl",)),))
+            print(f"[26 (a) {label} profile, sharded] {split}", flush=True)
+    print(f"[26 (a) all_reduce_sum alone, {backend}] host us a call, "
+          f"{p26_collective_us(dev, mesh)}; card {card}", flush=True)
+    dist.destroy_process_group()
+    del cases
+
+    # (b) two ranks on the one card over gloo
+    tmp = tempfile.mkdtemp(prefix="dogleg_pts_")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+            for r in range(P26_RANKS)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", P26_CHILD, str(r), str(port), tmp, dev.type,
+         json.dumps(linear), json.dumps(sparse)],
+        stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(P26_RANKS)]
+    hung = False
+    for p in procs:
+        try:
+            p.wait(timeout=max(P26_LIMIT_S - (time.perf_counter() - t0),
+                               0.01))
+        except subprocess.TimeoutExpired:
+            hung = True
+            break
+    if hung:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.wait()
+    wall = time.perf_counter() - t0
+    texts = []
+    for log in logs:
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+    check(not hung, f"(b) the two ranks ended within {P26_LIMIT_S} s")
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"(b) rank {r} exited {p.returncode}:\n"
+              f"{texts[r][-3000:]}")
+    got = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+           for r in range(P26_RANKS)]
+    replicated = ("p/c", "Jt_x/c", "norm2_x", "step_count", "n_attempts",
+                  "reason", "trustregion", "lam", "JtJ/U")
+    for label in P26_LABELS:
+        f0 = got[0][label]["fields"]
+        for r, o in enumerate(got[1:], 1):
+            for k in replicated:
+                check(p25_same(o[label]["fields"][k], f0[k]),
+                      f"(b) {label}: rank {r}'s {k} has rank 0's bits")
+        u = unsharded[label]
+        q = torch.cat([o[label]["fields"]["p/q"] for o in got])
+        dq = float((q.double() - u["p/q"].double()).abs().max())
+        dc = float((f0["p/c"].double() - u["p/c"].double()).abs().max())
+        npts = q.shape[0]
+        print(f"[26 (b) two ranks, gloo, {label}, {npts // P26_RANKS} points "
+              f"a rank, f32 PRM] both ranks pass the gate and hold the same "
+              f"bits of c, U and every decision field; steps "
+              f"{int(f0['step_count'])} reason {int(f0['reason'])} attempts "
+              f"{int(f0['n_attempts'])} norm2_x {float(f0['norm2_x']):.6g} "
+              f"(unsharded: steps {int(u['step_count'])} reason "
+              f"{int(u['reason'])} attempts {int(u['n_attempts'])} norm2_x "
+              f"{float(u['norm2_x']):.6g}); the q blocks put together: "
+              f"{npts} points, max |dq| {dq:.3e}, max |dc| {dc:.3e} from the "
+              f"unsharded solve; a second solve the same bits on each rank; "
+              f"by rank: "
+              f"{'; '.join(p26_text(o[label]) for o in got)}; card {card}",
+              flush=True)
+    print(f"[26 (b) ranks] wall {wall:.1f} s for the two processes; seconds "
+          f"by rank {[round(o['seconds'], 1) for o in got]}", flush=True)
+    print(f"[26 seconds] {time.perf_counter() - t_phase:.1f}; card {card}",
+          flush=True)
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -5229,6 +5584,7 @@ def main() -> int:
     k1a = timed("23", phase23_mega_auto, dev, bench, card)
     p24 = timed("24", phase24_export, dev, bench, card)
     p25 = timed("25", phase25_parallel, dev, bench, card)
+    timed("26", phase26_points, dev, bench, card)
     print(f"[all seconds] {time.perf_counter() - started:.1f}", flush=True)
     paths.update({f"phase 22 ({k})": v for k, v in p22["paths"].items()})
     paths["phase 24 (export)"] = {k: p24[k] for k in ("K3", "K6", "K7",

@@ -69,22 +69,34 @@ def observation_terms(cams, points, obs, focal):
     return project(cams, points, focal) - obs, Jc, Jq
 
 
-def _assemble(ba, p, r, gc_blk, gq_obs, U_blk, V_obs, W):
+def _assemble(ba, p, r, gc_blk, gq_obs, U_blk, V_obs, W, pts_prior=None,
+              axis=None):
     """(norm2_x, Jt_x, U, V, W) from the observations' residuals and sums
     (camera gradient blocks (ncam, 6), point gradients (npts, 3), camera
     blocks (ncam, 6, 6), point blocks (npts, 3, 3), the coupling) and the
-    two priors: the gauge prior on camera 0 and the weak point prior."""
+    two priors: the gauge prior on camera 0 and the weak point prior.
+
+    A point-sharded instance passes its rank's points (p["q"], pts_prior,
+    the observations' sums) and axis, its (mesh, axis name): the point
+    terms of the cost and the camera sums are summed over the axis in one
+    all_reduce before camera 0's prior, which is replicated, enters them
+    once."""
     c, q = p["c"], p["q"]
+    pts_prior = ba.pts_prior if pts_prior is None else pts_prior
     dt, dev = c.dtype, c.device
     w0 = torch.as_tensor(ba.w_prior_cam0, dtype=dt, device=dev)
     wp = torch.as_tensor(ba.w_prior_pts, dtype=dt, device=dev)
     r_cam0 = torch.sqrt(w0) * (c[:6] - ba.cam0_prior)
-    r_pts = torch.sqrt(wp) * (q - ba.pts_prior)
-    norm2_x = ((r * r).sum() + (r_cam0 * r_cam0).sum()
-               + (r_pts * r_pts).sum())
+    r_pts = torch.sqrt(wp) * (q - pts_prior)
+    n2_obs, n2_pts = (r * r).sum(), (r_pts * r_pts).sum()
+    if axis is not None:
+        from libdogleg_tpu_torch.parallel.sharded import all_reduce_sum
+        n2_obs, n2_pts, gc_blk, U_blk = all_reduce_sum(
+            [n2_obs, n2_pts, gc_blk, U_blk], *axis)
+    norm2_x = n2_obs + (r_cam0 * r_cam0).sum() + n2_pts
     gc = gc_blk.reshape(-1).clone()
     gc[:6] += w0 * (c[:6] - ba.cam0_prior)
-    gq = gq_obs + wp * (q - ba.pts_prior)
+    gq = gq_obs + wp * (q - pts_prior)
     U = block_diag(U_blk)
     U[:6, :6] += w0 * torch.eye(6, dtype=dt, device=dev)
     V = V_obs + wp * torch.eye(3, dtype=dt, device=dev)
@@ -300,7 +312,17 @@ class SparseVisibilityPinholeBA:
 
     Variable visibility is padding to k_obs slots with obs_mask zero on the
     extra ones: their residual and Jacobian rows are zeroed before every
-    reduction, so the solve equals the unpadded problem's."""
+    reduction, so the solve equals the unpadded problem's.
+
+    Point-sharded: cam_of, obs, pts_prior and obs_mask given as DTensors
+    sharded on the point axis over a mesh axis (parallel.batched.
+    shard_batch; the JAX package's NamedSharding(mesh, P("pts")) on the
+    same fields) and the start's p["q"] the same way. Each rank then works
+    on its points: its rows of the residual, Jq, V and Wv, and its cam_of
+    in the JtJ; the camera gradient, U and the cost are summed over the
+    axis in one all_reduce an evaluation, and camera 0's gauge prior
+    enters once. npts, nobs and nstate keep their global values; a solver
+    from newton_solver() of the unsharded instance serves."""
     ncam: int
     npts: int
     k_obs: int
@@ -322,13 +344,43 @@ class SparseVisibilityPinholeBA:
     def nstate(self) -> int:
         return self.ncam * 6 + self.npts * 3
 
+    def _local(self, p, obs):
+        """(p, cam_of, obs, pts_prior, obs_mask, axis) as this rank works on
+        them: as given, or for a point-sharded instance the rank's points
+        (a DTensor's local tensor, a whole obs's block) and axis the (mesh,
+        axis name); None unsharded."""
+        fields = (self.cam_of, self.pts_prior, self.obs_mask)
+        axis = None
+        if any(t is not None and type(t) is not torch.Tensor
+               for t in fields + (obs,)):
+            from libdogleg_tpu_torch.parallel.points import sharding_of
+            axis = sharding_of(*fields, obs)
+        if axis is None:
+            return p, self.cam_of, obs, self.pts_prior, self.obs_mask, None
+        from libdogleg_tpu_torch.parallel.mesh import local_rows
+        from libdogleg_tpu_torch.parallel.points import local_of
+        cam_of, pts_prior, mask = (None if t is None else local_rows(t, *axis)
+                                   for t in fields)
+        p = {k: local_of(v) for k, v in p.items()}
+        if p["q"].shape[0] != cam_of.shape[0]:
+            raise ValueError(
+                f"a point-sharded SparseVisibilityPinholeBA takes the "
+                f"state's point rows sharded as its own ({cam_of.shape[0]} "
+                f"a rank), got {p['q'].shape[0]}")
+        return p, cam_of, local_rows(obs, *axis), pts_prior, mask, axis
+
     def observation_jacobians(self, p, obs=None):
         """(r, Jc, Jq) per observation, (npts, k_obs, 2), (..., 2, 6),
         (..., 2, 3), at the observations obs (None: the instance's); masked
-        slots come back zeroed."""
-        obs = self.obs if obs is None else obs
-        npts, k = self.npts, self.k_obs
-        cam_g = p["c"].reshape(self.ncam, 6)[self.cam_of]
+        slots come back zeroed. A point-sharded instance's rank gets its
+        own points."""
+        p, cam_of, obs, _, mask, _ = self._local(
+            p, self.obs if obs is None else obs)
+        return self._jacobians(p, cam_of, obs, mask)
+
+    def _jacobians(self, p, cam_of, obs, mask):
+        npts, k = cam_of.shape
+        cam_g = p["c"].reshape(self.ncam, 6)[cam_of]
         r, Jc, Jq = observation_terms(
             cam_g.reshape(-1, 6),
             p["q"][:, None, :].expand(npts, k, 3).reshape(-1, 3),
@@ -336,8 +388,8 @@ class SparseVisibilityPinholeBA:
         r = r.reshape(npts, k, 2)
         Jc = Jc.reshape(npts, k, 2, 6)
         Jq = Jq.reshape(npts, k, 2, 3)
-        if self.obs_mask is not None:
-            m = self.obs_mask[..., None].to(r.dtype)
+        if mask is not None:
+            m = mask[..., None].to(r.dtype)
             r, Jc, Jq = r * m, Jc * m[..., None], Jq * m[..., None]
         return r, Jc, Jq
 
@@ -351,21 +403,20 @@ class SparseVisibilityPinholeBA:
         (batched_optimize(ba.products_obs, p0, problem_data=obs_b,
         newton_solver=ba.newton_solver())), as the JAX package's
         ba._replace(obs=obs_i).products does."""
-        r, Jc, Jq = self.observation_jacobians(p, obs)
+        p, cam_of, obs, pts_prior, mask, axis = self._local(p, obs)
+        r, Jc, Jq = self._jacobians(p, cam_of, obs, mask)
         n2, g, U, V, Wv = _assemble(
             self, p, r,
-            onehot_cam_reduce(self.cam_of,
-                              torch.einsum('pkij,pki->pkj', Jc, r),
+            onehot_cam_reduce(cam_of, torch.einsum('pkij,pki->pkj', Jc, r),
                               self.ncam),
             torch.einsum('pkij,pki->pj', Jq, r),
-            onehot_cam_reduce(self.cam_of,
+            onehot_cam_reduce(cam_of,
                               torch.einsum('pkij,pkim->pkjm', Jc, Jc),
                               self.ncam),
             torch.einsum('pkij,pkim->pjm', Jq, Jq),
-            torch.einsum('pkij,pkim->pkjm', Jc, Jq))
+            torch.einsum('pkij,pkim->pkjm', Jc, Jq), pts_prior, axis)
         return Products(norm2_x=n2, Jt_x=g,
-                        JtJ=SparseWSchurJtJ(U=U, Wv=Wv, cam_of=self.cam_of,
-                                            V=V))
+                        JtJ=SparseWSchurJtJ(U=U, Wv=Wv, cam_of=cam_of, V=V))
 
     def dense_w_products(self, p) -> Products:
         """The same system with W densified into a SchurJtJ: the

@@ -67,19 +67,23 @@ class InterpolatedStep(NamedTuple):
 def interpolated_step(cauchy: torch.Tensor,
                       norm2_cauchy: torch.Tensor,
                       gn: torch.Tensor,
-                      trustregion: torch.Tensor) -> InterpolatedStep:
+                      trustregion: torch.Tensor,
+                      shards=None) -> InterpolatedStep:
     """The point on the segment cauchy -> gn that crosses the trust-region
     sphere: the + root of norm2(a + k (b - a)) = tr^2, with a numerically
     negative discriminant clamped to zero (reference dogleg.c:936-987). The
     clamp keeps a NaN discriminant NaN, as jnp.maximum does. The steps are
     (..., n) tensors or trees of tensors (ops/treevec.py): of one problem
     where norm2_cauchy is 0-d, of a batch (every leaf (B, ...)) where it is
-    (B,)."""
+    (B,). shards: a point-sharded tree's PointShards (tv.tree_dot)."""
     batched = not isinstance(cauchy, torch.Tensor) and norm2_cauchy.dim() > 0
-    dot = tv.batch_dot if batched else tv.tree_dot
     d = tv.tree_sub(cauchy, gn)
-    l2 = dot(d, d)
-    neg_c = dot(d, cauchy)
+    if batched:
+        l2, neg_c = tv.batch_dot(d, d), tv.batch_dot(d, cauchy)
+    elif shards is None:
+        l2, neg_c = tv.tree_dot(d, d), tv.tree_dot(d, cauchy)
+    else:   # the two sums in one all_reduce
+        l2, neg_c = tv.tree_dots([(d, d), (d, cauchy)], shards)
     dsq = trustregion * trustregion
     discriminant = torch.clamp(neg_c * neg_c - l2 * (norm2_cauchy - dsq),
                                min=0.0)
@@ -89,7 +93,9 @@ def interpolated_step(cauchy: torch.Tensor,
     else:
         scale = tv.batch_scale if batched else tv.tree_scale
         step = tv.tree_add(cauchy, scale(k, tv.tree_sub(gn, cauchy)))
-    return InterpolatedStep(step=step, norm2_step=dot(step, step), k=k)
+    n2 = (tv.batch_dot(step, step) if batched
+          else tv.tree_dot(step, step, shards))
+    return InterpolatedStep(step=step, norm2_step=n2, k=k)
 
 
 def expected_improvement(Jt_x: torch.Tensor,

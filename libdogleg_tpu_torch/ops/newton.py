@@ -386,12 +386,21 @@ class SchurNewtonSolver:
     solve_triangular, the library path; the JAX package's lax.linalg).
     Larger blocks always take the library path. refine_iters > 0 runs that
     many refinement passes against the factors, with a compensated
-    residual."""
+    residual.
+
+    shards: the PointShards (parallel/points.py) of a point-sharded tree
+    state, which solve_products sets from its start (None: unsharded).
+    The point blocks are then a rank's own and every sum over points is
+    summed over the mesh axis: S's W Y^T term with the point blocks' ok in
+    one all_reduce a lambda try, W y in the solve, the refinement's camera
+    rows as a compensated pair, the quadratic form's W and V terms, the
+    step's point norm. The sizes come from the data, not n_points."""
     nc: int
     n_points: int
     block_size: int
     point_solver: str = "unrolled"
     refine_iters: int = 0
+    shards: Any = dataclasses.field(default=None, repr=False, compare=False)
 
     def _unrolled(self) -> bool:
         return (self.block_size <= smallchol.SMALL_N_MAX
@@ -424,9 +433,10 @@ class SchurNewtonSolver:
         else:
             Lv, ok_v = _cholesky_ok(Vhat, lam.shape)
         Y = self._vsolve(Lv, Wt)
-        S = (JtJ.U + lam[..., None, None] * torch.eye(self.nc, dtype=dt,
-                                                      device=dev)
+        S = (_s_start(self.shards, JtJ.U + lam[..., None, None] * torch.eye(
+            self.nc, dtype=dt, device=dev))
              - JtJ.W.flatten(-2) @ Y.flatten(-3, -2))
+        S, ok_v = _s_finish(self.shards, S, ok_v)
         Ls, ok_s = _cholesky_ok(S, lam.shape)
         return (Lv, Ls), ok_v & ok_s
 
@@ -453,7 +463,8 @@ class SchurNewtonSolver:
         def solve_pair(bc, bp):
             # the exact inverse given the factors
             y = self._vsolve(Lv, bp[..., None])[..., 0]   # (..., np, bs)
-            sc = chol.cholesky_solve(Ls, bc - _mv(W2, y.flatten(-2)))
+            (wy,) = _point_sum(self.shards, _mv(W2, y.flatten(-2)))
+            sc = chol.cholesky_solve(Ls, bc - wy)
             sp = self._vsolve(
                 Lv, (bp - _vm(sc, W2).reshape(bp.shape))[..., None])[..., 0]
             return sc, sp
@@ -472,6 +483,8 @@ class SchurNewtonSolver:
                 hw, lw = comp.comp_contract(
                     JtJ.W, vp, reduce_axes=(b + 1, b + 2),
                     broadcast=lambda x: x[..., None, :, :])
+                if self.shards is not None:
+                    hw, lw = self.shards.sum_pair(hw, lw)
                 hc, lc = comp.pair_add(hc, lc, hw, lw)
                 # point rows: W^T vc + V vp + lam vp
                 h1, l1 = comp.comp_contract(
@@ -499,23 +512,48 @@ class SchurNewtonSolver:
                         ok=ok)
 
 
-def _schur_quad(JtJ: SchurJtJ, vc, vp) -> torch.Tensor:
+def _point_sum(shards, *partials):
+    """Partial sums over a rank's points summed over the mesh axis in one
+    all_reduce where the state is point-sharded; as they are otherwise."""
+    return list(partials) if shards is None else shards.sum(partials)
+
+
+def _s_start(shards, S0):
+    """Where the Schur complement's sum starts: S0 = U + lam I, replicated,
+    enters on the mesh axis's first rank only, the others start from zero
+    and subtract their own points' terms (_s_finish sums them), so a world
+    of one adds in the unsharded order."""
+    return S0 if shards is None or shards.first else torch.zeros_like(S0)
+
+
+def _s_finish(shards, S, ok_v):
+    """(S, ok_v) summed and and-ed over the mesh axis in one all_reduce
+    (the points' blocks factor on their ranks); as they are unsharded."""
+    if shards is None:
+        return S, ok_v
+    S, failed = shards.sum([S, (~ok_v).to(S.dtype)])
+    return S, failed == 0
+
+
+def _schur_quad(JtJ: SchurJtJ, vc, vp, shards=None) -> torch.Tensor:
     """v^T JtJ v for the arrow system, v = (vc, vp), per element of a
     batch."""
     uv = dops.dot(vc, _mv(JtJ.U, vc))
-    wv = _mv(JtJ.W.flatten(-2), vp.flatten(-2))
-    return uv + 2.0 * dops.dot(vc, wv) + _block_quad(JtJ.V, vp)
+    wv, vq = _point_sum(shards, _mv(JtJ.W.flatten(-2), vp.flatten(-2)),
+                        _block_quad(JtJ.V, vp))
+    return uv + 2.0 * dops.dot(vc, wv) + vq
 
 
 @dataclasses.dataclass(frozen=True)
 class TreeSchurNewtonSolver(SchurNewtonSolver):
     """SchurNewtonSolver over tree states {"c": (..., nc), "q": (...,
-    n_points, bs)} in place of one flat vector (the JAX package gives each
-    leaf its own sharding, a point axis over a mesh; here the solver is not
-    aware of a mesh yet, ROADMAP queue 1)."""
+    n_points, bs)} in place of one flat vector. The point leaf may be
+    sharded over a mesh axis, the camera leaf replicated
+    (BAProblem.shard_p_tree; `shards`, which solve_products sets): the
+    JAX package's tree solver under GSPMD, its all-reduces explicit."""
 
     def quad_form(self, JtJ: SchurJtJ, v):
-        return _schur_quad(JtJ, v["c"], v["q"])
+        return _schur_quad(JtJ, v["c"], v["q"], self.shards)
 
     def gauss_newton(self, JtJ: SchurJtJ, Jt_x, lam, *, lambda_initial,
                      lambda_max_tries,
@@ -523,7 +561,8 @@ class TreeSchurNewtonSolver(SchurNewtonSolver):
         dc, dp, lam, ok = self._gn_core(JtJ, Jt_x["c"], Jt_x["q"], lam,
                                         lambda_initial, lambda_max_tries,
                                         active)
-        n2 = dops.dot(dc, dc) + _sum_last(dp * dp, 2)
+        (q2,) = _point_sum(self.shards, _sum_last(dp * dp, 2))
+        n2 = dops.dot(dc, dc) + q2
         return GNResult(step={"c": -dc, "q": -dp}, norm2_step=n2, lam=lam,
                         ok=ok)
 
@@ -570,7 +609,13 @@ class SparseWSchurNewtonSolver:
     chunking changes only the order of summation. cam_gather, from
     build_cam_gather over the rig's cam_of, makes the refinement's camera
     rows fully compensated; without it they are a plain product in the
-    working precision (TF32 off)."""
+    working precision (TF32 off).
+
+    shards: as SchurNewtonSolver's. On a point-sharded problem every
+    camera reduction, S's chunked accumulation (with the point blocks' ok,
+    one all_reduce a lambda try) and quad_form's point terms are summed
+    over the mesh axis; the chunks count a rank's points; cam_gather is
+    built over the rank's own cam_of."""
     nc: int
     n_points: int
     block_size: int
@@ -579,6 +624,7 @@ class SparseWSchurNewtonSolver:
     s_chunk_limit: int = 1 << 24
     refine_iters: int = 0
     cam_gather: Any = None
+    shards: Any = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def ncam(self) -> int:
@@ -590,6 +636,7 @@ class SparseWSchurNewtonSolver:
         out = onehot_cam_reduce(JtJ.cam_of, vals, self.ncam,
                                 chunk_limit=self.s_chunk_limit,
                                 batched=vals.dim() > 3)
+        (out,) = _point_sum(self.shards, out)
         return out.flatten(-2)
 
     def _gather_cams(self, JtJ: SparseWSchurJtJ, vc):
@@ -607,9 +654,11 @@ class SparseWSchurNewtonSolver:
         vc, vp = v["c"], v["q"]
         uv = dops.dot(vc, _mv(JtJ.U, vc))
         vcg = self._gather_cams(JtJ, vc)
-        wv = _sum_last(vcg[..., :, None] * JtJ.Wv
-                       * vp[..., :, None, None, :], 4)
-        return uv + 2.0 * wv + _block_quad(JtJ.V, vp)
+        wv, vq = _point_sum(self.shards,
+                            _sum_last(vcg[..., :, None] * JtJ.Wv
+                                      * vp[..., :, None, None, :], 4),
+                            _block_quad(JtJ.V, vp))
+        return uv + 2.0 * wv + vq
 
     def factor(self, JtJ: SparseWSchurJtJ, lam):
         """Factorize JtJ + lam I once at a fixed lambda (no escalation):
@@ -626,17 +675,18 @@ class SparseWSchurNewtonSolver:
         # broadcast over the k_obs axis
         B = smallchol.small_fwd_solve_mat(
             Lv[..., :, None, :, :], JtJ.Wv.transpose(-1, -2)).transpose(-1, -2)
-        S = JtJ.U + lam[..., None, None] * torch.eye(nc, dtype=dt, device=dev)
+        S = _s_start(self.shards, JtJ.U + lam[..., None, None] * torch.eye(
+            nc, dtype=dt, device=dev))
         # F whole is (..., np, nc, bs), the size of the dense W this form
         # avoids: accumulate S over chunks of points whose F, over the
         # whole batch, is bounded
+        n_points = JtJ.V.shape[-3]
         per_point = lam.numel() * nc * bs
-        chunk = (self.n_points if self.n_points * per_point
-                 <= self.s_chunk_limit
+        chunk = (n_points if n_points * per_point <= self.s_chunk_limit
                  else max(1, self.s_chunk_limit // per_point))
         cams = torch.arange(self.ncam, device=dev)
         lead = lam.shape
-        for lo in range(0, self.n_points, chunk):
+        for lo in range(0, n_points, chunk):
             Bc = B[..., lo:lo + chunk, :, :, :]
             E = (JtJ.cam_of[..., lo:lo + chunk, :, None] == cams).to(dt)
             n = Bc.shape[-4]
@@ -644,6 +694,7 @@ class SparseWSchurNewtonSolver:
             F2 = (F.reshape(lead + (n, nc, bs)).transpose(-3, -2)
                   .reshape(lead + (nc, n * bs)))
             S = S - F2 @ F2.mT
+        S, ok_v = _s_finish(self.shards, S, ok_v)
         Ls, ok_s = _cholesky_ok(S, lead)
         return (Lv, Ls), ok_v & ok_s
 
@@ -694,6 +745,8 @@ class SparseWSchurNewtonSolver:
                     E = torch.where(msk, lw.flatten(-3, -2)[..., tbl, :],
                                     zero)
                     hc, lc = comp.comp_reduce(H, E, axis=-2)
+                    if self.shards is not None:
+                        hc, lc = self.shards.sum_pair(hc, lc)
                     hc, lc = hc.flatten(-2), lc.flatten(-2)
                     h1, l1 = comp.comp_matvec(JtJ.U, vc)
                     hc, lc = comp.pair_add(hc, lc, h1, l1)
@@ -715,7 +768,8 @@ class SparseWSchurNewtonSolver:
 
             dc, dp = _refine((dc, dp), lambda r: solve_pair(*r), resid,
                              self.refine_iters)
-        n2 = dops.dot(dc, dc) + _sum_last(dp * dp, 2)
+        (q2,) = _point_sum(self.shards, _sum_last(dp * dp, 2))
+        n2 = dops.dot(dc, dc) + q2
         return GNResult(step={"c": -dc, "q": -dp}, norm2_step=n2, lam=lam,
                         ok=ok)
 
@@ -727,8 +781,12 @@ def build_cam_gather(cam_of, ncam: int, device=None):
     pairwise sum. cam_of is read on the host (numpy or a tensor); slots
     padded out must name a valid camera and carry zero Wv blocks. Returns
     (tbl (ncam, width) int64, mask (ncam, width, 1) bool) on `device`
-    (None: cam_of's device if it is a tensor, else the CUDA device)."""
+    (None: cam_of's device if it is a tensor, else the CUDA device). A
+    point-sharded cam_of (a DTensor) gives the table of the rank's own
+    points, the observation axis its solver sees."""
     from libdogleg_tpu_torch.device import resolve_device
+    if hasattr(cam_of, "to_local"):
+        cam_of = cam_of.to_local()
     if device is None and isinstance(cam_of, torch.Tensor):
         device = cam_of.device
     device = resolve_device(device)

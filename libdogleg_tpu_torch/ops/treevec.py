@@ -15,6 +15,13 @@ states, and NamedTuples such as SchurJtJ, Products or History): each leaf
 is reduced over every axis except the leading one, and the leaves are
 summed in visiting order, so no reduction crosses the batch axis. On a
 bare (B, n) tensor they are the flat batched solver's ops as well.
+
+A point-sharded state (parallel/points.py) holds only a rank's rows of its
+point leaves. tree_dot, tree_dots and tree_any_exceeds then take its
+PointShards: the sharded leaves' local parts are summed over the mesh axis
+in one all_reduce and added to the replicated leaves' parts in visiting
+order, so every rank gets the same bits. Without one they run exactly the
+ops they ran before.
 """
 
 from __future__ import annotations
@@ -54,15 +61,40 @@ def tree_map(f: Callable, t, *rest):
     raise TypeError(f"not a tree of tensors: {type(t).__name__}")
 
 
-def tree_dot(a, b) -> torch.Tensor:
-    """Inner product of two trees: the sum over leaves of sum(x * y)."""
-    if isinstance(a, torch.Tensor):
-        return (a * b).sum(-1)
-    parts = [(x * y).sum() for x, y in zip(tree_leaves(a), tree_leaves(b))]
+def _sharded_leaves(t, shards) -> List[bool]:
+    """For each leaf of t in visiting order, whether it is sharded (it lies
+    under a top-level key of shards.keys)."""
+    if shards is None or not isinstance(t, dict):
+        return [False] * len(tree_leaves(t))
+    return [k in shards.keys for k in sorted(t) for _ in tree_leaves(t[k])]
+
+
+def _sum_in_order(parts):
     out = parts[0]
     for part in parts[1:]:
         out = out + part
     return out
+
+
+def tree_dot(a, b, shards=None) -> torch.Tensor:
+    """Inner product of two trees: the sum over leaves of sum(x * y).
+    shards: the PointShards of a point-sharded state, or None."""
+    if isinstance(a, torch.Tensor):
+        return (a * b).sum(-1)
+    return tree_dots([(a, b)], shards)[0]
+
+
+def tree_dots(pairs, shards=None) -> List[torch.Tensor]:
+    """tree_dot of each (a, b) of `pairs`, with one all_reduce for all of
+    them where the trees are point-sharded."""
+    parts = [[(x * y).sum() for x, y in zip(tree_leaves(a), tree_leaves(b))]
+             for a, b in pairs]
+    at = [(i, j) for i, (a, _) in enumerate(pairs)
+          for j, s in enumerate(_sharded_leaves(a, shards)) if s]
+    if at:
+        for (i, j), v in zip(at, shards.sum([parts[i][j] for i, j in at])):
+            parts[i][j] = v
+    return [_sum_in_order(p) for p in parts]
 
 
 def tree_scale(k, a):
@@ -85,12 +117,19 @@ def tree_where(pred, a, b):
     return tree_map(lambda x, y: torch.where(pred, x, y), a, b)
 
 
-def tree_any_exceeds(a, threshold: float) -> torch.Tensor:
+def tree_any_exceeds(a, threshold: float, shards=None) -> torch.Tensor:
     """Whether any element of any leaf exceeds `threshold` in absolute
-    value (a NaN exceeds nothing)."""
+    value (a NaN exceeds nothing). shards: as tree_dot's; a sharded leaf's
+    flags are counted over the axis, exactly."""
     if isinstance(a, torch.Tensor):
         return (a.abs() > threshold).any(-1)
-    flags = [(x.abs() > threshold).any() for x in tree_leaves(a)]
+    leaves = tree_leaves(a)
+    flags = [(x.abs() > threshold).any() for x in leaves]
+    at = [j for j, s in enumerate(_sharded_leaves(a, shards)) if s]
+    if at:
+        counts = shards.sum([flags[j].to(leaves[j].dtype) for j in at])
+        for j, n in zip(at, counts):
+            flags[j] = n > 0
     out = flags[0]
     for flag in flags[1:]:
         out = out | flag

@@ -23,6 +23,12 @@ partial products over the batch and runs one all_reduce on the whole
 batch's partials an evaluation. torch.func.vmap of the products
 themselves would fail: c10d's in-place all_reduce has no batching rule
 (hazard F15).
+
+Point-sharded bundle adjustment (parallel/points.py) sums over the points
+with the same all_reduce_sum, counted in the same all_reduce_calls and
+all_reduce_bytes: the problems' camera sums and cost once an evaluation,
+and the Schur strategies' and the solver's sums over points (PERF.md
+section 3 counts them).
 """
 
 from __future__ import annotations

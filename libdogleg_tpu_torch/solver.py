@@ -38,6 +38,7 @@ reference's C loop.
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 import math
 from typing import Any, Callable, NamedTuple, Optional
@@ -167,15 +168,19 @@ def init_solver_state(products_fn: ProductsFn,
                       parameters: Optional[DoglegParameters] = None,
                       *,
                       record_history: bool = False,
-                      history_capacity: Optional[int] = None) -> SolverState:
+                      history_capacity: Optional[int] = None,
+                      shards=None) -> SolverState:
     """Evaluate the initial operating point and build the solve state,
-    including the initial convergence test (reference dogleg.c:1364-1371)."""
+    including the initial convergence test (reference dogleg.c:1364-1371).
+    shards: the PointShards (parallel/points.py) of a point-sharded start
+    given as its local leaves, or None."""
     prm = parameters if parameters is not None else DoglegParameters()
     init = products_fn(p0)
     first = tv.tree_leaves(p0)[0]
     zero = torch.zeros((), dtype=first.dtype, device=first.device)
     zvec = tv.tree_zeros_like(p0)
-    converged0 = not bool(tv.tree_any_exceeds(init.Jt_x, prm.Jt_x_threshold))
+    converged0 = not bool(tv.tree_any_exceeds(init.Jt_x, prm.Jt_x_threshold,
+                                              shards))
     history = None
     if record_history:
         history = _empty_history(
@@ -195,13 +200,13 @@ def init_solver_state(products_fn: ProductsFn,
 
 def _record(c: SolverState, step, norm2_step, step_type, norm2_cauchy,
             norm2_gn, use_cauchy, interp, expected, small_step, accept,
-            trial_norm2, observed, rho, tr_new) -> None:
+            trial_norm2, observed, rho, tr_new, shards) -> None:
     """Write this attempt's History row in place (JAX solver.py:478-536)."""
     h = c.history
     idx = min(c.n_attempts, h.iteration.shape[0] - 1)
     inf = math.inf
     if c.have_prev_step:
-        cos_dc = float(tv.tree_dot(step, c.prev_step)
+        cos_dc = float(tv.tree_dot(step, c.prev_step, shards)
                        / torch.sqrt(norm2_step * c.norm2_prev_step))
         dc_deg = (0.0 if cos_dc >= 1.0 else 180.0 if cos_dc <= -1.0
                   else math.degrees(math.acos(cos_dc)))
@@ -260,9 +265,10 @@ def _debug_print(c: SolverState, tr, norm2_cauchy, norm2_gn, have_gn,
 
 def _attempt(products_fn: ProductsFn, c: SolverState,
              prm: DoglegParameters, ns, max_attempts: int,
-             debug: bool = False) -> SolverState:
+             debug: bool = False, shards=None) -> SolverState:
     """One step attempt: the body of the reference's retry loop
-    (dogleg.c:1380-1468)."""
+    (dogleg.c:1380-1468). shards: as init_solver_state's; ns then sums
+    over the same axis."""
     tr = c.trustregion
     tr_sq = tr * tr
 
@@ -270,7 +276,7 @@ def _attempt(products_fn: ProductsFn, c: SolverState,
     if c.have_cauchy:
         cauchy, norm2_cauchy = c.cauchy, c.norm2_cauchy
     else:
-        n2_jtx = tv.tree_dot(c.Jt_x, c.Jt_x)
+        n2_jtx = tv.tree_dot(c.Jt_x, c.Jt_x, shards)
         k = -n2_jtx / ns.quad_form(c.JtJ, c.Jt_x)
         cauchy, norm2_cauchy = tv.tree_scale(k, c.Jt_x), k * k * n2_jtx
     use_cauchy = bool(norm2_cauchy >= tr_sq)
@@ -297,12 +303,14 @@ def _attempt(products_fn: ProductsFn, c: SolverState,
     elif use_gn:
         step, norm2_step, step_type = gn, norm2_gn, StepType.GAUSSNEWTON
     else:
-        interp = dops.interpolated_step(cauchy, norm2_cauchy, gn, tr)
+        interp = dops.interpolated_step(cauchy, norm2_cauchy, gn, tr, shards)
         step, norm2_step = interp.step, interp.norm2_step
         step_type = StepType.INTERPOLATED
 
-    expected = -2.0 * tv.tree_dot(c.Jt_x, step) - ns.quad_form(c.JtJ, step)
-    small_step = not bool(tv.tree_any_exceeds(step, prm.update_threshold))
+    expected = (-2.0 * tv.tree_dot(c.Jt_x, step, shards)
+                - ns.quad_form(c.JtJ, step))
+    small_step = not bool(tv.tree_any_exceeds(step, prm.update_threshold,
+                                              shards))
 
     # Evaluate the trial point (dogleg.c:1411) unless the attempt ends here.
     p_new = tv.tree_add(c.p, step)
@@ -329,7 +337,7 @@ def _attempt(products_fn: ProductsFn, c: SolverState,
     if c.history is not None:
         _record(c, step, norm2_step, step_type, norm2_cauchy, norm2_gn,
                 use_cauchy, interp, expected, small_step, accept,
-                trial.norm2_x, observed, rho, tr_new)
+                trial.norm2_x, observed, rho, tr_new, shards)
 
     kept = c._replace(cauchy=cauchy, norm2_cauchy=norm2_cauchy,
                       have_cauchy=True, gn=gn, norm2_gn=norm2_gn,
@@ -341,7 +349,8 @@ def _attempt(products_fn: ProductsFn, c: SolverState,
         return kept._replace(done=True, reason=int(StopReason.SMALL_STEP))
     if accept:
         step_count = c.step_count + 1
-        if not bool(tv.tree_any_exceeds(trial.Jt_x, prm.Jt_x_threshold)):
+        if not bool(tv.tree_any_exceeds(trial.Jt_x, prm.Jt_x_threshold,
+                                        shards)):
             reason = StopReason.GRADIENT_CONVERGED
         elif step_count >= prm.max_iterations:
             reason = StopReason.MAX_ITERATIONS
@@ -385,7 +394,8 @@ def run_solver(products_fn: ProductsFn,
                newton_solver=None,
                max_new_attempts: Optional[int] = None,
                wavefront_unroll: int = 1,
-               debug: bool = False) -> SolverState:
+               debug: bool = False,
+               shards=None) -> SolverState:
     """Advance a single-problem solve until it terminates (default) or for
     at most max_new_attempts further attempts, the segmented form of a
     checkpointed run: resuming from the returned state continues the
@@ -393,14 +403,16 @@ def run_solver(products_fn: ProductsFn,
     in the state. With wavefront_unroll=k the budget is rounded up to a
     multiple of k, as in the JAX package; a run to the end does not depend
     on k. A finished state comes back unchanged. debug=True prints one line
-    an attempt to stdout (the human diagnostic stream)."""
+    an attempt to stdout (the human diagnostic stream). shards: as
+    init_solver_state's (the newton_solver's own `shards` the same)."""
     prm = parameters if parameters is not None else DoglegParameters()
     ns = newton_solver if newton_solver is not None else DenseNewtonSolver()
     max_attempts = prm.resolved_max_attempts()
     limit = _attempt_limit(state.n_attempts, max_new_attempts,
                            wavefront_unroll)
     while not state.done and (limit is None or state.n_attempts < limit):
-        state = _attempt(products_fn, state, prm, ns, max_attempts, debug)
+        state = _attempt(products_fn, state, prm, ns, max_attempts, debug,
+                         shards)
     return state
 
 
@@ -436,13 +448,38 @@ def solve_products(products_fn: ProductsFn,
     overwrite the last row. debug=True prints one line an attempt to
     stdout, with the JAX package's text (its jax.debug.print); it reads
     each value on the host, so it is for diagnosis, not for timing.
+
+    A point-sharded solve (parallel/points.py): p0 a dict whose point leaf
+    is a DTensor sharded on its leading axis over one mesh axis (others
+    replicated, or plain tensors), as BAProblem.shard_p_tree gives, with
+    products of a problem sharded the same way and a Schur strategy
+    (TreeSchurNewtonSolver, SparseWSchurNewtonSolver; one built for the
+    unsharded problem serves). Every rank of the axis calls it; each
+    solves on its local rows, every sum over points an all_reduce. The
+    result's p and Jt_x are DTensors, sharded and replicated as p0's
+    leaves; its JtJ holds the rank's local blocks.
     """
+    shards = None
+    if any(type(x) is not torch.Tensor for x in tv.tree_leaves(p0)):
+        from libdogleg_tpu_torch.parallel.points import point_shards
+        shards, p0 = point_shards(p0)
+    if shards is not None:
+        if not hasattr(newton_solver, "shards"):
+            raise ValueError(
+                "a point-sharded solve takes a Schur strategy "
+                "(TreeSchurNewtonSolver, SparseWSchurNewtonSolver); got "
+                f"{type(newton_solver).__name__}")
+        newton_solver = dataclasses.replace(newton_solver, shards=shards)
     state = init_solver_state(products_fn, p0, parameters,
                               record_history=record_history,
-                              history_capacity=history_capacity)
-    return result_from_state(run_solver(products_fn, state, parameters,
-                                        newton_solver=newton_solver,
-                                        debug=debug))
+                              history_capacity=history_capacity,
+                              shards=shards)
+    r = result_from_state(run_solver(products_fn, state, parameters,
+                                     newton_solver=newton_solver,
+                                     debug=debug, shards=shards))
+    if shards is None:
+        return r
+    return r._replace(p=shards.wrap(r.p), Jt_x=shards.wrap(r.Jt_x))
 
 
 # ---------------------------------------------------------------------------

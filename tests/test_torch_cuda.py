@@ -1721,6 +1721,50 @@ def test_dp_by_meas_batch_on_card_is_not_promoted(cuda):
 
 
 @pytest.mark.cuda
+def test_point_sharded_ba_world_of_one_on_card(cuda):
+    """BAProblem.shard and shard_p_tree over a world of one on NCCL, made
+    and destroyed here: config 4's tree form at a test size (nc 64, 2000
+    points, float32, PRM) gives the unsharded solve's bits on the card in
+    every result field, q a DTensor sharded over "pts", c replicated."""
+    import torch.distributed as dist
+
+    from libdogleg_tpu_torch import solve_products
+    from libdogleg_tpu_torch.models import bundle_adjustment as lba
+    from libdogleg_tpu_torch.parallel import make_mesh
+    assert not dist.is_initialized()
+    try:
+        ba = lba.make_synthetic(seed=0, nc=64, n_points=2000,
+                                dtype=torch.float32)
+        u = solve_products(ba.products_tree, ba.p0_tree(), BENCH,
+                           newton_solver=ba.tree_newton_solver())
+        mesh = make_mesh(("pts",))
+        assert dist.get_backend() == "nccl"
+        ba_s = ba.shard(mesh)
+        r = solve_products(ba_s.products_tree,
+                           ba.shard_p_tree(ba.p0_tree(), mesh), BENCH,
+                           newton_solver=ba_s.tree_newton_solver())
+        assert str(tuple(r.p["q"].placements)) == "(Shard(dim=0),)"
+        assert str(tuple(r.p["c"].placements)) == "(Replicate(),)"
+        got = {"p": {k: v.to_local() for k, v in r.p.items()},
+               "Jt_x": {k: v.to_local() for k, v in r.Jt_x.items()}}
+        for name in ("p", "Jt_x"):
+            for k in ("c", "q"):
+                assert torch.equal(got[name][k].view(torch.int32),
+                                   getattr(u, name)[k].view(torch.int32))
+        for f in ("norm2_x", "trustregion", "lam"):
+            assert torch.equal(getattr(r, f).view(torch.int32),
+                               getattr(u, f).view(torch.int32)), f
+        for f in ("step_count", "n_attempts", "reason"):
+            assert torch.equal(getattr(r, f), getattr(u, f)), f
+        for a, b in zip(r.JtJ, u.JtJ):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert float(u.norm2_x) < 1e-3
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("dim,shape", [(0, (5,)), (1, (4, 8, 8)),
                                        (1, (2, 8, 1))])

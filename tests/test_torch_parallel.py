@@ -107,8 +107,18 @@ def _grid_inputs():
                "grid_b": np.array(m.block_size)}
 
 
+def _pts_sparse():
+    """test_parallel.py:334's instance and its start (jax.random key 4,
+    jitter 0.02)."""
+    from libdogleg_tpu.models import pinhole_ba
+    ba = pinhole_ba.make_synthetic_sparse(seed=2, ncam=8, npts=160, k_obs=3)
+    return ba, ba.p0(jax.random.PRNGKey(4), jitter=0.02)
+
+
 def _inputs():
     inp = {}
+    _, p0 = _pts_sparse()
+    inp.update(pts_p0_c=np.asarray(p0["c"]), pts_p0_q=np.asarray(p0["q"]))
     meas, p0 = _instances(0, 1)
     inp.update(meas1=meas[0], p0_1=p0[0])
     _, inp["p0_32"] = _instances(3, 32)
@@ -199,6 +209,35 @@ def _jax_refs(inp, grid):
         make_mesh(("dp",), shape=(16,))
     except ValueError as e:
         refs["mesh_error"] = str(e)
+    refs.update(_jax_point_refs())
+    return refs
+
+
+def _jax_point_refs():
+    """The unsharded JAX solves that test_parallel.py:155 and :334 hold
+    their point-sharded solves to, with History: the linear instance in
+    tree form, the sparse-visibility one plain and with refine_iters=2
+    and a cam_gather."""
+    import dataclasses
+
+    from libdogleg_tpu.models import bundle_adjustment
+    from libdogleg_tpu.ops.newton import build_cam_gather
+    prm = dl.DoglegParameters()
+    ba = bundle_adjustment.make_synthetic(seed=3, nc=8, n_points=64,
+                                          block_size=3, k_obs=4,
+                                          dtype=jnp.float64, noise=0.05)
+    refs = {"pts_schur": jax.jit(lambda: dl.solve_products(
+        ba.products_tree, ba.p0_tree(), prm,
+        newton_solver=ba.tree_newton_solver(), record_history=True))()}
+    sp, p0 = _pts_sparse()
+    ns = sp.newton_solver()
+    for leg, s in (("pts_sparse", ns),
+                   ("pts_sparse_refine", dataclasses.replace(
+                       ns, refine_iters=2, cam_gather=build_cam_gather(
+                           np.asarray(sp.cam_of), sp.ncam)))):
+        refs[leg] = jax.jit(lambda c, q, s=s: dl.solve_products(
+            sp.products, {"c": c, "q": q}, prm, newton_solver=s,
+            record_history=True))(p0["c"], p0["q"])
     return refs
 
 
@@ -225,6 +264,20 @@ def group(tmp_path_factory):
     if "error" in box:
         raise box["error"]
     return box["outs"], refs, inp
+
+
+@pytest.fixture(scope="module")
+def world_of_one(tmp_path_factory):
+    """tests/torch_mesh_worker.py's "one" leg in a process of its own, a
+    world of one on gloo (hazard F19: no group inside pytest)."""
+    tmp = tmp_path_factory.mktemp("one")
+    _, p0 = _pts_sparse()
+    path = str(tmp / "inputs.npz")
+    np.savez(path, pts_p0_c=np.asarray(p0["c"]),
+             pts_p0_q=np.asarray(p0["q"]))
+    (out,) = worker.spawn_group(path, str(tmp), legs="one", world=1,
+                                limit=120.0)
+    return out
 
 
 def _same_fields(got, want, rtol):
@@ -513,3 +566,138 @@ def test_group_that_hangs_fails_within_its_limit(tmp_path):
         worker.spawn_group(path, str(tmp_path), legs="ckpt", limit=10.0,
                            ranks=[0, 1, 2])
     assert time.monotonic() - t0 < 40
+
+
+PTS_LEGS = ("pts_schur", "pts_sparse", "pts_sparse_refine")
+# the points of each replayed instance and the ranks they are split over
+PTS_POINTS = {"pts_schur": 64, "pts_sparse": 160, "pts_sparse_refine": 160}
+RANKS = 4
+
+
+@pytest.mark.parametrize("leg", PTS_LEGS)
+def test_point_sharded_solve_matches_jax(group, leg):
+    """test_parallel.py:155 (the linear instance, tree form) and :334 (the
+    sparse-visibility instance with a solver of the unsharded one, plain
+    and refined): points over a 4-rank 'pts' axis, the unsharded JAX
+    solve's decisions and History step types, p within the JAX tests'
+    rtol 1e-9, atol 1e-11, every rank the same bits of c, the whole q and
+    every decision field, q sharded and c replicated."""
+    outs, refs, _ = group
+    o, rj = outs[0], refs[leg]
+    _decisions_equal(o, leg, rj)
+    np.testing.assert_array_equal(o[f"{leg}/history/step_type"],
+                                  np.asarray(rj.history.step_type))
+    _close(o[f"{leg}/c"], rj.p["c"], 1e-9, 1e-11)
+    _close(o[f"{leg}/q"], rj.p["q"], 1e-9, 1e-11)
+    assert str(o[f"{leg}/placements"]) == \
+        "c (Replicate(),) q (Shard(dim=0),)"
+    _same_on_every_rank(outs, leg)
+
+
+@pytest.mark.parametrize("leg", PTS_LEGS)
+def test_point_sharded_rank_holds_its_points(group, leg):
+    """Each rank's JtJ holds its n_points / 4 point rows of V and of W or
+    Wv (and cam_of), never the whole point axis; its q block is its rows
+    of the whole q."""
+    outs, _, _ = group
+    n = PTS_POINTS[leg] // RANKS
+    for r, o in enumerate(outs):
+        shapes = {k.split("/")[1][:-len("_shape")]: tuple(v) for k, v in
+                  o.items() if k.startswith(f"{leg}_local/")
+                  and k.endswith("_shape")}
+        assert shapes["V"][0] == n
+        if "W" in shapes:
+            assert shapes["W"][1] == n
+        else:
+            assert shapes["Wv"][0] == n and shapes["cam_of"][0] == n
+        np.testing.assert_array_equal(o[f"{leg}_local/q"],
+                                      o[f"{leg}/q"][r * n:(r + 1) * n])
+
+
+def _expected_all_reduces(o, leg):
+    """PERF.md section 3's count of a point-sharded solve's all_reduces:
+    the start 1 (the gradient test), each products evaluation 1, each
+    lambda try 1, each Gauss-Newton solve 2 + 2 refine_iters, and each
+    attempt 3 (the expected improvement's dot and quadratic form, the
+    small-step test), + 2 on a new point (the Cauchy step's norm and
+    quadratic form), + 2 if interpolated, + 1 for an accepted trial's
+    gradient test, + 1 for the History's direction change after an
+    accepted step."""
+    from libdogleg_tpu_torch.solver import StepType, StopReason
+    n = int(o[f"{leg}/n_attempts"])
+    acc = o[f"{leg}/history/step_accepted"][:n] == 1
+    if int(o[f"{leg}/reason"]) == StopReason.SMALL_STEP:
+        acc[-1] = False     # recorded as accepted, it evaluates nothing
+    new_point = np.concatenate([[True], acc[:-1]])
+    prev = (np.cumsum(acc) - acc) > 0
+    interp = o[f"{leg}/history/step_type"][:n] == StepType.INTERPOLATED
+    refine = 2 if leg.endswith("refine") else 0
+    count = {k: int(o[f"{leg}_count/{k}"]) for k in ("products", "factor",
+                                                    "gn")}
+    return (1 + count["products"] + count["factor"]
+            + count["gn"] * (2 + 2 * refine)
+            + int((3 + 2 * new_point + 2 * interp + acc + prev).sum()))
+
+
+@pytest.mark.parametrize("leg", PTS_LEGS)
+def test_point_sharded_all_reduce_count(group, leg):
+    """A point-sharded solve runs the all_reduces PERF.md states, each
+    one all_reduce_sum call (sharded.all_reduce_calls), and no other
+    collective: a dispatch mode around the solve sees c10d's allreduce_
+    alone, as often, so no rank gathers point data (no all_gather, no
+    DTensor full_tensor); the same count on every rank."""
+    outs, _, _ = group
+    for o in outs:
+        calls = int(o[f"{leg}_count/all_reduce_calls"])
+        assert calls == _expected_all_reduces(o, leg)
+        assert o[f"{leg}_count/collectives"].tolist() == \
+            ["c10d.allreduce_.default"]
+        assert int(o[f"{leg}_count/collective_calls"]) == calls
+    _same_on_every_rank(outs, f"{leg}_count")
+
+
+def test_point_count_the_axis_does_not_divide_raises(group):
+    """BAProblem.shard of 66 points over the 4 ranks raises, with the
+    message of the JAX package's batch axes."""
+    outs, _, _ = group
+    for o in outs:
+        assert str(o["pts_schur/indivisible"]) == (
+            "an axis of 66 does not divide over the 4 ranks of mesh axis "
+            "'pts'")
+
+
+def test_sharded_instances_keep_global_sizes(group):
+    """A point-sharded instance keeps the whole problem's sizes: points,
+    states and measurements (observations) of the linear instance and of
+    the sparse-visibility one."""
+    outs, _, _ = group
+    for o in outs:
+        assert o["pts_sizes/schur"].tolist() == [64, 8 + 64 * 3, 64 * 4]
+        assert o["pts_sizes/sparse"].tolist() == [160, 48 + 160 * 3,
+                                                  160 * 3]
+
+
+@pytest.mark.parametrize("masked", [0, 1])
+def test_camera0_prior_counted_once(group, masked):
+    """The sparse-visibility products at the start, point-sharded (with
+    an obs_mask sharded too, masked=1) against the whole instance's: the
+    cost, the camera gradient and U agree to rounding, so the replicated
+    gauge prior on camera 0 entered once, not once a rank (its weight
+    1e6 would move them by about 3e6 x its residual)."""
+    outs, _, _ = group
+    for o in outs:
+        for f in ("norm2_x", "gc", "U"):
+            _close(o[f"pts_prior/sharded{masked}/{f}"],
+                   o[f"pts_prior/whole{masked}/{f}"], 1e-12, 1e-9)
+    _same_on_every_rank(outs, "pts_prior")
+
+
+@pytest.mark.parametrize("case", ["schur", "sparse", "sparse_refine"])
+def test_point_sharded_world_of_one_bits(world_of_one, case):
+    """A world of one: every all_reduce an identity, so the point-sharded
+    solve gives the unsharded port solve's bits in every result field
+    (History included), q a DTensor sharded over the axis."""
+    o = world_of_one
+    assert int(o["one/world"]) == 1
+    assert bool(o[f"one/{case}/same_bits"])
+    assert str(o[f"one/{case}/placements"]) == "(Shard(dim=0),)"

@@ -16,6 +16,7 @@ kills the group at its own wall limit.
 """
 
 import argparse
+import dataclasses
 import datetime
 import os
 import pathlib
@@ -355,6 +356,206 @@ def leg_ckpt(inp, out, tmp):
     _result(out, "ckpt_oneshot", one)
 
 
+def _counted(ns, counts):
+    """ns as an instance of a subclass of its class that counts its
+    factorizations (one a lambda try) and Gauss-Newton solves in
+    `counts`."""
+    base = type(ns)
+
+    class Counted(base):
+        def factor(self, JtJ, lam):
+            counts["factor"] += 1
+            return base.factor(self, JtJ, lam)
+
+        def gauss_newton(self, *args, **kw):
+            counts["gn"] += 1
+            return base.gauss_newton(self, *args, **kw)
+    return Counted(**{f.name: getattr(ns, f.name)
+                      for f in dataclasses.fields(ns)})
+
+
+def _collectives():
+    """A dispatch mode that records the name of every c10d operation (a
+    collective of torch.distributed, a DTensor's gather among them) run
+    while it is active, in `.ops`."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Collectives(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if "c10d" in str(func):
+                self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+    return Collectives()
+
+
+def _pts_solve(out, leg, products, p0s, ns):
+    """The point-sharded solve with History: what every rank must hold the
+    same (the replicated c, decisions, History, the whole q) under `leg`,
+    the rank's own blocks under `leg`_local, and the counts that fix its
+    all_reduces."""
+    from libdogleg_tpu_torch import DoglegParameters, solve_products
+    from libdogleg_tpu_torch.parallel import sharded
+    counts = {"products": 0, "factor": 0, "gn": 0}
+
+    def fn(p):
+        counts["products"] += 1
+        return products(p)
+    sharded.reset_counts()
+    with _collectives() as seen:
+        r = solve_products(fn, p0s, DoglegParameters(),
+                           newton_solver=_counted(ns, counts),
+                           record_history=True)
+    out[f"{leg}_count/collectives"] = np.array(sorted(set(seen.ops)))
+    out[f"{leg}_count/collective_calls"] = np.array(len(seen.ops))
+    out[f"{leg}_count/all_reduce_calls"] = np.array(sharded.all_reduce_calls)
+    out[f"{leg}_count/all_reduce_bytes"] = np.array(sharded.all_reduce_bytes)
+    for k, v in counts.items():
+        out[f"{leg}_count/{k}"] = np.array(v)
+    _result(out, leg, r, ("step_count", "n_attempts", "reason", "norm2_x",
+                          "lam", "trustregion"))
+    out[f"{leg}/c"] = _np(r.p["c"].to_local())
+    out[f"{leg}/jtx_c"] = _np(r.Jt_x["c"].to_local())
+    out[f"{leg}/q"] = _np(r.p["q"])
+    out[f"{leg}/placements"] = np.array(
+        f"c {tuple(r.p['c'].placements)} q {tuple(r.p['q'].placements)}")
+    out[f"{leg}/U"] = _np(r.JtJ.U)
+    for name in r.JtJ._fields:
+        if name != "U":
+            out[f"{leg}_local/{name}_shape"] = np.array(
+                getattr(r.JtJ, name).shape)
+    out[f"{leg}_local/q"] = _np(r.p["q"].to_local())
+
+
+def pts_sparse_instance(inp, mesh, obs_mask=False):
+    """test_parallel.py:334's instance, its start from the JAX package's
+    key (in the inputs), and both point-sharded over the mesh's "pts"
+    axis; obs_mask=True masks every fifth observation slot."""
+    from libdogleg_tpu_torch.models import pinhole_ba as pba
+    from libdogleg_tpu_torch.parallel.batched import shard_batch
+    from libdogleg_tpu_torch.parallel.points import replicate
+    ba = pba.make_synthetic_sparse(seed=2, ncam=8, npts=160, k_obs=3,
+                                   device="cpu")
+    if obs_mask:
+        mask = torch.ones((ba.npts, ba.k_obs), dtype=F64)
+        mask.view(-1)[::5] = 0.0
+        ba = dataclasses.replace(ba, obs_mask=mask)
+    names = ("cam_of", "obs", "pts_prior") + (("obs_mask",) if obs_mask
+                                              else ())
+    ba_s = dataclasses.replace(ba, **dict(zip(names, shard_batch(
+        tuple(getattr(ba, n) for n in names), mesh, "pts"))))
+    p0 = {"c": torch.as_tensor(inp["pts_p0_c"]),
+          "q": torch.as_tensor(inp["pts_p0_q"])}
+    p0s = {"c": replicate(p0["c"], mesh),
+           "q": shard_batch(p0["q"], mesh, "pts")}
+    return ba, ba_s, p0, p0s
+
+
+def leg_pts_schur(inp, out):
+    """test_parallel.py:155: the linear instance's points over the 'pts'
+    axis (16 a rank), the camera block replicated; and a point count the
+    axis does not divide."""
+    from libdogleg_tpu_torch.models import bundle_adjustment as lba
+    from libdogleg_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(("pts",), device_type="cpu")
+    ba = lba.make_synthetic(seed=3, nc=8, n_points=64, block_size=3,
+                            k_obs=4, dtype=F64, noise=0.05, device="cpu")
+    ba_s = ba.shard(mesh)
+    _pts_solve(out, "pts_schur", ba_s.products_tree,
+               ba.shard_p_tree(ba.p0_tree(), mesh), ba_s.tree_newton_solver())
+    out["pts_sizes/schur"] = np.array([ba_s.n_points, ba_s.nstate,
+                                       ba_s.nmeasurements])
+    odd = lba.make_synthetic(seed=3, nc=8, n_points=66, dtype=F64,
+                             device="cpu")
+    try:
+        odd.shard(mesh)
+        out["pts_schur/indivisible"] = np.array("")
+    except ValueError as e:
+        out["pts_schur/indivisible"] = np.array(str(e))
+
+
+def leg_pts_sparse(inp, out):
+    """test_parallel.py:334: the sparse-visibility instance's points over
+    the 'pts' axis (40 a rank) with a solver of the unsharded instance,
+    plain and with refine_iters=2 and a per-rank cam_gather; and the
+    products at the start, sharded (with an obs_mask too) and not."""
+    from libdogleg_tpu_torch.ops.newton import build_cam_gather
+    from libdogleg_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(("pts",), device_type="cpu")
+    ba, ba_s, p0, p0s = pts_sparse_instance(inp, mesh)
+    out["pts_sizes/sparse"] = np.array([ba_s.npts, ba_s.nstate, ba_s.nobs])
+    ns = ba.newton_solver()
+    _pts_solve(out, "pts_sparse", ba_s.products, p0s, ns)
+    _pts_solve(out, "pts_sparse_refine", ba_s.products, p0s,
+               dataclasses.replace(ns, refine_iters=2,
+                                   cam_gather=build_cam_gather(
+                                       ba_s.cam_of, ba.ncam)))
+    for masked in (False, True):
+        ba, ba_s, p0, p0s = pts_sparse_instance(inp, mesh, masked)
+        for side, pr in (("whole", ba.products(p0)),
+                         ("sharded", ba_s.products(p0s))):
+            key = f"pts_prior/{side}{int(masked)}"
+            out[f"{key}/norm2_x"] = _np(pr.norm2_x)
+            out[f"{key}/gc"] = _np(pr.Jt_x["c"])
+            out[f"{key}/U"] = _np(pr.JtJ.U)
+
+
+def _same_bits(a, b) -> bool:
+    """Two trees of tensors (NamedTuples, dicts, DTensors) of the same
+    bits, NaN included."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils import _pytree as pytree
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        x = x.to_local() if isinstance(x, DTensor) else x
+        y = y.to_local() if isinstance(y, DTensor) else y
+        if not isinstance(x, torch.Tensor):
+            if x != y:
+                return False
+        elif (x.dtype != y.dtype or x.shape != y.shape
+              or x.numpy().tobytes() != y.numpy().tobytes()):
+            return False
+    return True
+
+
+def leg_one(inp, out):
+    """A world of one: each point-sharded solve of the pts legs against
+    the same solve unsharded, every result field bit for bit."""
+    from libdogleg_tpu_torch import DoglegParameters, solve_products
+    from libdogleg_tpu_torch.models import bundle_adjustment as lba
+    from libdogleg_tpu_torch.ops.newton import build_cam_gather
+    from libdogleg_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(("pts",), device_type="cpu")
+    out["one/world"] = np.array(dist.get_world_size())
+    ba = lba.make_synthetic(seed=3, nc=8, n_points=64, block_size=3,
+                            k_obs=4, dtype=F64, noise=0.05, device="cpu")
+    ba_s = ba.shard(mesh)
+    sp, sp_s, p0, p0s = pts_sparse_instance(inp, mesh)
+    ns = sp.newton_solver()
+    ns_r = dataclasses.replace(ns, refine_iters=2,
+                               cam_gather=build_cam_gather(sp.cam_of,
+                                                           sp.ncam))
+    cases = {
+        "schur": ((ba.products_tree, ba.p0_tree(), ba.tree_newton_solver()),
+                  (ba_s.products_tree, ba.shard_p_tree(ba.p0_tree(), mesh),
+                   ba_s.tree_newton_solver())),
+        "sparse": ((sp.products, p0, ns), (sp_s.products, p0s, ns)),
+        "sparse_refine": ((sp.products, p0, ns_r),
+                          (sp_s.products, p0s, ns_r))}
+    for name, (whole, shard) in cases.items():
+        r = [solve_products(fn, start, DoglegParameters(), newton_solver=s,
+                            record_history=True)
+             for fn, start, s in (whole, shard)]
+        out[f"one/{name}/same_bits"] = np.array(_same_bits(r[0], r[1]))
+        out[f"one/{name}/placements"] = np.array(str(tuple(
+            r[1].p["q"].placements)))
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -412,8 +613,9 @@ def spawn_group(inputs: str, tmp: str, legs: str = "all", world: int = 4,
 
 
 LEGS = {"all": ("mesh", "measurement", "dp", "compaction", "mega", "sparse",
-                "multihost"),
-        "ckpt": ("ckpt",)}
+                "multihost", "pts_schur", "pts_sparse"),
+        "ckpt": ("ckpt",),
+        "one": ("one",)}
 
 
 def main():
