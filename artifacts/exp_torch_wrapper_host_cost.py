@@ -16,8 +16,15 @@ panel for K2's: the argument checks, the library handle, the cached
 index tensors, the output's allocation, the stream handle (through a
 torch.cuda.Stream object and through the runtime binding), the ctypes call
 that launches the kernel, the whole wrappers, and torch.mv of a BSR tensor,
-solve_triangular and an elementwise add for scale. Last, K1's two wrappers
-at B=8192 float32 with either stream handle, in turns.
+solve_triangular and an elementwise add for scale. Then the segment add's
+wrapper (ops/segsum.py) at the B16 batch's forward level shape, 17 terms
+on one row of (16, 64, 128, 1), float32, alpha -1: its pieces (the check
+that the tensors are plain and untraced, the plan's cached launch record,
+the contiguity checks and data pointers, the stream handle, the ctypes
+call of four arguments that launches the kernel), the whole add_, the
+generic launch of thirteen arguments that the operator takes, and
+index_add_ for scale. Last, K1's two wrappers at B=8192 float32 with
+either stream handle, in turns.
 """
 
 from __future__ import annotations
@@ -87,7 +94,45 @@ def main() -> None:
     W = c.spd_on_device(256, 1, 3, torch.float32, dev) * 256
     host_us("K2 wrapper p=256", lambda: panelchol.panel_factor(W), reps=100)
     host_us("elementwise add of 8192 floats", lambda: v + v)
+    segment_add_host_cost(dev)
     k1_host_cost(dev)
+
+
+def segment_add_host_cost(dev) -> None:
+    """The segment add's wrapper, piece by piece, at the B16 batch's forward
+    level shape (17 terms on one row of (16, 64, 128, 1), float32)."""
+    import numpy as np
+
+    from libdogleg_tpu_torch.ops import segsum
+    from libdogleg_tpu_torch.ops.traced import is_traced
+    plan = segsum.AddPlan(np.full(17, 5))
+    g = torch.Generator().manual_seed(0)
+    base = torch.randn(16, 64, 128, 1, generator=g).to(dev)
+    terms = torch.randn(16, 17, 128, 1, generator=g).to(dev)
+    targets = torch.as_tensor(plan.targets, device=dev)
+    rec = segsum._launch_record(plan, base, 1, terms, -1)
+    ops = plan.kernel_operands(dev)
+    label = "segment add (16, 64, 128, 1), 17 terms"
+    host_us(f"{label}: plain and untraced (_direct)",
+            lambda: segsum._direct(base, terms))
+    host_us(f"{label}: the plan's launch record",
+            lambda: segsum._launch_record(plan, base, 1, terms, -1))
+    host_us(f"{label}: contiguity and data pointers",
+            lambda: (base.is_contiguous(), terms.is_contiguous(),
+                     base.data_ptr(), terms.data_ptr()))
+    host_us(f"{label}: stream handle", lambda: segsum._stream(rec.index))
+    stream = segsum._stream(rec.index)
+    host_us(f"{label}: ctypes call of 4 arguments (the launch)",
+            lambda: rec.entry(base.data_ptr(), terms.data_ptr(),
+                              rec.address, stream))
+    host_us(f"{label}: segsum.add_", lambda: segsum.add_(base, 1, plan,
+                                                         terms, alpha=-1))
+    host_us(f"{label}: the generic launch (13 arguments, the operator's)",
+            lambda: segsum.segment_add_kernel(base, terms, 1, *ops, True))
+    host_us(f"{label}: is_traced of both (the check before this form)",
+            lambda: (is_traced(base), is_traced(terms)))
+    host_us(f"{label}: index_add_",
+            lambda: base.index_add_(1, targets, terms, alpha=-1))
 
 
 def k1_host_cost(dev) -> None:

@@ -41,7 +41,10 @@ Phases, each printing its own lines:
      launches, reason > 0, max|Jt_x| <= 1e-3 and p within 1e-3 (abs) of
      the float64 solve; in float64 panel_impl="cuda" against "torch"
      (identical decisions, p within rtol 1e-9); the dense-coupling grid
-     once in float32;
+     once in float32; the dense JtJ (ops/bcsr.bcsr_jtj_dense, its pair
+     products summed in a fixed order by the segment add) the same bits
+     twice and within rounding of its index_put_ form, two dense solves
+     the same bits, both forms in turns, alone and in the solve;
   9. K3 and K4 (csrc/bcsr.cu): the opt-in entry points driven once on the
      full-width dense-coupling grid Jacobian (8 x 8 blocks), then held
      against their twins there, on a 512 x 16 pattern of (32, 128) blocks
@@ -225,10 +228,12 @@ Phases, each printing its own lines:
      segsum.reference on the card; kernel, the segment-add kernel
      csrc/segsum.cu as shipped), plain and kernel the same bits twice
      and each other's; 6b simplicial's first and second call after its
-     analysis and the time to build its level plans; the segment-add kernel at
-     the batch's widest UPDATE level and its forward level with the most
-     terms on one row, against its plain version (the same bits) and in
-     turns with it and index_add_; K3 at both runs' shapes against its
+     analysis, the time to build its level plans and a profiler split of
+     its solve; the segment-add kernel at the batch's widest UPDATE level,
+     its forward level with the most terms on one row, and 6b
+     simplicial's forward and backward levels with the longest run (B 1),
+     against its plain version (the same bits), alone, and in turns with
+     it and index_add_, beside its bound; K3 at both runs' shapes against its
      plain version
      (the index_add form) and in turns with it; K6 and K7 at the batch's
      widest FACTOR and SOLVE levels (16 x k tiles of 128 x 128) against
@@ -317,7 +322,8 @@ once per instance, the generated one's from phase 23; K1 (by instance),
 K3, K6, K7 and the segment add with their launches on each path that runs
 them, phase 25's mesh paths among them, `launches` their sum; the segment
 add, the sparse path's port-only kernel, names the XLA scatter it replaces
-in the JAX package), the card line again, and a last JSON
+in the JAX package and carries every reading of phase 22 under
+`readings`), the card line again, and a last JSON
 line with "ok": true. Any failure exits non-zero before the last line; so
 does a machine without a CUDA device, or a directory without the package.
 """
@@ -504,7 +510,7 @@ def phase8_slice(dev, bench) -> dict:
 
     from libdogleg_tpu_torch import BlockedDenseNewtonSolver, optimize
     from libdogleg_tpu_torch.models import grid_mrf
-    from libdogleg_tpu_torch.ops import panelchol
+    from libdogleg_tpu_torch.ops import panelchol, segsum
 
     def solve(coupling, dtype, prm, panel_impl="auto"):
         # no device given: the constructors' default is the card
@@ -519,8 +525,11 @@ def phase8_slice(dev, bench) -> dict:
         return r, time.perf_counter() - t0
 
     panelchol.launch_count = 0
+    segsum.launch_count = 0
     r32, wall = solve("diag", torch.float32, bench)
     launches = panelchol.launch_count
+    seg = segsum.launch_count
+    check(seg > 0, f"the dense leg launched the segment add: {seg}")
     jtx = float(r32.Jt_x.abs().max())
     check(r32.p.shape == (GRID[0] * GRID[1] * GRID[2],)
           and bool(torch.isfinite(r32.p).all()), "finite (8192,) p")
@@ -554,7 +563,73 @@ def phase8_slice(dev, bench) -> dict:
     print(f"[8 grid {GRID} coupling=dense f32 PRM] reason {int(rd.reason)} "
           f"step_count {int(rd.step_count)}; max|Jt_x| {jtxd:.3e}; wall "
           f"{walld:.3f} s", flush=True)
-    return {"launches": launches}
+    dense_jtj_turns(dev, bench, card_line())
+    return {"launches": launches, "seg_launches": seg}
+
+
+def jtj_dense_index_put(J):
+    """ops/bcsr.bcsr_jtj_dense as it was before its sums took a fixed
+    order: the pair products scattered into their blocks by index_put_'s
+    accumulation (atomics on the card)."""
+    import torch
+    s, v = J.structure, J.values
+    pi, pj = s.jtj_pairs()
+
+    def idx(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=v.device)
+    contrib = v[idx(pi)].mT @ v[idx(pj)]
+    out = torch.zeros((s.nbcol, s.nbcol, s.block_cols, s.block_cols),
+                      dtype=v.dtype, device=v.device)
+    out.index_put_((idx(s.indices[pi]), idx(s.indices[pj])), contrib,
+                   accumulate=True)
+    return out.permute(0, 2, 1, 3).reshape(s.nstate, s.nstate)
+
+
+def dense_jtj_turns(dev, bench, card) -> None:
+    """Config 6's dense-JtJ leg, float32: bcsr_jtj_dense (the pair products
+    summed into their blocks in a fixed order by the segment add) gives the
+    same bits twice and the index_put_ form's within rounding; it and the
+    whole dense solve in turns with the index_put_ form (CUDA events)."""
+    import torch
+
+    from libdogleg_tpu_torch import BlockedDenseNewtonSolver, optimize
+    from libdogleg_tpu_torch.models import grid_mrf
+    from libdogleg_tpu_torch.ops import bcsr
+    from libdogleg_tpu_torch.utils.benchtime import measure_ms
+    g = grid_mrf.make_grid_mrf(*GRID, dtype=torch.float32, device=dev)
+    prob = g.problem(jtj="dense")
+    p0 = torch.zeros(g.nstate, dtype=torch.float32, device=dev)
+    _, J = prob.jacobian(p0)
+    a, b = bcsr.bcsr_jtj_dense(J), bcsr.bcsr_jtj_dense(J)
+    check(same_bits(a, b), "dense JtJ: two evaluations the same bits")
+    old = jtj_dense_index_put(J)
+    err = float((a - old).abs().max() / old.abs().max())
+    check(err <= 1e-6, f"dense JtJ within 1e-6 of the index_put_ form: "
+          f"{err:.1e}")
+    r1 = optimize(prob, p0, bench, newton_solver=BlockedDenseNewtonSolver())
+    r2 = optimize(prob, p0, bench, newton_solver=BlockedDenseNewtonSolver())
+    check(same_bits(r1.p, r2.p), "dense leg: two solves the same bits")
+    shipped = bcsr.bcsr_jtj_dense
+    forms = {"fixed order": shipped, "index_put_": jtj_dense_index_put}
+    jtj_ms = {f: [] for f in forms}
+    solve_ms = {f: [] for f in forms}
+    try:
+        for f in ("index_put_", "fixed order", "fixed order", "index_put_"):
+            bcsr.bcsr_jtj_dense = forms[f]
+            jtj_ms[f].append(measure_ms(forms[f], J, warmup=1, reps=5))
+            solve_ms[f].append(measure_ms(lambda: float(optimize(
+                prob, p0, bench, newton_solver=BlockedDenseNewtonSolver()
+            ).norm2_x), warmup=1, reps=2))
+    finally:
+        bcsr.bcsr_jtj_dense = shipped
+    text = "; ".join(
+        f"{f}: JtJ {'/'.join(f'{v:.3f}' for v in jtj_ms[f])} ms, the "
+        f"solve {'/'.join(f'{v:.1f}' for v in solve_ms[f])} ms"
+        for f in forms)
+    print(f"[8 grid {GRID} dense JtJ f32] two evaluations the same bits, "
+          f"two solves the same bits; within {err:.1e} of the index_put_ "
+          f"form (largest entry); in turns (CUDA events): {text}; card "
+          f"{card}", flush=True)
 
 
 def random_bcsr(nbrow, nbcol, bm, bn, density, seed, dtype, device,
@@ -3056,7 +3131,8 @@ def phase21_surface(dev, bench, card) -> None:
 
 GRID_6B = (64, 64, 8)   # config 6b of bench_all.py:568-570: Nstate 32768
 SPARSE_B = 16           # grid-mrf-32x32x8-sparse-batched-B16-f32
-K3_GROUPS = (("K3", ("jtj_",)),) + SPARSE_GROUPS
+K3_GROUPS = (("K3", ("jtj_",)), ("segment add", ("segment_add",))) \
+    + SPARSE_GROUPS
 
 
 def grid_batch(g, sched):
@@ -3406,6 +3482,17 @@ def phase22_sparse_batched(dev, bench, card, host_build) -> dict:
           f"of its three schedules built and copied to the card in "
           f"{t_plans * 1e3:.1f} ms; card {card}", flush=True)
 
+    print(f"[22 grid-mrf-64x64x8-simplicial-f32 profile] "
+          f"{device_split(lambda: optimize(simple, p0, bench), groups=K3_GROUPS)}",
+          flush=True)
+    # reading (iii): the simplicial substitutions' levels with the longest
+    # run, one right-hand side
+    gen = torch.Generator().manual_seed(20)
+    out["SEG 6b"] = segment_add_readings(
+        [segment_add_level(simple_sym, 1, name, sched, "pair_j", "pair_off",
+                           simple_sym.nb, (simple_sym.b, 1), gen)
+         for name, sched in (("forward", "fwd"), ("backward", "bwd"))],
+        "6b simplicial B1", card)
     p10_forms("config 6b supernodal", lambda: float(
         optimize(prob, p0, bench).norm2_x), lambda: optimize(prob, p0,
                                                             bench).p, card)
@@ -3540,40 +3627,51 @@ def phase22_sparse_batched(dev, bench, card, host_build) -> dict:
     tiles_at_batch(
         B * int(np.diff(inner.sched.fac_off).max()),
         B * int(np.diff(inner.sched.sol_off).max()), inner.b, card)
-    out["SEG"] = segment_add_readings(inner, B, card)
+    gen = torch.Generator().manual_seed(22)
+    seg = segment_add_readings(
+        [segment_add_level(inner, B, "UPDATE", "sched", "upd_tgt", "upd_off",
+                           inner.nslots, (inner.b, inner.b), gen),
+         segment_add_level(inner, B, "forward pairs", "fwd", "pair_j",
+                           "pair_off", inner.nb, (inner.b, 1), gen)],
+        f"B{B}", card)
+    # the kernels line: the UPDATE level's readings, and every reading's
+    out["SEG"] = dict(seg[0], readings=seg + out.pop("SEG 6b"))
     print(f"[22 B{B} seconds] {time.perf_counter() - t_leg:.1f}", flush=True)
     out["K3"] = k3
     return out
 
 
-def segment_add_readings(sym, B, card) -> dict:
-    """The segment-add kernel (csrc/segsum.cu) at the B16 batch's shapes:
-    its UPDATE level with the most terms on one block (the (B, nslots, b,
-    b) blocks) and its forward substitution's ((B, nb, b, 1)), on seeded
-    values, against its plain version on the same CUDA tensors
-    (segsum.reference; the same bits) and in turns with it and with
-    index_add_ (the library call, the form before P10's repair; CUDA
-    events over 20 calls, in place). Returns the UPDATE level's readings
-    for the kernels line."""
+def segment_add_level(sym, B, label, sched, tgt, off, width, inner, gen):
+    """A reading's case: the level of the schedule `sym.<sched>` with the
+    most terms on one target (then the most terms), seeded values of B
+    elements of base (B, width, *inner) and of its terms."""
     import torch
 
     from libdogleg_tpu_torch import sparse_cholesky as sc
+    dev = torch.device("cuda")
+    plans = sc._level_plans(sym, sched, tgt, off)
+    k = max(range(len(plans)), key=lambda i: (plans[i].rounds, plans[i].n))
+    base = torch.randn((B, width) + inner, generator=gen).to(dev)
+    terms = torch.randn((B, plans[k].n) + inner, generator=gen).to(dev)
+    return label, plans[k], base, terms
+
+
+def segment_add_readings(cases, tag, card) -> list:
+    """The segment-add kernel (csrc/segsum.cu) on each case of
+    segment_add_level, alpha -1 as the factorization and substitutions
+    call it: against its plain version on the same CUDA tensors
+    (segsum.reference; the same bits), alone (profiler), and with its
+    wrapper in turns with the plain version and with index_add_ (the
+    library call, the form before P10's repair; CUDA events over 20 calls,
+    in place), beside its bound: the terms, the operands and each target
+    row read once, each target row written once. Returns one dict a case,
+    in order."""
+    import torch
+
     from libdogleg_tpu_torch.ops import segsum
     from libdogleg_tpu_torch.utils.benchtime import measure_ms
     dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(22)
-    b = sym.b
-    cases = []
-    for label, sched, tgt, off, width, inner in (
-            ("UPDATE", "sched", "upd_tgt", "upd_off", sym.nslots, (b, b)),
-            ("forward pairs", "fwd", "pair_j", "pair_off", sym.nb, (b, 1))):
-        plans = sc._level_plans(sym, sched, tgt, off)
-        k = max(range(len(plans)), key=lambda i: (plans[i].rounds,
-                                                   plans[i].n))
-        base = torch.randn((B, width) + inner, generator=gen).to(dev)
-        terms = torch.randn((B, plans[k].n) + inner, generator=gen).to(dev)
-        cases.append((label, plans[k], base, terms))
-    rows, first = [], None
+    rows, out = [], []
     for label, plan, base, terms in cases:
         got = segsum.add_(base.clone(), 1, plan, terms, alpha=-1)
         want = segsum.reference(base.clone(), 1, plan, terms, alpha=-1)
@@ -3590,27 +3688,30 @@ def segment_add_readings(sym, B, card) -> dict:
         for form in ("kernel", "plain", "library", "library", "plain",
                      "kernel"):
             ms[form].append(measure_ms(fns[form], warmup=2, reps=20))
+        alone = kernel_us(fns["kernel"], (), "segment_add")
         nrow = base[0, 0].numel() * base.element_size()
-        bnd = bound(nbytes_of(terms) + 2 * B * len(plan.uniq) * nrow,
+        nruns = len(plan.uniq)
+        bnd = bound(nbytes_of(terms, *plan.kernel_operands(dev)[:2])
+                    + 4 * plan.n + 2 * base.shape[0] * nruns * nrow,
                     terms.numel())
-        rows.append(f"{label} level: {plan.n} terms on "
-                    f"{len(plan.uniq)} blocks, at most {plan.rounds} on "
-                    f"one, of {tuple(base.shape)}: max |kernel - plain| "
-                    f"{err:.1e} (the same bits); ms a call, kernel "
+        rows.append(f"{label} level: {plan.n} terms on {nruns} rows, at "
+                    f"most {plan.rounds} on one, of {tuple(base.shape)}: "
+                    f"max |kernel - plain| {err:.1e} (the same bits); "
+                    f"alone {us_text(alone)}; ms a call, kernel "
                     f"{'/'.join(f'{v:.4f}' for v in ms['kernel'])}, "
                     f"plain (rounds) "
                     f"{'/'.join(f'{v:.4f}' for v in ms['plain'])}, "
                     f"index_add_ "
                     f"{'/'.join(f'{v:.4f}' for v in ms['library'])}; "
-                    f"bound {bnd['bound_ms'] * 1e3:.2f} us by "
+                    f"bound {bnd['bound_ms'] * 1e3:.4f} us by "
                     f"{bnd['bound_by']}")
-        if first is None:
-            first = dict(max_abs_err=err, ms=min(ms["kernel"]),
-                         plain_ms=min(ms["plain"]),
-                         library_ms=min(ms["library"]), **bnd)
-    print(f"[22 segment add at B{B}] {'; '.join(rows)}; card {card}",
+        out.append(dict(label=f"{tag} {label}", max_abs_err=err,
+                        ms=min(ms["kernel"]), alone_us=alone,
+                        plain_ms=min(ms["plain"]),
+                        library_ms=min(ms["library"]), **bnd))
+    print(f"[22 segment add at {tag}] {'; '.join(rows)}; card {card}",
           flush=True)
-    return first
+    return out
 
 
 # the plans' targets on the card for sums_as("index_add_"), each kept with
@@ -5560,7 +5661,8 @@ def main() -> int:
     tiles = timed("11", phase11_tiles, dev)
     sparse = timed("12", phase12_sparse, dev, bench)
     # phase 9's launches test the opt-in entry and are no path's
-    paths = {"phase 12 (config 6)": {
+    paths = {"phase 8 (config 6 dense)": {"SEG": k2["seg_launches"]},
+             "phase 12 (config 6)": {
                  "K3": sparse["launches"]["bcsr_jtj_blocks_kernel"],
                  "K6": sparse["launches"]["tile_cholesky"],
                  "K7": sparse["launches"]["tri_solve_right"],
@@ -5615,8 +5717,9 @@ def main() -> int:
                "max_abs_err": d["max_abs_err"], "ms": d["ms"],
                "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
                "bound_by": d["bound_by"], "library_ms": d["library_ms"]}
-        if "launches_by_path" in d:
-            out["launches_by_path"] = d["launches_by_path"]
+        for extra in ("launches_by_path", "readings"):
+            if extra in d:
+                out[extra] = d[extra]
         return out
     print(json.dumps({"kernels": [
         entry("megakernel_optimize", "libdogleg_tpu_torch/csrc/mega.cu",

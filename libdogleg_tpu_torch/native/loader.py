@@ -370,6 +370,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [ptr] * 5 + [i32] * 4 + [ctypes.c_int64, i32, i32,
                                                ptr]
         fn.restype = i32
+    # base, terms, the address of a record of the other arguments, stream
+    lib.dogleg_segment_add_planned.argtypes = [ptr] * 4
+    lib.dogleg_segment_add_planned.restype = i32
     # n, element size in bytes, device
     lib.dogleg_tilechol_in_shared.argtypes = [i32, i32, i32]
     lib.dogleg_tilechol_in_shared.restype = i32

@@ -9,16 +9,15 @@ Jacobian is block-CSR: a static block sparsity pattern, fixed per problem
 contractions and a segment sum. The structure is numpy metadata on the
 host, identical to the JAX one.
 
-The products of the block-sparse path (bcsr_jt_x, bcsr_matvec,
-bcsr_jtj_lower_blocks) work out of place, so that torch.func.vmap batches
-a products function built from them, and sum in a fixed order, so that a
+The products (bcsr_jt_x, bcsr_matvec, bcsr_jtj_lower_blocks,
+bcsr_jtj_dense) work out of place, so that torch.func.vmap batches a
+products function built from them, and sum in a fixed order, so that a
 solve gives the same bits on every run: on a CUDA device
 bcsr_jtj_lower_blocks forms its blocks with kernel K3
-(ops/bcsr_kernels.py), and bcsr_jt_x and bcsr_matvec add their block
-contractions through ops/segsum.py's plan, in index order per target (what
-index_add does on the CPU, where its atomics on the card would not).
-bcsr_to_dense writes each block once; bcsr_jtj_dense (the dense-JtJ path,
-off the sparse one) still adds with index_put_'s atomics.
+(ops/bcsr_kernels.py), and bcsr_jt_x, bcsr_matvec and bcsr_jtj_dense add
+their block contractions through ops/segsum.py's plan, in index order per
+target (what index_add and index_put_'s accumulation do on the CPU, where
+their atomics on the card would not). bcsr_to_dense writes each block once.
 """
 
 from __future__ import annotations
@@ -191,13 +190,18 @@ def bcsr_jtj_dense(J: BCSRJacobian) -> torch.Tensor:
     """J^T J as a dense (nstate, nstate) matrix, formed block by block: the
     static list of same-row block pairs as one batched product, then a
     scatter-add into block coordinates (the reference's packed outer-product
-    accumulation, dogleg.c:709-714). For moderate nstate; the block-sparse
-    JtJ and sparse Cholesky cover large ones."""
+    accumulation, dogleg.c:709-714), in a fixed order: each block's pair
+    products in schedule order, as index_put_(accumulate=True) adds them
+    on the CPU. For moderate nstate; the block-sparse JtJ and sparse
+    Cholesky cover large ones."""
     s, v = J.structure, J.values
     pi, pj = s.jtj_pairs()
     contrib = v[_index(pi, v)].mT @ v[_index(pj, v)]  # (npairs, bn, bn)
-    out = torch.zeros((s.nbcol, s.nbcol, s.block_cols, s.block_cols),
-                      dtype=v.dtype, device=v.device)
-    out.index_put_((_index(s.indices[pi], v), _index(s.indices[pj], v)),
-                   contrib, accumulate=True)
-    return out.permute(0, 2, 1, 3).reshape(s.nstate, s.nstate)
+    # the pairs' (ci, cj) blocks, flattened; new_zeros is batched under vmap
+    plan = segsum.plan_of(s.indptr, f"jtj_dense/{s.nbcol}", lambda: (
+        s.indices[pi].astype(np.int64) * s.nbcol + s.indices[pj]),
+        also=s.indices)
+    out = segsum.add_(contrib.new_zeros((s.nbcol * s.nbcol, s.block_cols,
+                                         s.block_cols)), 0, plan, contrib)
+    return out.reshape(s.nbcol, s.nbcol, s.block_cols, s.block_cols
+                       ).permute(0, 2, 1, 3).reshape(s.nstate, s.nstate)

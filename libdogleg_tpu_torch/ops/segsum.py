@@ -12,30 +12,39 @@ CPU gives the bits it gave before and the card gives the same bits on
 every run.
 
 CUDA tensors go to the segment-add kernel (csrc/segsum.cu, one launch an
-add; while traced, ops/traced.is_traced, or batched by torch.func.vmap,
-through the operator libdogleg_tpu_torch::segment_add). CPU tensors go to
-its plain version, `reference`, which adds in rounds: round r adds every
-target's r-th term with one index_add_ whose targets are distinct, so no
-two adds meet on one address; a plan takes as many rounds as the most
-terms on one target. (On the CPU it beat a torch.segment_reduce form at
-the sparse path's sizes: artifacts/exp_torch_segsum_cpu.py.)
+add): plain ones by a direct launch, the others (traced, batched by
+torch.func.vmap, or under a dispatch mode) through its operator
+libdogleg_tpu_torch::segment_add. CPU tensors go to its plain version,
+`reference`, which adds in rounds: round r adds every target's r-th term
+with one index_add_ whose targets are distinct, so no two adds meet on one
+address; a plan takes as many rounds as the most terms on one target. (On
+the CPU it beat a torch.segment_reduce form at the sparse path's sizes:
+artifacts/exp_torch_segsum_cpu.py.)
 
 A schedule's levels take their plans from one pass over all of them
 (level_plans): one sort by (level, target, index), each level a slice of
 it, and on a device one copy of the operands for every level.
+
+A plan keeps what a direct launch needs at each (shapes, dim, dtype,
+device, sign) it has been called with (`_launch_record`): the entry point,
+the operands' pointers and the integer arguments, made at the first such
+call after every check. A later call checks the tensors' type, device,
+dtype and shapes by that record's key and their contiguity, and makes one
+ctypes call (the kernel's launcher picks its instance from the alignment).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 import weakref
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from libdogleg_tpu_torch.ops.traced import is_traced, real_constant
+from libdogleg_tpu_torch.ops.traced import real_constant
 
 # the kernel's launches (its wrapper counts one where it launches)
 launch_count = 0
@@ -175,6 +184,7 @@ class AddPlan:
         self.run_ptr = runs.run_ptr[ra:rb + 1]
         self.term_pos = runs.term_pos
         self.top = int(self.uniq[-1]) if self.uniq.size else -1
+        self._launches: Dict = {}
 
     @property
     def rounds(self) -> int:
@@ -218,25 +228,30 @@ def add_(base: torch.Tensor, dim: int, plan: AddPlan, terms: torch.Tensor,
     """`base.index_add_(dim, targets, terms, alpha=alpha)` in the plan's
     fixed order, alpha 1 or -1: the kernel on CUDA tensors, its plain
     version on CPU tensors. In place and returns base, but the kernel's
-    operator (traced or batched tensors) and a base that is not contiguous
-    give a new tensor: use the result."""
+    operator (tensors that are not plain: traced, batched, under a
+    dispatch mode) and a base that is not contiguous give a new tensor:
+    use the result."""
+    if base.is_cuda and _direct(base, terms):
+        return _launch(base, dim, plan, terms, alpha, in_place=True)
     dim = _check(base, dim, plan, terms)
     if plan.n == 0:
         return base
     if base.device.type == "cpu":
         return _rounds(base, dim, plan, terms, alpha, in_place=True)
-    return _kernel(base, dim, plan, terms, alpha, in_place=True)
+    return _kernel(base, dim, plan, terms, alpha)
 
 
 def add(base: torch.Tensor, dim: int, plan: AddPlan,
         terms: torch.Tensor) -> torch.Tensor:
     """add_ out of place (torch.func.vmap batches it): a new tensor."""
+    if base.is_cuda and _direct(base, terms):
+        return _launch(base, dim, plan, terms, 1, in_place=False)
     dim = _check(base, dim, plan, terms)
     if plan.n == 0:
         return base
     if base.device.type == "cpu":
         return _rounds(base, dim, plan, terms, 1, in_place=False)
-    return _kernel(base, dim, plan, terms, 1, in_place=False)
+    return _kernel(base, dim, plan, terms, 1)
 
 
 def reference(base, dim, plan: AddPlan, terms, *, alpha: float = 1,
@@ -259,16 +274,38 @@ def _rounds(base, dim, plan: AddPlan, terms, alpha, in_place: bool):
     return base
 
 
-def _wrapped(t: torch.Tensor) -> bool:
-    """A tensor that torch.func batches (no data pointer of its own)."""
-    return torch._C._functorch.is_functorch_wrapped_tensor(t)
+_transform_level = torch._C._functorch.maybe_current_level
+_mode_depth = torch._C._len_torch_dispatch_stack
+_tls_includes = torch._C._dispatch_tls_is_dispatch_key_included
+_PRE_DISPATCH = torch._C.DispatchKey.PreDispatch
 
 
-def _kernel(base, dim, plan: AddPlan, terms, alpha, in_place: bool):
-    """The kernel on CUDA tensors: launched directly (in place, or on a
-    copy), or through its operator where the tensors are traced or
-    batched by torch.func."""
-    if base.device.type != "cuda" or terms.device != base.device:
+def _direct(base, terms) -> bool:
+    """Whether base and terms are plain tensors outside every torch.func
+    transform, dispatch mode and pre-dispatch trace: then the kernel is
+    launched on their data. A fake or functional tensor is of a subclass,
+    a batched one lives only inside a transform, and make_fx records
+    through a mode; all of them take the operator (`_kernel`)."""
+    return (type(base) is torch.Tensor and type(terms) is torch.Tensor
+            and _transform_level() is None and not _mode_depth()
+            and not _tls_includes(_PRE_DISPATCH))
+
+
+def _kernel(base, dim, plan: AddPlan, terms, alpha):
+    """The kernel's operator on CUDA tensors that are not plain (traced,
+    batched by torch.func, or under a dispatch mode): a new tensor."""
+    if base.device.type != "cuda":
+        raise ValueError(f"the segment-add kernel takes CUDA tensors on one "
+                         f"device; got {base.device} and {terms.device}")
+    _validate(base, terms, alpha)
+    return _op(base, terms, dim, *plan.kernel_operands(base.device),
+               alpha == -1)
+
+
+def _validate(base, terms, alpha) -> None:
+    """Raise unless the kernel takes these tensors and alpha: float32 or
+    float64 of one dtype on one device, alpha 1 or -1."""
+    if terms.device != base.device:
         raise ValueError(f"the segment-add kernel takes CUDA tensors on one "
                          f"device; got {base.device} and {terms.device}")
     if alpha not in (1, -1):
@@ -277,16 +314,103 @@ def _kernel(base, dim, plan: AddPlan, terms, alpha, in_place: bool):
             or terms.dtype != base.dtype:
         raise ValueError(f"the segment-add kernel takes float32 or float64 "
                          f"of one dtype; got {base.dtype}, {terms.dtype}")
+
+
+class _LaunchArgs(ctypes.Structure):
+    """A direct launch's operand pointers and integer arguments, the record
+    that dogleg_segment_add_planned reads (csrc/segsum.cu's
+    SegmentAddArgs, field for field)."""
+    _fields_ = [("uniq", ctypes.c_void_p), ("run_ptr", ctypes.c_void_p),
+                ("term_pos", ctypes.c_void_p), ("inner", ctypes.c_int64),
+                ("n_runs", ctypes.c_int32), ("outer", ctypes.c_int32),
+                ("nbase", ctypes.c_int32), ("nterm", ctypes.c_int32),
+                ("negate", ctypes.c_int32), ("device", ctypes.c_int32),
+                ("elem_bytes", ctypes.c_int32), ("unused", ctypes.c_int32)]
+
+
+class _Launch(NamedTuple):
+    """A plan's direct launch at one (shapes, dim, dtype, device, sign):
+    the entry point (None where the plan adds nothing), the address of
+    its argument record (`record`, kept here), the device's index, whose
+    current stream each launch takes, and the operand tensors whose
+    pointers the record holds."""
+    entry: Optional[Callable]
+    address: int
+    record: Optional[_LaunchArgs]
+    index: int
+    operands: tuple
+
+
+def _launch_record(plan: AddPlan, base, dim, terms, alpha) -> _Launch:
+    """The plan's launch for these tensors' shapes, dim, dtypes, devices
+    and alpha: made, after every check, at the first call with them, then
+    kept on the plan."""
+    key = (base.shape, terms.shape, dim, base.dtype, terms.dtype,
+           base.device, terms.device, alpha)
+    rec = plan._launches.get(key)
+    if rec is None:
+        rec = plan._launches[key] = _new_launch(plan, base, dim, terms,
+                                                alpha)
+    return rec
+
+
+def _new_launch(plan: AddPlan, base, dim, terms, alpha) -> _Launch:
+    _validate(base, terms, alpha)
+    d = _check(base, dim, plan, terms)
+    if plan.n == 0:
+        return _Launch(None, 0, None, 0, ())
     ops = plan.kernel_operands(base.device)
-    if is_traced(base) or is_traced(terms) or _wrapped(base) \
-            or _wrapped(terms):
-        return _op(base, terms, dim, *ops, alpha == -1)
-    if in_place and base.is_contiguous():
-        segment_add_kernel(base, terms, dim, *ops, alpha == -1)
+    outer, nbase, nterm, inner = _sizes(base.shape, terms.shape, d)
+    index = base.device.index or 0
+    record = _LaunchArgs(uniq=ops[0].data_ptr(), run_ptr=ops[1].data_ptr(),
+                         term_pos=ops[2].data_ptr(), inner=inner,
+                         n_runs=ops[0].numel(), outer=outer, nbase=nbase,
+                         nterm=nterm, negate=int(alpha == -1), device=index,
+                         elem_bytes=base.element_size())
+    return _Launch(_planned_entry(), ctypes.addressof(record), record, index,
+                   ops)
+
+
+def _sizes(base_shape, terms_shape, dim: int) -> tuple:
+    """(outer, nbase, nterm, inner) of base (outer, nbase, inner) and terms
+    (outer, nterm, inner) around dim; raises where they differ elsewhere."""
+    if terms_shape[:dim] != base_shape[:dim] \
+            or terms_shape[dim + 1:] != base_shape[dim + 1:]:
+        raise ValueError(f"terms {tuple(terms_shape)} do not match base "
+                         f"{tuple(base_shape)} but along dim {dim}")
+    return (math.prod(base_shape[:dim]), base_shape[dim], terms_shape[dim],
+            math.prod(base_shape[dim + 1:]))
+
+
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(index: int) -> int:
+    """The handle of PyTorch's current stream on CUDA device `index`
+    (native/loader.launch_target's, without the device object)."""
+    if _RAW_STREAM is None:
+        return torch.cuda.current_stream(index).cuda_stream
+    return _RAW_STREAM(index)
+
+
+def _launch(base, dim, plan: AddPlan, terms, alpha, in_place: bool):
+    """The direct launch on plain CUDA tensors through the plan's record:
+    in place on a contiguous base, else on a contiguous copy."""
+    global launch_count
+    rec = _launch_record(plan, base, dim, terms, alpha)
+    if rec.entry is None:
         return base
-    out = base.clone(memory_format=torch.contiguous_format)
-    segment_add_kernel(out, terms, dim, *ops, alpha == -1)
-    return out
+    if not (in_place and base.is_contiguous()):
+        base = base.clone(memory_format=torch.contiguous_format)
+    if not terms.is_contiguous():
+        terms = terms.contiguous()
+    err = rec.entry(base.data_ptr(), terms.data_ptr(), rec.address,
+                    _stream(rec.index))
+    if err:
+        raise RuntimeError(f"{rec.entry.__name__} launch failed: "
+                           f"cudaError_t {err}")
+    launch_count += 1
+    return base
 
 
 def segment_add_kernel(base: torch.Tensor, terms: torch.Tensor, dim: int,
@@ -297,19 +421,12 @@ def segment_add_kernel(base: torch.Tensor, terms: torch.Tensor, dim: int,
     terms[term_pos[run_ptr[r]:run_ptr[r + 1]]], added one after the other
     (negated with `negate`); the int32 operands are an AddPlan's."""
     global launch_count
-    from libdogleg_tpu_torch.native.loader import launch_target
     terms = terms.contiguous()
-    shape = base.shape
-    if terms.shape[:dim] != shape[:dim] \
-            or terms.shape[dim + 1:] != shape[dim + 1:]:
-        raise ValueError(f"terms {tuple(terms.shape)} do not match base "
-                         f"{tuple(shape)} but along dim {dim}")
     entry = _entry(base.dtype)
     err = entry(base.data_ptr(), terms.data_ptr(), uniq.data_ptr(),
                 run_ptr.data_ptr(), term_pos.data_ptr(), uniq.numel(),
-                math.prod(shape[:dim]), shape[dim], terms.shape[dim],
-                math.prod(shape[dim + 1:]), int(negate),
-                *launch_target(base.device))
+                *_sizes(base.shape, terms.shape, dim), int(negate),
+                base.device.index or 0, _stream(base.device.index or 0))
     if err:
         raise RuntimeError(f"{entry.__name__} launch failed: cudaError_t "
                            f"{err}")
@@ -327,6 +444,15 @@ def _entry(dtype):
         dt = "f32" if dtype == torch.float32 else "f64"
         fn = _ENTRIES[dtype] = getattr(load_library(),
                                        f"dogleg_segment_add_{dt}")
+    return fn
+
+
+def _planned_entry():
+    """The library's entry point that reads a launch record."""
+    fn = _ENTRIES.get("planned")
+    if fn is None:
+        from libdogleg_tpu_torch.native.loader import load_library
+        fn = _ENTRIES["planned"] = load_library().dogleg_segment_add_planned
     return fn
 
 
@@ -370,15 +496,20 @@ _PLANS: Dict[int, Dict] = {}
 
 
 def plan_of(owner: np.ndarray, name: str,
-            make: Callable[[], np.ndarray]) -> AddPlan:
+            make: Callable[[], np.ndarray], also: np.ndarray = None
+            ) -> AddPlan:
     """The AddPlan of the targets make() derives from the host array
-    `owner`, told apart by `name`: built once and kept for as long as owner
-    lives (as ops/bcsr_kernels.device_indices keeps index arrays)."""
+    `owner` (and `also`, where they depend on a second array), told apart
+    by `name`: built once and kept for as long as owner (and also) live
+    (as ops/bcsr_kernels.device_indices keeps index arrays)."""
     held = _PLANS.get(id(owner))
     if held is None:
         held = _PLANS[id(owner)] = {}
         weakref.finalize(owner, _PLANS.pop, id(owner), None)
-    plan = held.get(name)
+    key = name if also is None else (name, id(also))
+    plan = held.get(key)
     if plan is None:
-        plan = held[name] = AddPlan(make())
+        plan = held[key] = AddPlan(make())
+        if also is not None:
+            weakref.finalize(also, held.pop, key, None)
     return plan

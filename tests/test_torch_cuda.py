@@ -1764,41 +1764,120 @@ def test_point_sharded_ba_world_of_one_on_card(cuda):
             dist.destroy_process_group()
 
 
+def _segment_targets(kind, rng):
+    """A case's targets and its base's length: a skewed draw (some targets
+    take many terms, some none), one run longer than a chunk, more runs
+    than one grid dimension holds, or no terms at all."""
+    if kind == "skewed":
+        return np.minimum(rng.geometric(0.2, 300) - 1, 30), 31
+    if kind == "few":
+        return np.minimum(rng.geometric(0.3, 40) - 1, 8), 9
+    if kind.startswith("one run of "):
+        return np.full(int(kind.split()[-1]), 3), 5
+    if kind == "70000 runs":
+        return rng.permutation(70000), 70000
+    assert kind == "no terms"
+    return np.zeros(0, np.int64), 4
+
+
+# (dim, shape, targets, where): shape[:dim] is the outer shape and
+# shape[dim:] a row, so base is shape[:dim] + (nbase,) + shape[dim:]: rows of
+# 1, 3, 5, 8, 64, 128 (a full warp tile of 16-byte float32 words) and 16384
+# elements (many tiles), several outer indices, and base and terms, or the
+# terms alone, one element past a 16-byte boundary (one element a copy)
+SEGMENT_CASES = [
+    (0, (5,), "skewed", "aligned"), (1, (4, 8, 8), "skewed", "aligned"),
+    (1, (2, 8, 1), "skewed", "aligned"), (0, (1,), "skewed", "aligned"),
+    (1, (3, 3), "skewed", "aligned"), (0, (8,), "skewed", "aligned"),
+    (1, (2, 64), "skewed", "aligned"), (1, (3, 128), "skewed", "aligned"),
+    (1, (2, 16384), "few", "aligned"),
+    (1, (2, 8), "one run of 300", "aligned"),
+    (1, (2, 8), "one run of 1000", "aligned"),
+    (0, (1,), "one run of 1000", "aligned"),
+    (1, (3, 128), "one run of 300", "aligned"),
+    (1, (2, 8), "skewed", "unaligned"), (1, (2, 64), "skewed", "unaligned"),
+    (1, (2, 128), "skewed", "unaligned"),
+    (1, (2, 128), "skewed", "terms unaligned"),
+    (1, (2, 8), "one run of 300", "unaligned"),
+    (0, (2,), "70000 runs", "aligned"), (1, (3, 8), "no terms", "aligned"),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("dim,shape", [(0, (5,)), (1, (4, 8, 8)),
-                                       (1, (2, 8, 1))])
-def test_segment_add_kernel_is_its_plain_version(cuda, dtype, dim, shape):
+@pytest.mark.parametrize("dim,shape,kind,where", SEGMENT_CASES)
+def test_segment_add_kernel_is_its_plain_version(cuda, dtype, dim, shape,
+                                                 kind, where):
     """The segment-add kernel against its plain version (segsum.reference
     on the same CUDA tensors and on the CPU): the same bits, alpha 1 and
     -1, a single plan and a schedule's level, and the same bits on a second
     run; index_add_ within rounding."""
     from libdogleg_tpu_torch.ops import segsum
     rng = np.random.default_rng(3)
-    targets = np.minimum(rng.geometric(0.2, 300) - 1, 30)
-    levels = segsum.level_plans(np.r_[rng.integers(0, 31, 50), targets],
-                                [0, 50, 350])
+    targets, nbase = _segment_targets(kind, rng)
+    levels = segsum.level_plans(np.r_[rng.integers(0, nbase, 50), targets],
+                                [0, 50, 50 + len(targets)])
     lead, inner = shape[:dim], shape[dim:]
     g = torch.Generator().manual_seed(4)
-    base = torch.randn(lead + (31,) + inner, dtype=dtype, generator=g)
-    terms = torch.randn(lead + (300,) + inner, dtype=dtype, generator=g)
+    base = torch.randn(lead + (nbase,) + inner, dtype=dtype, generator=g)
+    terms = torch.randn(lead + (len(targets),) + inner, dtype=dtype,
+                        generator=g)
+
+    def on_card(t, is_terms=False):
+        if where == "aligned" or (where == "terms unaligned"
+                                  and not is_terms):
+            return t.to(cuda, copy=True)
+        # one element into a buffer: a contiguous view, not 16-byte aligned
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        return view
     for plan in (segsum.AddPlan(targets), levels[1]):
         for alpha in (1, -1):
             want = segsum.add_(base.clone(), dim, plan, terms, alpha=alpha)
-            plain = segsum.reference(base.clone().to(cuda), dim, plan,
-                                     terms.to(cuda), alpha=alpha)
+            plain = segsum.reference(on_card(base), dim, plan,
+                                     on_card(terms, True), alpha=alpha)
             before = segsum.launch_count
-            got = segsum.add_(base.clone().to(cuda), dim, plan,
-                              terms.to(cuda), alpha=alpha)
-            again = segsum.add_(base.clone().to(cuda), dim, plan,
-                                terms.to(cuda), alpha=alpha)
-            assert segsum.launch_count - before == 2
+            got = segsum.add_(on_card(base), dim, plan,
+                              on_card(terms, True), alpha=alpha)
+            again = segsum.add_(on_card(base), dim, plan,
+                                on_card(terms, True), alpha=alpha)
+            assert segsum.launch_count - before == (2 if plan.n else 0)
             assert torch.equal(got.cpu(), want)
             assert torch.equal(got, plain)
             assert torch.equal(got, again)
             ref = base.clone().index_add_(dim, torch.as_tensor(targets),
                                           terms, alpha=alpha)
             torch.testing.assert_close(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_dense_jtj_same_bits_twice(cuda):
+    """Config 6's dense-JtJ leg (bcsr_jtj_dense on the 32x32x8 grid, float32)
+    sums each block's pair products in a fixed order through the segment
+    add: two evaluations give the same bits, and index_put_'s accumulation
+    (atomics on the card) agrees within rounding."""
+    from libdogleg_tpu_torch.models import grid_mrf
+    from libdogleg_tpu_torch.ops import bcsr, segsum
+    g = grid_mrf.make_grid_mrf(32, 32, 8, dtype=torch.float32, device=cuda)
+    _, J = g.problem(jtj="dense").jacobian(
+        torch.linspace(-1, 1, g.nstate, device=cuda))
+    before = segsum.launch_count
+    a, b = bcsr.bcsr_jtj_dense(J), bcsr.bcsr_jtj_dense(J)
+    assert segsum.launch_count - before == 2
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    s, v = J.structure, J.values
+    pi, pj = s.jtj_pairs()
+    contrib = v[torch.as_tensor(pi, device=cuda).long()].mT \
+        @ v[torch.as_tensor(pj, device=cuda).long()]
+    out = torch.zeros((s.nbcol, s.nbcol, s.block_cols, s.block_cols),
+                      dtype=v.dtype, device=cuda)
+    out.index_put_((torch.as_tensor(s.indices[pi], device=cuda).long(),
+                    torch.as_tensor(s.indices[pj], device=cuda).long()),
+                   contrib, accumulate=True)
+    torch.testing.assert_close(
+        a, out.permute(0, 2, 1, 3).reshape(s.nstate, s.nstate))
 
 
 @pytest.mark.cuda

@@ -195,7 +195,7 @@ def test_cuda_tensors_take_the_kernel_only(monkeypatch):
     with pytest.raises(ValueError, match="CUDA tensors"):
         segsum.add_(base.to("meta"), 0, plan, terms.to("meta"))
     with pytest.raises(ValueError, match="CUDA tensors"):
-        segsum._kernel(base, 0, plan, terms, 1, in_place=True)
+        segsum._kernel(base, 0, plan, terms, 1)
     calls = []
     monkeypatch.setattr(segsum, "_kernel",
                         lambda *a, **k: calls.append(a[0].device))
@@ -264,21 +264,108 @@ def test_supernodal_assembly_targets_are_distinct():
     assert isinstance(sym, sn.AmalgamatedSymbolic)
 
 
+def _jtj_dense_index_put(J):
+    """bcsr_jtj_dense as it was before its sums took the plan's order:
+    index_put_'s accumulation of the pair products into their blocks."""
+    s, v = J.structure, J.values
+    pi, pj = s.jtj_pairs()
+    contrib = v[torch.as_tensor(pi).long()].mT @ v[torch.as_tensor(pj).long()]
+    out = torch.zeros((s.nbcol, s.nbcol, s.block_cols, s.block_cols),
+                      dtype=v.dtype)
+    out.index_put_((torch.as_tensor(s.indices[pi]).long(),
+                    torch.as_tensor(s.indices[pj]).long()), contrib,
+                   accumulate=True)
+    return out.permute(0, 2, 1, 3).reshape(s.nstate, s.nstate)
+
+
 @pytest.mark.parametrize("case", ["float64", "float32", "vmap"])
 def test_bcsr_products_same_as_index_add(request, case):
+    """J^T x, J v and the dense J^T J in the plan's order give index_add_'s
+    bits, and the dense J^T J index_put_'s (its form before): in float64,
+    float32 and under vmap (each element against its own)."""
     g, sched, x, J, ns = _grid(1)
     dtype = torch.float32 if case == "float32" else torch.float64
     J = bcsr.BCSRJacobian(J.structure, J.values.to(dtype))
     x = x.to(dtype)
     p = torch.linspace(0, 1, g.nstate, dtype=dtype)
+    vs = torch.stack([J.values, 2 * J.values, -J.values])
 
     def products():
         if case == "vmap":
             xs, ps = torch.stack([x, -x]), torch.stack([p, 2 * p])
             return (torch.func.vmap(lambda v: bcsr.bcsr_jt_x(J, v))(xs),
-                    torch.func.vmap(lambda v: bcsr.bcsr_matvec(J, v))(ps))
-        return bcsr.bcsr_jt_x(J, x), bcsr.bcsr_matvec(J, p)
+                    torch.func.vmap(lambda v: bcsr.bcsr_matvec(J, v))(ps),
+                    torch.func.vmap(lambda v: bcsr.bcsr_jtj_dense(
+                        bcsr.BCSRJacobian(J.structure, v)))(vs))
+        return (bcsr.bcsr_jt_x(J, x), bcsr.bcsr_matvec(J, p),
+                bcsr.bcsr_jtj_dense(J))
     got = products()
+    if case == "vmap":
+        want = torch.stack([_jtj_dense_index_put(
+            bcsr.BCSRJacobian(J.structure, v)) for v in vs])
+    else:
+        want = _jtj_dense_index_put(J)
+    assert torch.equal(got[2], want)
     request.getfixturevalue("index_add")
     for a, b in zip(got, products()):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("level", [None, 1])
+@pytest.mark.parametrize("dim,shape", [(0, ()), (1, (2, 4, 4)),
+                                       (2, (2, 3, 5))])
+def test_launch_record_is_the_plans_arguments(monkeypatch, level, dim,
+                                              shape):
+    """The launch record a plan keeps for a direct launch holds the kernel's
+    operands and arguments as numpy gives them from the targets: the
+    distinct targets, each one's terms in index order, the runs' count and
+    base's and terms' sizes around dim; the same call finds it again, and
+    another shape, dtype, device or sign makes another."""
+    import ctypes
+    import math
+    monkeypatch.setattr(segsum, "_planned_entry", lambda: "the entry")
+    tgts, base, terms = _case(7, 11, 80, shape, dim)
+    if level is None:
+        plan = segsum.AddPlan(tgts)
+    else:
+        lead = np.random.default_rng(8).integers(0, 11, 30)
+        plan = segsum.level_plans(np.r_[lead, tgts], [0, 30, 110])[1]
+    rec = segsum._launch_record(plan, base, dim, terms, -1)
+    uniq, counts = np.unique(tgts, return_counts=True)
+    u, rp, tp = (t.numpy() for t in rec.operands)
+    np.testing.assert_array_equal(u, uniq)
+    np.testing.assert_array_equal(np.diff(rp), counts)
+    for r, t in enumerate(uniq):
+        np.testing.assert_array_equal(tp[rp[r]:rp[r + 1]],
+                                      np.flatnonzero(tgts == t))
+    r = rec.record
+    assert rec.entry == "the entry"
+    assert rec.address == ctypes.addressof(r)
+    assert (r.uniq, r.run_ptr, r.term_pos) == tuple(
+        t.data_ptr() for t in rec.operands)
+    assert (r.n_runs, r.outer, r.nbase, r.nterm, r.inner, r.negate,
+            r.device, r.elem_bytes) == (len(uniq), math.prod(shape[:dim]),
+                                        11, 80, math.prod(shape[dim:]), 1,
+                                        0, 8)
+    assert segsum._launch_record(plan, base, dim, terms, -1) is rec
+    longer = torch.cat([base, base.narrow(dim, 0, 1)], dim)
+    for b, t, alpha in ((longer, terms, -1),
+                        (base.float(), terms.float(), -1),
+                        (base.to("meta"), terms.to("meta"), -1),
+                        (base, terms, 1)):
+        other = segsum._launch_record(plan, b, dim, t, alpha)
+        assert other is not rec
+        assert (other.record.nbase, other.record.negate,
+                other.record.elem_bytes) == (
+            b.shape[dim], int(alpha == -1), t.element_size())
+    assert len(plan._launches) == 5
+
+
+def test_launch_record_of_a_plan_without_terms_adds_nothing(monkeypatch):
+    """A level without terms keeps a record without an entry point; the
+    direct launch then returns base as it is."""
+    monkeypatch.setattr(segsum, "_planned_entry", lambda: "the entry")
+    plan = segsum.level_plans(np.array([2, 0, 1]), [0, 3, 3])[1]
+    base, terms = torch.zeros(4, 2), torch.zeros(0, 2)
+    rec = segsum._launch_record(plan, base, 0, terms, 1)
+    assert rec.entry is None and plan.n == 0
