@@ -314,8 +314,18 @@ Phases, each printing its own lines:
      decision field, a second solve the same bits, their q blocks put
      together beside the unsharded solve (steps, reason, largest
      difference); for each leg the host wall, attempts, all_reduce calls
-     and bytes an attempt and peak memory, by rank; no kernel of K1-K7.
-     Each phase prints its seconds.
+     and bytes an attempt and peak memory, by rank; (c) configs 4 and 7s
+     plain in two segments: init_solver_state on the sharded start,
+     run_solver(max_new_attempts=2), save_state_orbax, load_state_orbax
+     onto a fresh state's placements, run to the end, every result field
+     the one-shot solve's bits (and in the world of one the unsharded
+     solve's), save and load seconds and bytes; (d) config 7o's
+     outlierness pass (get_outlierness_factors_ba, the factorization taken
+     once) on the sharded 7s solution: in the world of one the unsharded
+     pass's bits, fresh and reused, timed in turns with it (CUDA events,
+     a dependent fetch); on two ranks the same scale bits, every factor
+     finite or max, the count above 1 and the largest difference from the
+     unsharded pass; no kernel of K1-K7. Each phase prints its seconds.
 Then one JSON line about the kernels (time, plain version's time, the
 library call's where one exists, and the bound from this run's shapes; K1
 once per instance, the generated one's from phase 23; K1 (by instance),
@@ -5251,15 +5261,84 @@ def p26_collective_us(dev, mesh, reps: int = 200) -> str:
 
 def p26_local(r) -> dict:
     """A point-sharded result's fields as this rank holds them, on the
-    host: c, Jt_x's c and the decisions replicated, q the rank's block."""
+    host: c, Jt_x's c, U and the decisions replicated, q and the JtJ's
+    point blocks the rank's."""
     from libdogleg_tpu_torch.parallel.points import local_of
     out = {f"p/{k}": local_of(v).cpu() for k, v in r.p.items()}
     out.update({f"Jt_x/{k}": local_of(v).cpu() for k, v in r.Jt_x.items()})
-    out.update({f: getattr(r, f).cpu() for f in
+    out.update({f: local_of(getattr(r, f)).cpu() for f in
                 ("norm2_x", "step_count", "n_attempts", "reason",
                  "trustregion", "lam")})
-    out.update({f"JtJ/{k}": v.cpu() for k, v in r.JtJ._asdict().items()})
+    out.update({f"JtJ/{k}": local_of(v).cpu()
+                for k, v in r.JtJ._asdict().items()})
     return out
+
+
+def p26_segments(dev, bench, products, p0, ns, path) -> tuple:
+    """26 (c): a point-sharded solve in two segments through the
+    distributed checkpoint: init_solver_state on the sharded start,
+    run_solver(max_new_attempts=2), save_state_orbax into `path` (each
+    rank its blocks), load_state_orbax onto a fresh init_solver_state's
+    placements, run_solver to the end. (the result, a record: save and
+    load seconds, the directory's bytes, whether the loaded state has the
+    saved one's bits, attempts before the save)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from libdogleg_tpu_torch import (checkpoint, init_solver_state,
+                                     result_from_state, run_solver)
+    from libdogleg_tpu_torch.parallel.points import point_shards
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    st = run_solver(products, init_solver_state(products, p0, bench), bench,
+                    newton_solver=ns, max_new_attempts=2)
+    sync()
+    t0 = time.perf_counter()
+    checkpoint.save_state_orbax(path, st)
+    save_s = time.perf_counter() - t0
+    dist.barrier()
+    like = init_solver_state(products, p0, bench)
+    sync()
+    t0 = time.perf_counter()
+    back = checkpoint.load_state_orbax(path, like)
+    sync()
+    load_s = time.perf_counter() - t0
+    same = states_same_bits(point_shards(back)[1], point_shards(st)[1])
+    r = result_from_state(run_solver(products, back, bench,
+                                     newton_solver=ns))
+    return r, {"save_s": save_s, "load_s": load_s, "loaded_equal": same,
+               "bytes": sum(os.path.getsize(os.path.join(path, f))
+                            for f in os.listdir(path)),
+               "attempts_before": st.n_attempts}
+
+
+def p26_segments_text(rec) -> str:
+    return (f"{rec['attempts_before']} attempts before the save; save "
+            f"{rec['save_s']:.3f} s, load {rec['load_s']:.3f} s, "
+            f"{rec['bytes']} bytes on disk")
+
+
+def p26_outlierness(inst, r, ns, fac):
+    """26 (d): config 7o's pass (bench_all.py:448-483's measurement count)
+    at a solve's result r of the instance inst (sharded or not), the
+    factorization fac reused: (factors, scale)."""
+    from libdogleg_tpu_torch.analysis import get_outlierness_factors_ba
+    robs, Jc, Jq = inst.observation_jacobians(r.p)
+    return get_outlierness_factors_ba(
+        robs, Jc, Jq, r.JtJ, r.lam, r.norm2_x,
+        2 * inst.nobs + 6 + 3 * inst.npts, ns, factorization=fac)
+
+
+def p26_finite_or_max(f) -> bool:
+    """Every factor finite, or the dtype's largest value (singular
+    leverage)."""
+    import torch
+    return bool((torch.isfinite(f) | (f == torch.finfo(f.dtype).max))
+                .all())
 
 
 def p26_text(rec) -> str:
@@ -5330,6 +5409,32 @@ def phase26_rank(rank, port, tmp, device, linear, sparse) -> int:
               f"(b) rank {rank} {label}: a second solve the same bits")
         out[label] = {"fields": second, "first_wall_s": runs[0][1]["wall_s"],
                       **rec}
+        if label == P26_LABELS[2]:
+            continue
+        # (c) the same solve in two segments through the checkpoint
+        fn, p0, ns = sharded(mesh)
+        before = kernel_launch_counts()
+        seg, seg_rec = p26_segments(dev, bench, fn, p0, ns, os.path.join(
+            tmp, f"ckpt_{P26_LABELS.index(label)}"))
+        check(seg_rec["loaded_equal"], f"(c) rank {rank} {label}: the "
+              f"loaded state has the saved state's bits")
+        got = p26_local(seg)
+        for k in second:
+            check(p25_same(got[k], second[k]), f"(c) rank {rank} {label}: "
+                  f"the resumed run's {k} has the one-shot run's bits")
+        out[label]["segments"] = seg_rec
+        if label == P26_LABELS[1]:
+            # (d) the outlierness pass over this rank's points
+            fac = ns.factor(r.JtJ, r.lam)
+            f, scale = p26_outlierness(fn.__self__, r, ns, fac)
+            check(str(tuple(f.placements)) == "(Shard(dim=0),)",
+                  f"(d) rank {rank}: the factors sharded over pts")
+            f = f.to_local()
+            check(p26_finite_or_max(f), f"(d) rank {rank}: every factor "
+                  f"finite or the dtype's max")
+            out["outlierness"] = {"factors": f.cpu(), "scale": scale.cpu()}
+        check(kernel_launch_counts() == before,
+              f"(c), (d) rank {rank} {label}: no launch of K1-K7")
     out["seconds"] = time.perf_counter() - t_start
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     dist.barrier()
@@ -5348,8 +5453,14 @@ def phase26_points(dev, bench, card, linear=BA_LINEAR,
     axis, (a) a world of one on NCCL, every result field the unsharded
     solve's bits, and (b) two ranks sharing the card over gloo
     (phase26_rank), their c and decisions the same bits, their q blocks
-    put together beside the unsharded solve."""
+    put together beside the unsharded solve. Configs 4 and 7s plain also
+    run (c) in two segments through the distributed checkpoint (each
+    rank's resumed run its one-shot run's bits), and config 7s's solution
+    takes (d) config 7o's outlierness pass over its sharded points (a
+    world of one the unsharded pass's bits; two ranks the same scale
+    bits), in both worlds."""
     import os
+    import shutil
     import socket
     import tempfile
 
@@ -5357,6 +5468,7 @@ def phase26_points(dev, bench, card, linear=BA_LINEAR,
     import torch.distributed as dist
 
     from libdogleg_tpu_torch.parallel import make_mesh
+    from libdogleg_tpu_torch.parallel.points import local_of
     t_phase = time.perf_counter()
     cases = p26_cases(dev, linear, sparse)
 
@@ -5386,6 +5498,8 @@ def phase26_points(dev, bench, card, linear=BA_LINEAR,
               and str(tuple(r.p["c"].placements)) == "(Replicate(),)",
               f"(a) {label}: q sharded over pts, c replicated")
         unsharded[label] = want
+        if label == P26_LABELS[1]:
+            kept = (runs[0][0], runs[1][0])
         walls = [f"{rec['wall_s'] * 1e3:.1f}" for _, rec in runs]
         print(f"[26 (a) world of one, {backend}, {label}, f32 PRM] gate "
               f"{gate_text}: norm2_x {float(r.norm2_x):.6g}, reason "
@@ -5406,11 +5520,79 @@ def phase26_points(dev, bench, card, linear=BA_LINEAR,
             print(f"[26 (a) {label} profile, sharded] {split}", flush=True)
     print(f"[26 (a) all_reduce_sum alone, {backend}] host us a call, "
           f"{p26_collective_us(dev, mesh)}; card {card}", flush=True)
+
+    # (c) segments through the distributed checkpoint, in the world of one
+    tmp = tempfile.mkdtemp(prefix="dogleg_pts_")
+    before = kernel_launch_counts()
+    for i, label in enumerate(P26_LABELS[:2]):
+        fn, p0, ns = cases[label][1](mesh)
+        r, rec = p26_segments(dev, bench, fn, p0, ns,
+                              os.path.join(tmp, f"ckpt_{i}"))
+        check(rec["loaded_equal"], f"(c) {label}: the loaded state has the "
+              f"saved state's bits")
+        got, want = p26_local(r), unsharded[label]
+        for f in want:
+            check(p25_same(got[f], want[f]), f"(c) {label}: the resumed "
+                  f"run's {f} has the unsharded solve's bits")
+        print(f"[26 (c) world of one, {backend}, {label}, f32 PRM] two "
+              f"attempts, save_state_orbax, load_state_orbax onto a fresh "
+              f"init_solver_state's placements, run to the end: every "
+              f"result field the one-shot and unsharded solves' bits; "
+              f"{p26_segments_text(rec)}; card {card}", flush=True)
+
+    # (d) config 7o's outlierness pass over the sharded points, the
+    # factorization taken once and reused, against the unsharded pass
+    r_u, r_s = kept
+    fn, _, ns = cases[P26_LABELS[1]][1](mesh)
+    inst_s, inst_u = fn.__self__, cases[P26_LABELS[1]][0][0].__self__
+    fac_u = ns.factor(r_u.JtJ, r_u.lam)
+    fac_s = ns.factor(r_s.JtJ, r_s.lam)
+    check(bool(fac_u[1]) and bool(fac_s[1].to_local()),
+          "(d) config 7o: the factorizations are ok")
+    f_u, s_u = p26_outlierness(inst_u, r_u, ns, fac_u)
+    f_s, s_s = p26_outlierness(inst_s, r_s, ns, fac_s)
+    f_fresh, _ = p26_outlierness(inst_s, r_s, ns, None)
+    check(str(tuple(f_s.placements)) == "(Shard(dim=0),)",
+          "(d) config 7o: the factors sharded over pts")
+    check(same_bits(f_s.to_local(), f_u) and same_bits(s_s, s_u)
+          and same_bits(f_fresh.to_local(), f_u),
+          "(d) config 7o: the sharded pass, fresh and with the factor "
+          "reused, has the unsharded pass's bits")
+    check(p26_finite_or_max(f_u), "(d) config 7o: every factor finite or "
+          "the dtype's max")
+    check(kernel_launch_counts() == before,
+          "(c), (d): the paths launch none of K1-K7")
+
+    def pass_ms(inst, r, fac):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        f, _ = p26_outlierness(inst, r, ns, fac)
+        float(local_of(f)[-1, -1])      # a fetch that needs the whole pass
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+    turns = "not measured"
+    if dev.type == "cuda":
+        # after the warm calls above, in turns: unsharded, sharded,
+        # sharded, unsharded
+        ms = [pass_ms(*((inst_s, r_s, fac_s) if k in (1, 2)
+                        else (inst_u, r_u, fac_u))) for k in range(4)]
+        turns = (f"unsharded {ms[0]:.3f}, sharded {ms[1]:.3f}, "
+                 f"{ms[2]:.3f}, unsharded {ms[3]:.3f}")
+    p26_u_factors = f_u.cpu()
+    print(f"[26 (d) world of one, {backend}, config 7o, f32] the pass "
+          f"(Jacobians and factors, the factorization reused) on the "
+          f"sharded 7s solution: factors sharded over pts, the unsharded "
+          f"pass's bits (fresh and reused), every factor finite or max, "
+          f"factors > 1: {int((f_u > 1).sum())} of {f_u.numel()}; ms by "
+          f"CUDA events with a dependent fetch, in turns: {turns}; card "
+          f"{card}", flush=True)
+    del kept, r_u, r_s, fac_u, fac_s, f_u, f_s, f_fresh
     dist.destroy_process_group()
     del cases
 
     # (b) two ranks on the one card over gloo
-    tmp = tempfile.mkdtemp(prefix="dogleg_pts_")
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -5473,6 +5655,28 @@ def phase26_points(dev, bench, card, linear=BA_LINEAR,
               f"by rank: "
               f"{'; '.join(p26_text(o[label]) for o in got)}; card {card}",
               flush=True)
+    for label in P26_LABELS[:2]:
+        print(f"[26 (c) two ranks, gloo, {label}, f32 PRM] on each rank the "
+              f"two-segment run through the checkpoint has the one-shot "
+              f"run's bits in every field, its loaded state the saved "
+              f"bits; by rank: "
+              f"{'; '.join(p26_segments_text(o[label]['segments']) for o in got)}"
+              f"; card {card}", flush=True)
+    o0, o1 = (o["outlierness"] for o in got)
+    check(p25_same(o0["scale"], o1["scale"]),
+          "(d) two ranks: both ranks hold the same bits of the scale")
+    f2 = torch.cat([o0["factors"], o1["factors"]])
+    rel = float(((f2.double() - p26_u_factors.double()).abs()
+                 / p26_u_factors.double().abs()).max())
+    print(f"[26 (d) two ranks, gloo, config 7o, f32] the pass over each "
+          f"rank's {o0['factors'].shape[0]} points of its own 7s solution, "
+          f"the factorization reused: both ranks the same scale bits, every "
+          f"factor finite or max, factors > 1: {int((f2 > 1).sum())} of "
+          f"{f2.numel()} (unsharded pass: "
+          f"{int((p26_u_factors > 1).sum())}); largest relative difference "
+          f"from the unsharded pass at the unsharded solution {rel:.3e}; "
+          f"card {card}", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
     print(f"[26 (b) ranks] wall {wall:.1f} s for the two processes; seconds "
           f"by rank {[round(o['seconds'], 1) for o in got]}", flush=True)
     print(f"[26 seconds] {time.perf_counter() - t_phase:.1f}; card {card}",

@@ -24,12 +24,14 @@ flag (NaN factors, never a bool()).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from libdogleg_tpu_torch.ops import smallchol
+from libdogleg_tpu_torch.ops import treevec as tv
 from libdogleg_tpu_torch.ops.cholesky import cholesky_solve
 
 # The reference marks an outlier only if removing it costs < 5% confidence
@@ -346,7 +348,37 @@ def get_outlierness_factors_ba(x_obs: torch.Tensor,
     Returns (factors (np, k_obs), scale): factors > 1 are candidates, the
     dtype's largest value marks singular leverage, and all are NaN when the
     factorization failed (ok stays on the device).
+
+    Over sharded points (the JAX package's pass under GSPMD): x_obs, Jc and
+    Jq DTensors sharded over a mesh axis on the point axis, as a
+    point-sharded instance's observation_jacobians gives them, and the
+    JtJ, lam, norm2_x and a factorization as a point-sharded solve's
+    result and solver.factor give them (DTensors) or the rank's local
+    blocks. Every rank of the axis calls it. S is factored over the axis
+    (one all_reduce, none with a factorization), nstate counts the global
+    points, each rank's chunks run over its own points, and the factors
+    come back sharded as x_obs; the scale is the same bits on every rank.
+    A point's factor depends only on its rows and S^-1, so a world of one
+    gives the unsharded pass's bits.
     """
+    shards, ranks = None, 1
+    if tv.is_sharded((x_obs, Jc, Jq, JtJ)):
+        from libdogleg_tpu_torch.parallel.mesh import axis_size
+        from libdogleg_tpu_torch.parallel.points import (PointShards,
+                                                         local_of,
+                                                         sharding_of)
+        axis = sharding_of(x_obs, Jc, Jq, JtJ.V)
+        if axis is None:
+            raise ValueError("a point-sharded outlierness pass takes x_obs, "
+                             "Jc, Jq or JtJ.V sharded over a mesh axis")
+        shards, ranks = PointShards(*axis, ()), axis_size(*axis)
+        x_obs, Jc, Jq, lam, norm2_x, scale = (
+            local_of(t) for t in (x_obs, Jc, Jq, lam, norm2_x, scale))
+        JtJ = type(JtJ)(*(local_of(t) for t in JtJ))
+        if factorization is not None:
+            (Lv, Ls), ok = factorization
+            factorization = ((local_of(Lv), local_of(Ls)), local_of(ok))
+        solver = dataclasses.replace(solver, shards=shards)
     dt, dev = x_obs.dtype, x_obs.device
     n_points, k_obs = JtJ.cam_of.shape
     nc, cb, ncam = solver.nc, solver.cam_block, solver.ncam
@@ -362,7 +394,9 @@ def get_outlierness_factors_ba(x_obs: torch.Tensor,
     eye_bs = _eye_like(bs, Lv)
     cams = torch.arange(ncam, device=dev)
 
-    nstate = nc + n_points * bs
+    # hazard F22: the scale counts every point, not the rank's (blocks of
+    # one size)
+    nstate = nc + n_points * ranks * bs
     if scale is None:
         scale = get_outlierness_scale(norm2_x, nmeasurements, nstate,
                                       n_outlier_features, 2)
@@ -398,4 +432,8 @@ def get_outlierness_factors_ba(x_obs: torch.Tensor,
     ok = torch.as_tensor(ok, device=dev)
     # the reference returns false when the factorization fails
     # (dogleg_getOutliernessFactors); here every factor is NaN
-    return torch.where(ok, factors, torch.nan), scale
+    factors = torch.where(ok, factors, torch.nan)
+    if shards is not None:
+        from libdogleg_tpu_torch.parallel.batched import _from_local
+        factors = _from_local(factors, shards.mesh, shards.axis_name)
+    return factors, scale

@@ -20,13 +20,20 @@ SparseWSchurJtJ) raises ValueError at save, naming the limitation.
 
 save_state_orbax / load_state_orbax keep the JAX package's names for its
 orbax pair, the checkpoint of states sharded over many hosts, and are
-written on torch.distributed.checkpoint (dcp): each rank writes its own
-shards of a batched state whose leaves are DTensors sharded on the batch
-axis (parallel/batched.sharded_like; a plain tensor is written once, as
-dcp writes a replicated one), and the load restores onto the shapes and
-placements of a `like` state. The files are dcp's format, a directory, not
-orbax's: the .npz pair above stays the format both packages read. Like
-dcp, they work without a process group, in one process.
+written on torch.distributed.checkpoint (dcp). As the orbax pair, they
+take any state: flat or tree states ({"c", "q"}), dense or structured JtJ
+(SchurJtJ, SparseWSchurJtJ), single or batched, each nested leaf stored
+under its path (`p__q`, `JtJ__Wv`, `history__rho`). Each rank writes its
+own shards of a state whose leaves are DTensors: a batched state sharded
+on the batch axis (parallel/batched.sharded_like) or a point-sharded one
+(init_solver_state / run_solver of a point-sharded start); a replicated
+DTensor or a plain tensor is written once. The load restores onto the
+structure, shapes and placements of a `like` state, resharding where they
+differ from the saved ones (dcp reads each rank's part of every chunk): a
+checkpoint written by four ranks loads onto an unsharded state in one
+process. The files are dcp's format, a directory, not orbax's: the .npz
+pair above stays the format both packages read. Like dcp, they work
+without a process group, in one process.
 """
 
 from __future__ import annotations
@@ -60,7 +67,8 @@ def _host(name: str, value) -> np.ndarray:
         f"checkpoint: state field {name!r} is a "
         f"{type(value).__name__}; only flat states (tensor p and Jt_x) "
         f"with a dense JtJ tensor are saved, as in the JAX package: tree "
-        f"states and structured JtJ (SchurJtJ, SparseWSchurJtJ) are not")
+        f"states and structured JtJ (SchurJtJ, SparseWSchurJtJ) are not "
+        f"(save_state_orbax takes them)")
 
 
 def _flatten(state: State) -> dict:
@@ -115,29 +123,35 @@ def load_state(path: str, device=None) -> State:
 
 
 def _dcp_state_dict(state: State) -> dict:
-    """The state's fields as dcp's flat state dict: tensors (DTensors
-    included) by field name, `history__<field>` for the History, the
-    single solve's Python flags and counters as 0-d tensors; absent
-    fields (None) left out."""
+    """The state as dcp's flat state dict: each tensor (DTensors included)
+    under its path of field names and dict keys joined by `__` (`p`,
+    `p__q`, `JtJ__Wv`, `history__rho`), the single solve's Python flags
+    and counters as 0-d tensors; absent fields (None) left out."""
     out = {}
-    for name, value in state._asdict().items():
-        if name == "history":
-            if value is not None:
-                for hname, hval in value._asdict().items():
-                    out[f"history__{hname}"] = hval
-        elif isinstance(value, torch.Tensor):
-            out[name] = value
+
+    def put(path, value):
+        if isinstance(value, torch.Tensor):
+            out[path] = value
+        elif isinstance(value, dict):
+            for k, v in value.items():
+                put(f"{path}__{k}", v)
+        elif hasattr(value, "_fields"):
+            for k, v in value._asdict().items():
+                put(f"{path}__{k}", v)
         elif value is not None:
-            out[name] = torch.as_tensor(_host(name, value))
+            out[path] = torch.as_tensor(_host(path, value))
+    for name, value in state._asdict().items():
+        put(name, value)
     return out
 
 
 def save_state_orbax(path: str, state: State) -> None:
-    """Write a SolverState or a BatchedSolverState with
-    torch.distributed.checkpoint into the directory `path`. With a process
-    group every rank calls it, and a state whose leaves are DTensors
-    (sharded on the batch axis) is written shard by shard, each rank its
-    own. dcp's format, not orbax's (module docstring)."""
+    """Write a SolverState or a BatchedSolverState (flat or tree, any JtJ)
+    with torch.distributed.checkpoint into the directory `path`. With a
+    process group every rank calls it, and a state whose leaves are
+    DTensors (sharded on the batch axis or over points) is written shard
+    by shard, each rank its own. dcp's format, not orbax's (module
+    docstring)."""
     import torch.distributed.checkpoint as dcp
     dcp.save(_dcp_state_dict(state), checkpoint_id=path)
 
@@ -155,23 +169,24 @@ def _empty_like(t: torch.Tensor) -> torch.Tensor:
 def load_state_orbax(path: str, like: State) -> State:
     """Restore a state saved by save_state_orbax onto the structure, shapes,
     dtypes, devices and placements of `like` (for example the live state,
-    or a fresh init_batched_state's of the same shapes on the same mesh):
-    each rank reads the shards its DTensors hold. Returns a new state of
-    like's type; the single solve's flags and counters come back as Python
-    values."""
+    or a fresh init_solver_state's or init_batched_state's of the same
+    shapes on the same mesh, or unsharded): each rank reads the shards its
+    DTensors hold. Returns a new state of like's type; the single solve's
+    flags and counters come back as Python values."""
     import torch.distributed.checkpoint as dcp
     sd = {k: _empty_like(v) for k, v in _dcp_state_dict(like).items()}
     dcp.load(sd, checkpoint_id=path)
-    fields = {}
-    for name, value in like._asdict().items():
-        if name == "history":
-            fields[name] = None if value is None else type(value)(**{
-                h: sd[f"history__{h}"] for h in value._fields})
-        elif isinstance(value, torch.Tensor):
-            fields[name] = sd[name]
-        elif value is None:
-            fields[name] = None
-        else:
-            t = sd[name]
-            fields[name] = bool(t) if name in _FLAGS else int(t)
-    return type(like)(**fields)
+
+    def get(path, value):
+        if isinstance(value, torch.Tensor):
+            return sd[path]
+        if isinstance(value, dict):
+            return {k: get(f"{path}__{k}", v) for k, v in value.items()}
+        if hasattr(value, "_fields"):
+            return type(value)(**{k: get(f"{path}__{k}", v)
+                                  for k, v in value._asdict().items()})
+        if value is None:
+            return None
+        return bool(sd[path]) if path in _FLAGS else int(sd[path])
+    return type(like)(**{name: get(name, value)
+                         for name, value in like._asdict().items()})

@@ -372,11 +372,17 @@ class SparseVisibilityPinholeBA:
     def observation_jacobians(self, p, obs=None):
         """(r, Jc, Jq) per observation, (npts, k_obs, 2), (..., 2, 6),
         (..., 2, 3), at the observations obs (None: the instance's); masked
-        slots come back zeroed. A point-sharded instance's rank gets its
-        own points."""
-        p, cam_of, obs, _, mask, _ = self._local(
+        slots come back zeroed. A point-sharded instance computes its
+        rank's points and returns them as DTensors sharded over the
+        instance's axis (get_outlierness_factors_ba reads the sharding
+        from them)."""
+        p, cam_of, obs, _, mask, axis = self._local(
             p, self.obs if obs is None else obs)
-        return self._jacobians(p, cam_of, obs, mask)
+        out = self._jacobians(p, cam_of, obs, mask)
+        if axis is None:
+            return out
+        from libdogleg_tpu_torch.parallel.batched import _from_local
+        return tuple(_from_local(t, *axis) for t in out)
 
     def _jacobians(self, p, cam_of, obs, mask):
         npts, k = cam_of.shape

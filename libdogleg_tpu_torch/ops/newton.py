@@ -663,7 +663,14 @@ class SparseWSchurNewtonSolver:
     def factor(self, JtJ: SparseWSchurJtJ, lam):
         """Factorize JtJ + lam I once at a fixed lambda (no escalation):
         ((Lv, Ls), ok), SchurNewtonSolver.factor's contract, with the
-        batch axis of lam (B,) leading every factor and ok."""
+        batch axis of lam (B,) leading every factor and ok. A
+        point-sharded JtJ (DTensor fields, as a point-sharded solve's
+        state and result hold it) factors over its mesh axis: Lv comes
+        back sharded as V, Ls and ok replicated (the handle the analysis
+        passes take, get_outlierness_factors_ba)."""
+        if self.shards is None and tv.is_sharded(JtJ):
+            from libdogleg_tpu_torch.parallel.points import sharded_factor
+            return sharded_factor(self, JtJ, lam)
         dt, dev = JtJ.U.dtype, JtJ.U.device
         bs, nc = self.block_size, self.nc
         lam = torch.as_tensor(lam, dtype=dt, device=dev)

@@ -26,6 +26,7 @@ ops they ran before.
 
 from __future__ import annotations
 
+import sys
 from typing import Callable, List
 
 import torch
@@ -42,6 +43,15 @@ def tree_leaves(t) -> List[torch.Tensor]:
     if isinstance(t, (tuple, list)):
         return [x for item in t for x in tree_leaves(item)]
     raise TypeError(f"not a tree of tensors: {type(t).__name__}")
+
+
+def is_sharded(t) -> bool:
+    """Whether any leaf of `t` is a DTensor (a point-sharded tree,
+    parallel/points.py). None can exist before torch.distributed.tensor is
+    imported, and this does not import it (a second's import)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and any(isinstance(x, mod.DTensor)
+                                   for x in tree_leaves(t))
 
 
 def tree_map(f: Callable, t, *rest):

@@ -46,7 +46,7 @@ AUTO_BLOCKED_MIN_BATCH = 128
 AUTO_BLOCKED_MAX_N = 128
 
 
-def _placements(mesh, axis_name: str):
+def _placements(mesh, axis_name: str, dim: int = 0):
     from torch.distributed.device_mesh import DeviceMesh
     from torch.distributed.tensor import Replicate, Shard
     if not isinstance(mesh, DeviceMesh):
@@ -55,18 +55,20 @@ def _placements(mesh, axis_name: str):
     if axis_name not in (mesh.mesh_dim_names or ()):
         raise ValueError(f"the mesh has no axis {axis_name!r}: "
                          f"{mesh.mesh_dim_names}")
-    return [Shard(0) if n == axis_name else Replicate()
+    return [Shard(dim) if n == axis_name else Replicate()
             for n in mesh.mesh_dim_names]
 
 
-def _from_local(local: torch.Tensor, mesh, axis_name: str):
-    """A rank's block of a batch-leading tensor as the DTensor of the
-    whole batch, sharded on the axis (blocks of one size)."""
+def _from_local(local: torch.Tensor, mesh, axis_name: str, dim: int = 0):
+    """A rank's block of a tensor as the DTensor of the whole, sharded on
+    its axis `dim` (the batch axis by default) over the mesh axis (blocks
+    of one size)."""
     from torch.distributed.tensor import DTensor
     from libdogleg_tpu_torch.parallel.mesh import axis_size
-    shape = (local.shape[0] * axis_size(mesh, axis_name),) + tuple(
-        local.shape[1:])
-    return DTensor.from_local(local, mesh, _placements(mesh, axis_name),
+    shape = list(local.shape)
+    shape[dim] *= axis_size(mesh, axis_name)
+    shape = tuple(shape)
+    return DTensor.from_local(local, mesh, _placements(mesh, axis_name, dim),
                               run_check=False, shape=torch.Size(shape),
                               stride=torch.empty(shape, device="meta")
                               .stride())

@@ -172,8 +172,17 @@ def init_solver_state(products_fn: ProductsFn,
                       shards=None) -> SolverState:
     """Evaluate the initial operating point and build the solve state,
     including the initial convergence test (reference dogleg.c:1364-1371).
-    shards: the PointShards (parallel/points.py) of a point-sharded start
-    given as its local leaves, or None."""
+
+    A point-sharded start (as solve_products takes it) gives a
+    point-sharded state: evaluated on the rank's local leaves, its leaves
+    DTensors placed as parallel/points.PointShards.wrap says, which
+    run_solver continues and checkpoint.save_state_orbax saves. shards: the PointShards of a
+    point-sharded start given as its local leaves (the state's leaves are
+    then local too), or None."""
+    wrap = shards is None and tv.is_sharded(p0)
+    if wrap:
+        from libdogleg_tpu_torch.parallel.points import point_shards
+        shards, p0 = point_shards(p0)
     prm = parameters if parameters is not None else DoglegParameters()
     init = products_fn(p0)
     first = tv.tree_leaves(p0)[0]
@@ -186,7 +195,7 @@ def init_solver_state(products_fn: ProductsFn,
         history = _empty_history(
             history_capacity or prm.resolved_max_attempts(), first.dtype,
             first.device)
-    return SolverState(
+    state = SolverState(
         p=p0, norm2_x=init.norm2_x, Jt_x=init.Jt_x, JtJ=init.JtJ,
         cauchy=zvec, norm2_cauchy=zero, have_cauchy=False,
         gn=zvec, norm2_gn=zero, have_gn=False,
@@ -196,6 +205,7 @@ def init_solver_state(products_fn: ProductsFn,
         reason=int(StopReason.GRADIENT_CONVERGED if converged0
                    else StopReason.RUNNING),
         history=history)
+    return shards.wrap(state) if wrap else state
 
 
 def _record(c: SolverState, step, norm2_step, step_type, norm2_cauchy,
@@ -403,8 +413,25 @@ def run_solver(products_fn: ProductsFn,
     in the state. With wavefront_unroll=k the budget is rounded up to a
     multiple of k, as in the JAX package; a run to the end does not depend
     on k. A finished state comes back unchanged. debug=True prints one line
-    an attempt to stdout (the human diagnostic stream). shards: as
-    init_solver_state's (the newton_solver's own `shards` the same)."""
+    an attempt to stdout (the human diagnostic stream).
+
+    A point-sharded state (init_solver_state's of a point-sharded start,
+    or load_state_orbax's) runs on the rank's local leaves with the
+    newton_solver's `shards` set to its sharding (a Schur strategy; one
+    built for the unsharded problem serves) and comes back point-sharded;
+    every rank of the axis calls it. shards: the PointShards of a state
+    given as its local leaves, or None (the newton_solver's own `shards`
+    then set by the caller)."""
+    wrap = shards is None and tv.is_sharded(state.p)
+    if wrap:
+        from libdogleg_tpu_torch.parallel.points import point_shards
+        shards, state = point_shards(state)
+        if not hasattr(newton_solver, "shards"):
+            raise ValueError(
+                "a point-sharded solve takes a Schur strategy "
+                "(TreeSchurNewtonSolver, SparseWSchurNewtonSolver); got "
+                f"{type(newton_solver).__name__}")
+        newton_solver = dataclasses.replace(newton_solver, shards=shards)
     prm = parameters if parameters is not None else DoglegParameters()
     ns = newton_solver if newton_solver is not None else DenseNewtonSolver()
     max_attempts = prm.resolved_max_attempts()
@@ -413,7 +440,7 @@ def run_solver(products_fn: ProductsFn,
     while not state.done and (limit is None or state.n_attempts < limit):
         state = _attempt(products_fn, state, prm, ns, max_attempts, debug,
                          shards)
-    return state
+    return shards.wrap(state) if wrap else state
 
 
 def result_from_state(state: SolverState) -> SolveResult:
@@ -456,30 +483,16 @@ def solve_products(products_fn: ProductsFn,
     (TreeSchurNewtonSolver, SparseWSchurNewtonSolver; one built for the
     unsharded problem serves). Every rank of the axis calls it; each
     solves on its local rows, every sum over points an all_reduce. The
-    result's p and Jt_x are DTensors, sharded and replicated as p0's
-    leaves; its JtJ holds the rank's local blocks.
+    result's fields are DTensors placed as the state's
+    (PointShards.wrap): p's and Jt_x's point leaves and the JtJ's point
+    blocks sharded, the rest replicated; the counters plain tensors.
     """
-    shards = None
-    if any(type(x) is not torch.Tensor for x in tv.tree_leaves(p0)):
-        from libdogleg_tpu_torch.parallel.points import point_shards
-        shards, p0 = point_shards(p0)
-    if shards is not None:
-        if not hasattr(newton_solver, "shards"):
-            raise ValueError(
-                "a point-sharded solve takes a Schur strategy "
-                "(TreeSchurNewtonSolver, SparseWSchurNewtonSolver); got "
-                f"{type(newton_solver).__name__}")
-        newton_solver = dataclasses.replace(newton_solver, shards=shards)
     state = init_solver_state(products_fn, p0, parameters,
                               record_history=record_history,
-                              history_capacity=history_capacity,
-                              shards=shards)
-    r = result_from_state(run_solver(products_fn, state, parameters,
-                                     newton_solver=newton_solver,
-                                     debug=debug, shards=shards))
-    if shards is None:
-        return r
-    return r._replace(p=shards.wrap(r.p), Jt_x=shards.wrap(r.Jt_x))
+                              history_capacity=history_capacity)
+    return result_from_state(run_solver(products_fn, state, parameters,
+                                        newton_solver=newton_solver,
+                                        debug=debug))
 
 
 # ---------------------------------------------------------------------------

@@ -1725,12 +1725,14 @@ def test_point_sharded_ba_world_of_one_on_card(cuda):
     """BAProblem.shard and shard_p_tree over a world of one on NCCL, made
     and destroyed here: config 4's tree form at a test size (nc 64, 2000
     points, float32, PRM) gives the unsharded solve's bits on the card in
-    every result field, q a DTensor sharded over "pts", c replicated."""
+    every result field (the sharded result's DTensors read locally), q a
+    DTensor sharded over "pts", c replicated."""
     import torch.distributed as dist
 
     from libdogleg_tpu_torch import solve_products
     from libdogleg_tpu_torch.models import bundle_adjustment as lba
     from libdogleg_tpu_torch.parallel import make_mesh
+    from libdogleg_tpu_torch.parallel.points import local_of
     assert not dist.is_initialized()
     try:
         ba = lba.make_synthetic(seed=0, nc=64, n_points=2000,
@@ -1752,12 +1754,13 @@ def test_point_sharded_ba_world_of_one_on_card(cuda):
                 assert torch.equal(got[name][k].view(torch.int32),
                                    getattr(u, name)[k].view(torch.int32))
         for f in ("norm2_x", "trustregion", "lam"):
-            assert torch.equal(getattr(r, f).view(torch.int32),
+            assert torch.equal(local_of(getattr(r, f)).view(torch.int32),
                                getattr(u, f).view(torch.int32)), f
         for f in ("step_count", "n_attempts", "reason"):
             assert torch.equal(getattr(r, f), getattr(u, f)), f
         for a, b in zip(r.JtJ, u.JtJ):
-            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+            assert torch.equal(local_of(a).view(torch.int32),
+                               b.view(torch.int32))
         assert float(u.norm2_x) < 1e-3
     finally:
         if dist.is_initialized():

@@ -11,6 +11,7 @@ the JAX test's own tolerance, DTensor results sharded on the batch axis,
 and every rank's results bitwise equal to the others'.
 """
 
+import functools
 import re
 
 import jax
@@ -701,3 +702,86 @@ def test_point_sharded_world_of_one_bits(world_of_one, case):
     assert int(o["one/world"]) == 1
     assert bool(o[f"one/{case}/same_bits"])
     assert str(o[f"one/{case}/placements"]) == "(Shard(dim=0),)"
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_outlierness(pc, pq, lam, n2):
+    """JAX's unsharded get_outlierness_factors_ba of test_parallel.py:334's
+    instance at a point given as bytes of float64 arrays (the port's
+    sharded solution put together), its lam and norm2_x: (factors,
+    scale), one jitted program."""
+    from libdogleg_tpu.analysis import outlierness as ja
+    ba, _ = _pts_sparse()
+    nq = np.frombuffer(pq).reshape(ba.npts, 3)
+    nmeas = 2 * ba.nobs + 6 + 3 * ba.npts
+
+    def outl(c, q, lam, n2):
+        p = {"c": c, "q": q}
+        robs, Jc, Jq = ba.observation_jacobians(p)
+        return ja.get_outlierness_factors_ba(
+            robs, Jc, Jq, ba.products(p).JtJ, lam, n2, nmeas,
+            ba.newton_solver(), chunk=16)
+    f, scale = jax.jit(outl)(np.frombuffer(pc), nq,
+                             np.frombuffer(lam)[0], np.frombuffer(n2)[0])
+    return np.asarray(f), float(scale)
+
+
+def test_point_sharded_outlierness_matches_jax(group):
+    """test_parallel.py:334's instance at its point-sharded solution: the
+    factors of get_outlierness_factors_ba over the 4 ranks' points (40 a
+    rank, chunks of 16), put together, match the JAX package's unsharded
+    pass at the same point within rtol 1e-7, atol 1e-10 (the tolerance of
+    tests/test_torch_analysis.py's BA factors: S has cond ~1.7e8 and two
+    float64 orders of summation differ by ~2e-8); the scale, which counts
+    the global 160 points (hazard F22: a rank's 40 would make it about
+    4.4 times as large), within 1e-15 and the same bits on every rank;
+    the factors come back sharded over pts."""
+    outs, _, _ = group
+    o = outs[0]
+    args = tuple(o[f"pts_outl/{k}"].astype(np.float64).tobytes()
+                 for k in ("p_c", "p_q", "lam", "norm2_x"))
+    fj, sj = _jax_outlierness(*args)
+    assert np.isfinite(o["pts_outl/factors"]).all()
+    np.testing.assert_allclose(o["pts_outl/factors"], fj, rtol=1e-7,
+                               atol=1e-10)
+    np.testing.assert_allclose(float(o["pts_outl/scale"]), sj, rtol=1e-15)
+    for other in outs:
+        assert str(other["pts_outl_local/placements"]) == "(Shard(dim=0),)"
+    _same_on_every_rank(outs, "pts_outl")
+
+
+def test_point_sharded_outlierness_all_reduces_and_reuse(group):
+    """A fresh pass over sharded points runs one all_reduce (S and the
+    point blocks' ok, in the strategy's factor), a pass given the
+    strategy's sharded factor none; the reused factor gives the fresh
+    pass's bits on every rank."""
+    outs, _, _ = group
+    for o in outs:
+        assert int(o["pts_outl_count/fresh"]) == 1
+        assert int(o["pts_outl_count/reused"]) == 0
+        assert bool(o["pts_outl_local/reuse_same"])
+
+
+@pytest.mark.parametrize("case", ["fresh", "reused"])
+def test_point_sharded_outlierness_world_of_one_bits(world_of_one, case):
+    """A world of one: the outlierness pass over the sharded solution,
+    fresh and reusing the sharded factor, gives the unsharded pass's bits
+    in every factor and in the scale."""
+    assert bool(world_of_one[f"one/outl/{case}_same_bits"])
+
+
+def test_point_shards_reads_each_leaf_on_its_point_axis(world_of_one):
+    """point_shards takes a SchurJtJ's W sharded on its axis 1 (its point
+    axis) and V on its axis 0, and refuses V on axis 1 and W on axis 0,
+    naming the placement."""
+    errors = world_of_one["one/placement_errors"].tolist()
+    assert "point axis (0)" in errors[0] and "Shard(dim=1)" in errors[0]
+    assert "point axis (1)" in errors[1] and "Shard(dim=0)" in errors[1]
+    assert errors[2] == "pts Tensor"
+
+
+def test_shards_keyword_on_local_leaves(world_of_one):
+    """The `shards=` keyword of init_solver_state and run_solver, on local
+    leaves with the strategy's shards set by the caller, gives the bits of
+    the solve that reads the sharding from its DTensor start."""
+    assert bool(world_of_one["one/keyword/same_bits"])

@@ -320,7 +320,8 @@ def leg_multihost(inp, out):
 def leg_ckpt(inp, out, tmp):
     """A dp-sharded batched state through the distributed checkpoint: two
     attempts, save, load onto a fresh state's placements, run to the end;
-    and the one-shot run."""
+    and the one-shot run. Then the same for config 9 small's batched tree
+    states (a batched SchurJtJ, a History)."""
     from libdogleg_tpu_torch import DoglegParameters, checkpoint
     from libdogleg_tpu_torch.parallel import batched_optimize, make_mesh
     from libdogleg_tpu_torch.parallel.batched import (local_blocks,
@@ -354,6 +355,49 @@ def leg_ckpt(inp, out, tmp):
                            prm, problem_data=torch.as_tensor(
                                inp["meas_16"]), mesh=mesh)
     _result(out, "ckpt_oneshot", one)
+
+    # a batch of 8 pinhole tree states (config 9 small) with a batched
+    # SchurJtJ and a History, dp-sharded the same way
+    from libdogleg_tpu_torch.solver import solve_products_batched
+    vf, obs9, p9, ns9 = config9_small()
+    p9_l = local_blocks(p9, mesh)
+    obs_l = local_blocks(obs9, mesh)
+
+    def fn(p):
+        return vf(p, obs_l)
+    st = run_batched_solver(fn, init_batched_state(fn, p9_l, prm,
+                                                   record_history=True),
+                            prm, newton_solver=ns9, max_new_attempts=2)
+    path = os.path.join(tmp, "state9")
+    checkpoint.save_state_orbax(path, sharded_like(st, mesh))
+    dist.barrier()
+    loaded = checkpoint.load_state_orbax(path, sharded_like(
+        init_batched_state(fn, p9_l, prm, record_history=True), mesh))
+    out["ckpt9/loaded_equal"] = np.array(_same_bits(
+        local_blocks(loaded, mesh), st))
+    r = result_from_batched_state(run_batched_solver(
+        fn, local_blocks(loaded, mesh), prm, newton_solver=ns9))
+    whole = solve_products_batched(lambda p: vf(p, obs9), p9, prm,
+                                   newton_solver=ns9, record_history=True)
+    out["ckpt9/same_bits"] = np.array(_same_bits(
+        r, local_blocks(whole, mesh)))
+
+
+def config9_small():
+    """Config 9 small: a batch of 8 full-visibility pinhole problems (ncam
+    3, npts 16, one rig) under per-element observations, from numpy and
+    torch seeds: (the products vmapped over (p, obs), the observations
+    (8, ...), the tree starts (8, ...), the strategy)."""
+    from libdogleg_tpu_torch.models import pinhole_ba as pba
+    ba = pba.make_synthetic(seed=0, ncam=3, npts=16, device="cpu")
+    B = 8
+    rng = np.random.default_rng(5)
+    obs_b = ba.obs[None] + torch.as_tensor(
+        0.5 * rng.normal(size=(B,) + tuple(ba.obs.shape)))
+    gen = torch.Generator().manual_seed(7)
+    starts = [ba.p0(gen, jitter=0.05 * i) for i in range(B)]
+    p0 = {k: torch.stack([s[k] for s in starts]) for k in ("c", "q")}
+    return torch.func.vmap(ba.products_obs), obs_b, p0, ba.newton_solver()
 
 
 def _counted(ns, counts):
@@ -426,7 +470,7 @@ def _pts_solve(out, leg, products, p0s, ns):
     for name in r.JtJ._fields:
         if name != "U":
             out[f"{leg}_local/{name}_shape"] = np.array(
-                getattr(r.JtJ, name).shape)
+                getattr(r.JtJ, name).to_local().shape)
     out[f"{leg}_local/q"] = _np(r.p["q"].to_local())
 
 
@@ -503,6 +547,97 @@ def leg_pts_sparse(inp, out):
             out[f"{key}/U"] = _np(pr.JtJ.U)
 
 
+def pts_instances(inp, mesh):
+    """test_parallel.py:155's linear instance (tree form) and :334's
+    sparse-visibility one, point-sharded over the mesh's "pts" axis:
+    name -> (products, sharded start, strategy)."""
+    from libdogleg_tpu_torch.models import bundle_adjustment as lba
+    ba = lba.make_synthetic(seed=3, nc=8, n_points=64, block_size=3,
+                            k_obs=4, dtype=F64, noise=0.05, device="cpu")
+    ba_s = ba.shard(mesh)
+    sp, sp_s, _, p0s = pts_sparse_instance(inp, mesh)
+    return {"schur": (ba_s.products_tree,
+                      ba.shard_p_tree(ba.p0_tree(), mesh),
+                      ba_s.tree_newton_solver()),
+            "sparse": (sp_s.products, p0s, sp.newton_solver())}
+
+
+def leg_pts_ckpt(inp, out, tmp):
+    """Both point-sharded instances through the distributed checkpoint:
+    two attempts, save (each rank its blocks) into tmp/pts_<name>, load
+    onto a fresh init_solver_state's placements, run to the end; and the
+    one-shot sharded run. The parent loads the same directories into one
+    process afterwards."""
+    from libdogleg_tpu_torch import (DoglegParameters, checkpoint,
+                                     init_solver_state, result_from_state,
+                                     run_solver, solve_products)
+    from libdogleg_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(("pts",), device_type="cpu")
+    prm = DoglegParameters()
+    for name, (fn, p0s, ns) in pts_instances(inp, mesh).items():
+        leg = f"pts_ckpt_{name}"
+        st = run_solver(fn, init_solver_state(fn, p0s, prm), prm,
+                        newton_solver=ns, max_new_attempts=2)
+        for f in ("step_count", "n_attempts", "reason", "done"):
+            out[f"{leg}/two_{f}"] = np.array(getattr(st, f))
+        path = os.path.join(tmp, f"pts_{name}")
+        checkpoint.save_state_orbax(path, st)
+        dist.barrier()
+        loaded = checkpoint.load_state_orbax(
+            path, init_solver_state(fn, p0s, prm))
+        out[f"{leg}/loaded_equal"] = np.array(_same_bits(loaded, st))
+        out[f"{leg}/placements"] = np.array(" ".join(
+            f"{k} {tuple(v.placements)}" for k, v in
+            list(loaded.p.items()) + list(loaded.JtJ._asdict().items())))
+        r = result_from_state(run_solver(fn, loaded, prm, newton_solver=ns))
+        one = solve_products(fn, p0s, prm, newton_solver=ns)
+        out[f"{leg}/same_bits"] = np.array(_same_bits(r, one))
+        _result(out, leg, r, ("step_count", "n_attempts", "reason",
+                              "norm2_x", "lam"))
+        out[f"{leg}/c"] = _np(r.p["c"].to_local())
+        out[f"{leg}/q"] = _np(r.p["q"])
+
+
+def _outlierness_pass(ba, r, **kw):
+    """get_outlierness_factors_ba of the sparse instance at a solve's
+    result (tests/test_torch_analysis.py's measurement count)."""
+    from libdogleg_tpu_torch.analysis import get_outlierness_factors_ba
+    robs, Jc, Jq = ba.observation_jacobians(r.p)
+    return get_outlierness_factors_ba(
+        robs, Jc, Jq, r.JtJ, r.lam, r.norm2_x, 2 * ba.nobs + 6 + 3 * ba.npts,
+        ba.newton_solver(), **kw)
+
+
+def leg_pts_outl(inp, out):
+    """The sparse-visibility instance's outlierness factors over its
+    point-sharded solution: a fresh pass and one reusing the strategy's
+    sharded factor, each pass's all_reduces counted, the factors
+    gathered (chunk 16: a rank's 40 points in three chunks)."""
+    from libdogleg_tpu_torch import DoglegParameters, solve_products
+    from libdogleg_tpu_torch.parallel import make_mesh, sharded
+    mesh = make_mesh(("pts",), device_type="cpu")
+    ba, ba_s, _, p0s = pts_sparse_instance(inp, mesh)
+    ns = ba.newton_solver()
+    r = solve_products(ba_s.products, p0s, DoglegParameters(),
+                       newton_solver=ns)
+    sharded.reset_counts()
+    f, scale = _outlierness_pass(ba_s, r, chunk=16)
+    out["pts_outl_count/fresh"] = np.array(sharded.all_reduce_calls)
+    fac = ns.factor(r.JtJ, r.lam)
+    sharded.reset_counts()
+    f2, scale2 = _outlierness_pass(ba_s, r, chunk=16, factorization=fac)
+    out["pts_outl_count/reused"] = np.array(sharded.all_reduce_calls)
+    out["pts_outl_local/reuse_same"] = np.array(
+        _same_bits((f, scale), (f2, scale2)))
+    out["pts_outl_local/placements"] = np.array(str(tuple(f.placements)))
+    out["pts_outl/factors"] = _np(f)
+    out["pts_outl/scale"] = _np(scale)
+    for k in ("c", "q"):
+        out[f"pts_outl/p_{k}"] = _np(r.p[k])
+    out["pts_outl/lam"] = _np(r.lam)
+    out["pts_outl/norm2_x"] = _np(r.norm2_x)
+
+
 def _same_bits(a, b) -> bool:
     """Two trees of tensors (NamedTuples, dicts, DTensors) of the same
     bits, NaN included."""
@@ -523,15 +658,60 @@ def _same_bits(a, b) -> bool:
     return True
 
 
+def _keyword_solve(fn, p0s, ns):
+    """The point-sharded solve through the `shards=` keyword on local
+    leaves (the strategy's shards set by the caller), its state wrapped
+    as solve_products wraps its own."""
+    from libdogleg_tpu_torch import (DoglegParameters, init_solver_state,
+                                     result_from_state, run_solver)
+    from libdogleg_tpu_torch.parallel.points import point_shards
+    shards, p0 = point_shards(p0s)
+    prm = DoglegParameters()
+    st = init_solver_state(fn, p0, prm, record_history=True, shards=shards)
+    st = run_solver(fn, st, prm, shards=shards,
+                    newton_solver=dataclasses.replace(ns, shards=shards))
+    return result_from_state(shards.wrap(st))
+
+
+def _placement_errors(mesh):
+    """point_shards of a SchurJtJ whose V is sharded on its axis 1, and of
+    one whose W is sharded on its axis 0: the ValueError texts."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from libdogleg_tpu_torch.ops.newton import SchurJtJ
+    from libdogleg_tpu_torch.parallel.points import point_shards
+
+    def dt(t, pl):
+        return DTensor.from_local(t, mesh, [pl], run_check=False)
+    U, W, V = (torch.zeros(s, dtype=F64) for s in ((4, 4), (4, 6, 3),
+                                                    (6, 3, 3)))
+    texts = []
+    for jtj in (SchurJtJ(dt(U, Replicate()), dt(W, Shard(1)),
+                         dt(V, Shard(1))),
+                SchurJtJ(dt(U, Replicate()), dt(W, Shard(0)),
+                         dt(V, Shard(0)))):
+        try:
+            point_shards(jtj)
+            texts.append("")
+        except ValueError as e:
+            texts.append(str(e))
+    ok = SchurJtJ(dt(U, Replicate()), dt(W, Shard(1)), dt(V, Shard(0)))
+    shards, local = point_shards(ok)
+    texts.append(f"{shards.axis_name} {type(local.W).__name__}")
+    return np.array(texts)
+
+
 def leg_one(inp, out):
     """A world of one: each point-sharded solve of the pts legs against
-    the same solve unsharded, every result field bit for bit."""
+    the same solve unsharded, every result field bit for bit; and the
+    sparse instance's outlierness pass over its sharded solution against
+    the unsharded pass, fresh and reusing the sharded factor."""
     from libdogleg_tpu_torch import DoglegParameters, solve_products
     from libdogleg_tpu_torch.models import bundle_adjustment as lba
     from libdogleg_tpu_torch.ops.newton import build_cam_gather
     from libdogleg_tpu_torch.parallel import make_mesh
     mesh = make_mesh(("pts",), device_type="cpu")
     out["one/world"] = np.array(dist.get_world_size())
+    out["one/placement_errors"] = _placement_errors(mesh)
     ba = lba.make_synthetic(seed=3, nc=8, n_points=64, block_size=3,
                             k_obs=4, dtype=F64, noise=0.05, device="cpu")
     ba_s = ba.shard(mesh)
@@ -554,6 +734,20 @@ def leg_one(inp, out):
         out[f"one/{name}/same_bits"] = np.array(_same_bits(r[0], r[1]))
         out[f"one/{name}/placements"] = np.array(str(tuple(
             r[1].p["q"].placements)))
+        if name == "schur":
+            out["one/keyword/same_bits"] = np.array(_same_bits(
+                _keyword_solve(*shard), r[1]))
+        if name == "sparse":
+            # the outlierness pass over the sharded solution against the
+            # unsharded pass, fresh and with the sharded factor
+            passes = [_outlierness_pass(sp, r[0], chunk=64),
+                      _outlierness_pass(sp_s, r[1], chunk=64),
+                      _outlierness_pass(sp_s, r[1], chunk=64,
+                                        factorization=ns.factor(
+                                            r[1].JtJ, r[1].lam))]
+            for k, got in (("fresh", passes[1]), ("reused", passes[2])):
+                out[f"one/outl/{k}_same_bits"] = np.array(
+                    _same_bits(got, passes[0]))
 
 
 def _free_port() -> int:
@@ -613,8 +807,8 @@ def spawn_group(inputs: str, tmp: str, legs: str = "all", world: int = 4,
 
 
 LEGS = {"all": ("mesh", "measurement", "dp", "compaction", "mega", "sparse",
-                "multihost", "pts_schur", "pts_sparse"),
-        "ckpt": ("ckpt",),
+                "multihost", "pts_schur", "pts_sparse", "pts_outl"),
+        "ckpt": ("ckpt", "pts_ckpt"),
         "one": ("one",)}
 
 
@@ -635,8 +829,8 @@ def main():
         inp = {k: f[k] for k in f.files}
     out = {}
     for leg in LEGS[args.legs]:
-        if leg == "ckpt":
-            leg_ckpt(inp, out, os.path.dirname(args.out))
+        if leg in ("ckpt", "pts_ckpt"):
+            globals()[f"leg_{leg}"](inp, out, os.path.dirname(args.out))
         else:
             globals()[f"leg_{leg}"](inp, out)
     np.savez(args.out, **out)
