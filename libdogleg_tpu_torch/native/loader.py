@@ -65,6 +65,10 @@ _LIB: Optional[ctypes.CDLL] = None
 _HOST_LIB: Optional[ctypes.CDLL] = None
 _HOST_TRIED = False
 _GENERATED: dict = {}   # (generated source, host) -> its bound library
+# Seconds (perf_counter) spent in this process finding, building and loading
+# libraries the process had not loaded yet (load_library, load_host_library,
+# load_generated); a lookup of a loaded library adds nothing.
+native_seconds = 0.0
 
 
 class BuildInfo(NamedTuple):
@@ -286,16 +290,21 @@ def load_generated(source: str, host: bool = False) -> ctypes.CDLL:
     """The library of a generated source, built at its first use (nvcc, or
     g++ where `host`), bound and cached in the process by the source's
     text: a later call with the same text neither hashes nor builds."""
+    global native_seconds
     key = (source, host)
     lib = _GENERATED.get(key)
     if lib is not None:
         return lib
-    info = build_generated_host(source) if host else build_generated(
-        source)[0]
-    with _LOCK:
-        if key not in _GENERATED:
-            _GENERATED[key] = bind_generated(ctypes.CDLL(str(info.path)))
-        return _GENERATED[key]
+    t0 = time.perf_counter()
+    try:
+        info = build_generated_host(source) if host else build_generated(
+            source)[0]
+        with _LOCK:
+            if key not in _GENERATED:
+                _GENERATED[key] = bind_generated(ctypes.CDLL(str(info.path)))
+            return _GENERATED[key]
+    finally:
+        native_seconds += time.perf_counter() - t0
 
 
 def _bind_host(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -326,14 +335,16 @@ def load_host_library() -> Optional[ctypes.CDLL]:
     """The host library of the symbolic analysis, built on first use and
     cached in the process; None where it cannot be built or loaded (the
     callers then take their Python forms). One attempt a process."""
-    global _HOST_LIB, _HOST_TRIED
+    global _HOST_LIB, _HOST_TRIED, native_seconds
     with _LOCK:
         if not _HOST_TRIED:
             _HOST_TRIED = True
+            t0 = time.perf_counter()
             try:
                 _HOST_LIB = _bind_host(ctypes.CDLL(str(build_host().path)))
             except (OSError, RuntimeError, AttributeError):
                 _HOST_LIB = None
+            native_seconds += time.perf_counter() - t0
         return _HOST_LIB
 
 
@@ -424,8 +435,12 @@ def launch_target(device) -> tuple:
 
 def load_library() -> ctypes.CDLL:
     """The kernel library, built on first use and cached in the process."""
-    global _LIB
+    global _LIB, native_seconds
     with _LOCK:
         if _LIB is None:
-            _LIB = _bind(ctypes.CDLL(str(build().path)))
+            t0 = time.perf_counter()
+            try:
+                _LIB = _bind(ctypes.CDLL(str(build().path)))
+            finally:
+                native_seconds += time.perf_counter() - t0
         return _LIB

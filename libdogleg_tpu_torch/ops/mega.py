@@ -57,6 +57,7 @@ from libdogleg_tpu_torch.ops import compensated
 from libdogleg_tpu_torch.params import DoglegParameters
 from libdogleg_tpu_torch.solver import (Products, SolveResult,
                                         solve_products_batched)
+from libdogleg_tpu_torch.telemetry import span
 
 # Products functions the kernel computes on the device, by the name their
 # `cuda_device_function` attribute carries.
@@ -218,13 +219,14 @@ def megakernel_optimize(p0: torch.Tensor, meas: torch.Tensor,
     """
     global launch_count
     prm = parameters if parameters is not None else DoglegParameters()
-    _check(p0, meas, gx, gy)
     if p0.device.type == "cpu":
         return megakernel_optimize_reference(p0, meas, gx, gy, prm)
-    _require_cuda(p0)
-    ins = _general_inputs(p0, meas, gx, gy)
-    result = _launch_solve(_named_entry("dogleg_mega", p0.dtype), ins[0],
-                           [t.data_ptr() for t in ins[1:]], prm)
+    with span("dogleg.launch"):
+        _check(p0, meas, gx, gy)
+        _require_cuda(p0)
+        ins = _general_inputs(p0, meas, gx, gy)
+        result = _launch_solve(_named_entry("dogleg_mega", p0.dtype), ins[0],
+                               [t.data_ptr() for t in ins[1:]], prm)
     launch_count += 1
     return result
 
@@ -264,14 +266,16 @@ def megakernel_optimize_factored(p0: torch.Tensor, h_hi: torch.Tensor,
     megakernel_optimize_factored_reference."""
     global factored_launch_count
     prm = parameters if parameters is not None else DoglegParameters()
-    _check_factored(p0, h_hi, h_lo, n2m_hi, n2m_lo, G_pair)
     if p0.device.type == "cpu":
         return megakernel_optimize_factored_reference(
             p0, h_hi, h_lo, n2m_hi, n2m_lo, G_pair, prm)
-    _require_cuda(p0)
-    ins = _factored_inputs(p0, h_hi, h_lo, n2m_hi, n2m_lo, G_pair)
-    result = _launch_solve(_named_entry("dogleg_mega_factored", p0.dtype),
-                           ins[0], [t.data_ptr() for t in ins[1:]], prm)
+    with span("dogleg.launch"):
+        _check_factored(p0, h_hi, h_lo, n2m_hi, n2m_lo, G_pair)
+        _require_cuda(p0)
+        ins = _factored_inputs(p0, h_hi, h_lo, n2m_hi, n2m_lo, G_pair)
+        result = _launch_solve(
+            _named_entry("dogleg_mega_factored", p0.dtype), ins[0],
+            [t.data_ptr() for t in ins[1:]], prm)
     factored_launch_count += 1
     return result
 
@@ -351,19 +355,20 @@ def megakernel_optimize_generated(kernel, p0: torch.Tensor, data_leaves=(),
     CUDA raises."""
     global auto_launch_count
     prm = parameters if parameters is not None else DoglegParameters()
-    _check_generated(kernel, p0, data_leaves)
     if p0.device.type == "cpu":
         return megakernel_optimize_generated_reference(kernel, p0,
                                                        data_leaves, prm,
                                                        consts)
-    lib = kernel.library()
-    _require_cuda(p0)
-    p0 = p0.contiguous()
-    tensors, ptrs = _generated_ins(kernel, p0, data_leaves, consts)
-    entry = (lib.dogleg_auto_solve_f32 if p0.dtype == torch.float32
-             else lib.dogleg_auto_solve_f64)
-    result = _launch_solve(entry, p0, [ctypes.addressof(ptrs)], prm)
-    del tensors
+    with span("dogleg.launch"):
+        _check_generated(kernel, p0, data_leaves)
+        lib = kernel.library()
+        _require_cuda(p0)
+        p0 = p0.contiguous()
+        tensors, ptrs = _generated_ins(kernel, p0, data_leaves, consts)
+        entry = (lib.dogleg_auto_solve_f32 if p0.dtype == torch.float32
+                 else lib.dogleg_auto_solve_f64)
+        result = _launch_solve(entry, p0, [ctypes.addressof(ptrs)], prm)
+        del tensors
     auto_launch_count += 1
     return result
 

@@ -38,6 +38,7 @@ from libdogleg_tpu_torch.solver import (SolveResult, init_batched_state,
                                         result_from_batched_state,
                                         run_batched_solver,
                                         solve_products_batched)
+from libdogleg_tpu_torch.telemetry import span
 
 # Auto-selection bounds for BlockedDenseNewtonSolver (the JAX package's,
 # parallel/batched.py:31-38): a real batch and a capped Nstate. Explicit
@@ -263,37 +264,38 @@ def _prepare(products_fn, p0_batch, parameters, mesh, axis_name,
     (local) batch for the masked solver and batched_of(idx) that of the
     elements idx (their problem_data gathered), and newton_solver is the
     given or auto-selected strategy."""
-    _check_layout(layout)
-    global_batch = tv.tree_leaves(p0_batch)[0].shape[0]
-    if mesh is not None:
-        p0_batch = local_blocks(p0_batch, mesh, axis_name)
-        if problem_data is not None:
-            problem_data = local_blocks(problem_data, mesh, axis_name)
-    prm = parameters if parameters is not None else DoglegParameters()
-    if _kernel_takes(products_fn, p0_batch, newton_solver, record_history,
-                     use_megakernel):
-        return _Prepared(prm, None, None, lambda: _run_megakernel(
-            products_fn, p0_batch, problem_data, prm), p0_batch,
-            global_batch)
-    plan = _try_megakernel(products_fn, p0_batch, prm, problem_data,
-                           newton_solver, record_history, use_megakernel,
-                           global_batch)
-    if plan is not None:
-        return _Prepared(prm, None, None, plan, p0_batch, global_batch)
-    _check_start(p0_batch, newton_solver)
-    if newton_solver is None:
-        newton_solver = _auto_newton(products_fn, p0_batch, problem_data,
-                                     global_batch)
-    vf = _vmapped(products_fn)
+    with span("dogleg.route"):
+        _check_layout(layout)
+        global_batch = tv.tree_leaves(p0_batch)[0].shape[0]
+        if mesh is not None:
+            p0_batch = local_blocks(p0_batch, mesh, axis_name)
+            if problem_data is not None:
+                problem_data = local_blocks(problem_data, mesh, axis_name)
+        prm = parameters if parameters is not None else DoglegParameters()
+        if _kernel_takes(products_fn, p0_batch, newton_solver, record_history,
+                         use_megakernel):
+            return _Prepared(prm, None, None, lambda: _run_megakernel(
+                products_fn, p0_batch, problem_data, prm), p0_batch,
+                global_batch)
+        plan = _try_megakernel(products_fn, p0_batch, prm, problem_data,
+                               newton_solver, record_history, use_megakernel,
+                               global_batch)
+        if plan is not None:
+            return _Prepared(prm, None, None, plan, p0_batch, global_batch)
+        _check_start(p0_batch, newton_solver)
+        if newton_solver is None:
+            newton_solver = _auto_newton(products_fn, p0_batch, problem_data,
+                                         global_batch)
+        vf = _vmapped(products_fn)
 
-    def batched_of(idx=None):
-        if problem_data is None:
-            return vf
-        data = (problem_data if idx is None else
-                pytree.tree_map(lambda a: a[idx], problem_data))
-        return lambda p: vf(p, data)
-    return _Prepared(prm, newton_solver, batched_of, None, p0_batch,
-                     global_batch)
+        def batched_of(idx=None):
+            if problem_data is None:
+                return vf
+            data = (problem_data if idx is None else
+                    pytree.tree_map(lambda a: a[idx], problem_data))
+            return lambda p: vf(p, data)
+        return _Prepared(prm, newton_solver, batched_of, None, p0_batch,
+                         global_batch)
 
 
 def _global_count(n: torch.Tensor, mesh, axis_name: str) -> int:
@@ -386,17 +388,18 @@ def batched_optimize(products_fn,
     Returns a SolveResult whose leaves carry the leading batch axis; under
     a mesh they are DTensors sharded on it (Shard(0) on the axis).
     """
-    pr = _prepare(products_fn, p0_batch, parameters, mesh, axis_name,
-                  problem_data, newton_solver, layout, record_history,
-                  use_megakernel)
-    if pr.kernel is not None:
-        r = pr.kernel()
-    else:
-        r = solve_products_batched(pr.batched_of(), pr.p0, pr.prm,
-                                   newton_solver=pr.newton_solver,
-                                   record_history=record_history,
-                                   history_capacity=history_capacity)
-    return r if mesh is None else sharded_like(r, mesh, axis_name)
+    with span("dogleg.call"):
+        pr = _prepare(products_fn, p0_batch, parameters, mesh, axis_name,
+                      problem_data, newton_solver, layout, record_history,
+                      use_megakernel)
+        if pr.kernel is not None:
+            r = pr.kernel()
+        else:
+            r = solve_products_batched(pr.batched_of(), pr.p0, pr.prm,
+                                       newton_solver=pr.newton_solver,
+                                       record_history=record_history,
+                                       history_capacity=history_capacity)
+        return r if mesh is None else sharded_like(r, mesh, axis_name)
 
 
 def batched_optimize_compacted(products_fn,
@@ -445,38 +448,41 @@ def batched_optimize_compacted(products_fn,
     into a buffer sharded over the same axis). The other arguments are
     batched_optimize's.
     """
-    pr = _prepare(products_fn, p0_batch, parameters, mesh, axis_name,
-                  problem_data, newton_solver, layout, record_history,
-                  use_megakernel)
-    if pr.kernel is not None:
-        r = pr.kernel()
+    with span("dogleg.call"):
+        pr = _prepare(products_fn, p0_batch, parameters, mesh, axis_name,
+                      problem_data, newton_solver, layout, record_history,
+                      use_megakernel)
+        if pr.kernel is not None:
+            r = pr.kernel()
+            return r if mesh is None else sharded_like(r, mesh, axis_name)
+        prm, newton_solver = pr.prm, pr.newton_solver
+        batched_of = pr.batched_of
+        cap = compact_capacity or max(pr.global_batch // 16, 1)
+        full = batched_of()
+
+        def advance(st, k):
+            return run_batched_solver(full, st, prm,
+                                      newton_solver=newton_solver,
+                                      max_new_attempts=k)
+
+        st = init_batched_state(full, pr.p0, prm,
+                                record_history=record_history,
+                                history_capacity=history_capacity)
+        if phase1_attempts is not None:
+            st = advance(st, phase1_attempts)
+        else:
+            # the live count of the whole batch: one all_reduce a wavefront
+            # under a mesh, so that every rank runs the same attempts here
+            while _global_count((~st.done).sum(), mesh, axis_name) > cap:
+                st = advance(st, 1)
+        idx = torch.nonzero(~st.done)[:cap, 0]
+        if idx.numel():
+            # every field of the state, trees, SchurJtJ and History included,
+            # gathered on its leading axis and scattered back
+            sub = run_batched_solver(
+                batched_of(idx), tv.tree_map(lambda a: a[idx], st), prm,
+                newton_solver=newton_solver)
+            st = tv.tree_map(lambda a, part: a.index_copy(0, idx, part), st,
+                             sub)
+        r = result_from_batched_state(advance(st, None))
         return r if mesh is None else sharded_like(r, mesh, axis_name)
-    prm, newton_solver, batched_of = pr.prm, pr.newton_solver, pr.batched_of
-    cap = compact_capacity or max(pr.global_batch // 16, 1)
-    full = batched_of()
-
-    def advance(st, k):
-        return run_batched_solver(full, st, prm, newton_solver=newton_solver,
-                                  max_new_attempts=k)
-
-    st = init_batched_state(full, pr.p0, prm,
-                            record_history=record_history,
-                            history_capacity=history_capacity)
-    if phase1_attempts is not None:
-        st = advance(st, phase1_attempts)
-    else:
-        # the live count of the whole batch: one all_reduce a wavefront
-        # under a mesh, so that every rank runs the same attempts here
-        while _global_count((~st.done).sum(), mesh, axis_name) > cap:
-            st = advance(st, 1)
-    idx = torch.nonzero(~st.done)[:cap, 0]
-    if idx.numel():
-        # every field of the state, trees, SchurJtJ and History included,
-        # gathered on its leading axis and scattered back
-        sub = run_batched_solver(
-            batched_of(idx), tv.tree_map(lambda a: a[idx], st), prm,
-            newton_solver=newton_solver)
-        st = tv.tree_map(lambda a, part: a.index_copy(0, idx, part), st,
-                         sub)
-    r = result_from_batched_state(advance(st, None))
-    return r if mesh is None else sharded_like(r, mesh, axis_name)

@@ -55,6 +55,7 @@ import inspect
 import math
 import os
 import threading
+import time
 import types
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -63,6 +64,7 @@ from torch.utils import _pytree as pytree
 
 from libdogleg_tpu_torch.params import DoglegParameters
 from libdogleg_tpu_torch.solver import Products, SolveResult
+from libdogleg_tpu_torch.telemetry import span
 
 # The kernel unrolls the step math over Nstate (the JAX package's cap).
 MEGA_MAX_N = 16
@@ -1159,8 +1161,10 @@ class MegaPlan:
 # The plan cache (P11)
 
 # make_fx traces made by plan_megakernel in this process, one per miss of
-# the plan cache, as ops/mega.auto_launch_count counts K1-auto's launches.
+# the plan cache, as ops/mega.auto_launch_count counts K1-auto's launches,
+# and the seconds they took with their code generation (perf_counter).
 trace_count = 0
+trace_seconds = 0.0
 PLAN_CACHE_SIZE = 64
 # key -> (kernel, const indices), or ((the exception's type, args), ())
 _PLANS: Dict[tuple, tuple] = {}
@@ -1321,14 +1325,17 @@ def _elem_key(t: torch.Tensor) -> tuple:
 def _trace(products_fn, p0_batch, data_elem):
     """A fresh trace and generation: the kernel, or the error a trace
     raises."""
-    global trace_count
+    global trace_count, trace_seconds
     trace_count += 1
+    t0 = time.perf_counter()
     try:
         adapted = adapt_products(products_fn, p0_batch[0], data_elem)
         return GeneratedKernel(adapted, generate_source(adapted,
                                                         p0_batch.dtype))
     except Exception as e:      # the plan's answer: None, or the raise
         return e
+    finally:
+        trace_seconds += time.perf_counter() - t0
 
 
 def _planned(products_fn, p0_batch, problem_data, data_elem):
@@ -1437,7 +1444,7 @@ def plan_megakernel(products_fn, p0_batch,
                        or p0_batch.device.type == "cpu"):
         return None
     if problem_data is None:
-        leaves, data_elem = [], None
+        leaves = []
     else:
         leaves = pytree.tree_leaves(problem_data)
         if not all(isinstance(t, torch.Tensor) and t.dim() >= 1
@@ -1446,9 +1453,12 @@ def plan_megakernel(products_fn, p0_batch,
                 raise ValueError("problem_data's leaves must be tensors "
                                  "with the batch's leading axis")
             return None
-        data_elem = pytree.tree_map(lambda a: a[0], problem_data)
     prm = parameters if parameters is not None else DoglegParameters()
-    kernel, consts = _planned(products_fn, p0_batch, problem_data, data_elem)
+    with span("dogleg.plan"):
+        data_elem = (None if problem_data is None
+                     else pytree.tree_map(lambda a: a[0], problem_data))
+        kernel, consts = _planned(products_fn, p0_batch, problem_data,
+                                  data_elem)
     if isinstance(kernel, Exception):
         if forced:
             raise kernel
