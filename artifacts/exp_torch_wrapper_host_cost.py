@@ -4,12 +4,13 @@ PyTorch calls the kernels are measured against.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
-    PYTHONPATH=. python3 artifacts/exp_torch_wrapper_host_cost.py
+    PYTHONPATH=. python3 artifacts/exp_torch_wrapper_host_cost.py [k1]
 
-Each line is the host's time per call (time.perf_counter over 3000 calls
-issued back to back, the card synchronized before and after; 300 or 100
-calls where the kernel takes longer than its wrapper, so that the launch
-queue never fills and the host never waits for the card), on the
+(`k1`: K1's section alone.) Each line is the host's time per call
+(time.perf_counter over 3000 calls issued back to back, the card
+synchronized before and after; 300 or 100 calls where the kernel takes
+longer than its wrapper, so that the launch queue never fills and the host
+never waits for the card), on the
 32x32x8 grid model's block-CSR Jacobian for K4's wrapper, on (1756, 8, 8)
 tiles for K6's and K7's, and on (21, 128, 128) tiles for K6's and a 256-wide
 panel for K2's: the argument checks, the library handle, the cached
@@ -23,8 +24,9 @@ that the tensors are plain and untraced, the plan's cached launch record,
 the contiguity checks and data pointers, the stream handle, the ctypes
 call of four arguments that launches the kernel), the whole add_, the
 generic launch of thirteen arguments that the operator takes, and
-index_add_ for scale. Last, K1's two wrappers at B=8192 float32 with
-either stream handle, in turns.
+index_add_ for scale. Last, K1's launch at B=8192 float32: the three
+wrappers through the native launcher (csrc/launch.cpp) and the Python and
+ctypes launch it replaced, each whole and in pieces, in turns.
 """
 
 from __future__ import annotations
@@ -136,30 +138,122 @@ def segment_add_host_cost(dev) -> None:
 
 
 def k1_host_cost(dev) -> None:
-    """Both of K1's wrappers at B=8192 float32, each taking its stream
-    through launch_target and, in turns, through a torch.cuda.Stream object
-    built per call (the form they had before), in the order new, old, old,
-    new. 100 calls a reading: the kernel takes longer than its wrapper."""
+    """K1's launch at B=8192 float32, piece by piece: the native launcher
+    (csrc/launch.cpp) that the wrappers call, and the Python and ctypes
+    launch it replaced (`ctypes_launch`, the earlier wrapper's code), each
+    whole and in pieces, in the order native, ctypes, ctypes, native. 100
+    calls a reading: the kernel takes longer than its launch."""
     from libdogleg_tpu_torch import DoglegParameters
     from libdogleg_tpu_torch.native import loader
     from libdogleg_tpu_torch.ops import mega
+    from libdogleg_tpu_torch.parallel import mega_auto
+    from libdogleg_tpu_torch.solver import SolveResult
     bench = DoglegParameters(**c.BENCH)
     general = c.instances(1, c.BATCH, torch.float32, dev)
     factored, _ = c.factored_args(1, c.BATCH, torch.float32, dev)
-    new = loader.launch_target
+    _, fn, p3, m3 = c.auto_cases(torch.float32, dev, (c.BATCH, 1, 1))[0]
+    plan = mega_auto.plan_megakernel(fn, p3, None, problem_data=m3,
+                                     forced=True)
+    generated = (plan.kernel, p3, plan.data_leaves, bench, plan.consts)
+    launcher = loader.load_launcher()
+    entry = mega._named_entry("dogleg_mega", torch.float32)
+    params = mega._params_address(bench)
+    outs = launcher.general(entry, params, *general)
+    ctypes_entry = loader.load_library().dogleg_mega_f32
+    for form in ("native", "ctypes", "ctypes", "native"):
+        if form == "native":
+            host_us("K1 general wrapper (native launcher)",
+                    lambda: mega.megakernel_optimize(*general, bench),
+                    reps=100)
+            host_us("K1 factored wrapper (native launcher)",
+                    lambda: mega.megakernel_optimize_factored(*factored,
+                                                              bench),
+                    reps=100)
+            host_us("K1 generated wrapper (native launcher), config 3",
+                    lambda: mega.megakernel_optimize_generated(*generated),
+                    reps=100)
+            host_us("native: the launcher's call (checks, outputs, launch)",
+                    lambda: launcher.general(entry, params, *general),
+                    reps=100)
+            host_us("native: the entry's address (cached)",
+                    lambda: mega._named_entry("dogleg_mega", torch.float32))
+            host_us("native: the parameter struct's address",
+                    lambda: mega._params_address(bench))
+            host_us("native: the launcher's lookup", loader.load_launcher)
+            host_us("native: SolveResult of the nine outputs",
+                    lambda: SolveResult(*outs))
+        else:
+            host_us("K1 general wrapper (ctypes launch)",
+                    lambda: ctypes_launch(ctypes_entry, *general, bench),
+                    reps=100)
+            ctypes_pieces(ctypes_entry, *general, bench)
 
-    def old(device):
-        return device.index or 0, torch.cuda.current_stream(device).cuda_stream
-    for form, target in (("launch_target", new), ("Stream object", old),
-                         ("Stream object", old), ("launch_target", new)):
-        loader.launch_target = target
-        host_us(f"K1 general wrapper B={c.BATCH}, stream by {form}",
-                lambda: mega.megakernel_optimize(*general, bench), reps=100)
-        host_us(f"K1 factored wrapper B={c.BATCH}, stream by {form}",
-                lambda: mega.megakernel_optimize_factored(*factored, bench),
-                reps=100)
-    loader.launch_target = new
+
+def _ctypes_outputs(p0):
+    B, n = p0.shape
+    dev, dt = p0.device, p0.dtype
+    p = torch.empty((B, n), dtype=dt, device=dev)
+    jtx = torch.empty((B, n), dtype=dt, device=dev)
+    jtj = torch.empty((B, n, n), dtype=dt, device=dev)
+    norm2, tr, lam = torch.empty((3, B), dtype=dt, device=dev).unbind(0)
+    step_count, n_attempts, reason = torch.empty(
+        (3, B), dtype=torch.int32, device=dev).unbind(0)
+    return p, jtx, jtj, norm2, tr, lam, step_count, n_attempts, reason
+
+
+def ctypes_launch(entry, p0, meas, gx, gy, prm):
+    """K1's general launch as the wrappers made it before the launcher:
+    Python checks, contiguous inputs, five torch.empty and two unbind for
+    the outputs, the ctypes call of the entry, the SolveResult."""
+    import ctypes
+
+    from libdogleg_tpu_torch.native.loader import launch_target
+    from libdogleg_tpu_torch.ops import mega
+    from libdogleg_tpu_torch.solver import SolveResult
+    mega._check(p0, meas, gx, gy)
+    mega._require_cuda(p0)
+    ins = mega._general_inputs(p0, meas, gx, gy)
+    p0 = ins[0]
+    o = _ctypes_outputs(p0)
+    err = entry(p0.data_ptr(), *(t.data_ptr() for t in ins[1:]), p0.shape[0],
+                ctypes.byref(mega._c_params(prm)), *(t.data_ptr() for t in o),
+                *launch_target(p0.device))
+    if err:
+        raise RuntimeError(f"megakernel launch failed: cudaError_t {err}")
+    return SolveResult(p=o[0], norm2_x=o[3], Jt_x=o[1], JtJ=o[2],
+                       step_count=o[6], n_attempts=o[7], reason=o[8],
+                       trustregion=o[4], lam=o[5])
+
+
+def ctypes_pieces(entry, p0, meas, gx, gy, prm) -> None:
+    import ctypes
+
+    from libdogleg_tpu_torch.native.loader import launch_target
+    from libdogleg_tpu_torch.ops import mega
+    from libdogleg_tpu_torch.solver import SolveResult
+    host_us("ctypes: the checks", lambda: mega._check(p0, meas, gx, gy))
+    host_us("ctypes: contiguous inputs",
+            lambda: mega._general_inputs(p0, meas, gx, gy))
+    host_us("ctypes: five torch.empty and two unbind",
+            lambda: _ctypes_outputs(p0))
+    o = _ctypes_outputs(p0)
+    args = (p0.data_ptr(), meas.data_ptr(), gx.data_ptr(), gy.data_ptr(),
+            p0.shape[0], ctypes.byref(mega._c_params(prm)),
+            *(t.data_ptr() for t in o), *launch_target(p0.device))
+    host_us("ctypes: data pointers and the stream handle",
+            lambda: ([t.data_ptr() for t in o], launch_target(p0.device)))
+    host_us("ctypes: the ctypes call (the launch)", lambda: entry(*args),
+            reps=100)
+    host_us("ctypes: SolveResult by field names",
+            lambda: SolveResult(p=o[0], norm2_x=o[3], Jt_x=o[1], JtJ=o[2],
+                                step_count=o[6], n_attempts=o[7],
+                                reason=o[8], trustregion=o[4], lam=o[5]))
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+    if sys.argv[1:] == ["k1"]:
+        print(f"[host cost] card {c.card_line()}", flush=True)
+        k1_host_cost(torch.device("cuda", 0))
+    else:
+        main()

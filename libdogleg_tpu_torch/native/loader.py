@@ -22,6 +22,12 @@ flags, under a name that carries the hash of the source, the headers and
 the flags, so a second call with the same function builds nothing;
 `build_generated_host` builds the same text with g++ for the CPU tests.
 
+K1's host-side launch (csrc/launch.cpp: its checks, outputs and entry call,
+ops/mega.py's CUDA branch) is a Python extension module built with g++
+against PyTorch's headers and libraries by `build_launcher`, at the first
+launch on a card, under a name that carries the hash of its source, the
+flags, PyTorch's version and Python's; it needs no nvcc and no ninja.
+
 Nothing is compiled or loaded at import time.
 """
 
@@ -29,10 +35,13 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import pathlib
 import shutil
 import subprocess
+import sys
+import sysconfig
 import tempfile
 import threading
 import time
@@ -60,14 +69,21 @@ HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 GENERATED_HOST_FLAGS = ("-O0", "-shared", "-fPIC", "-std=c++17",
                         "-ffp-contract=off")
 
+# K1's launcher (csrc/launch.cpp), a Python extension module: g++'s flags
+# before PyTorch's ABI defines and the include paths (launcher_flags).
+LAUNCH_SOURCE = _SRC / "launch.cpp"
+LAUNCH_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++20")
+LAUNCH_MODULE = "dogleg_launch"
+
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
+_LAUNCHER = None
 _HOST_LIB: Optional[ctypes.CDLL] = None
 _HOST_TRIED = False
 _GENERATED: dict = {}   # (generated source, host) -> its bound library
 # Seconds (perf_counter) spent in this process finding, building and loading
 # libraries the process had not loaded yet (load_library, load_host_library,
-# load_generated); a lookup of a loaded library adds nothing.
+# load_generated, load_launcher); a lookup of a loaded library adds nothing.
 native_seconds = 0.0
 
 
@@ -91,6 +107,13 @@ def find_nvcc() -> str:
     if not found:
         raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on "
                            "PATH")
+    return found
+
+
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found on PATH")
     return found
 
 
@@ -181,15 +204,17 @@ def build_host() -> BuildInfo:
     so = host_library_path()
     if so.exists():
         return BuildInfo(so, 0.0, "")
+    return _build_one(so, [_gxx(), *HOST_FLAGS, *map(str, host_sources())])
+
+
+def _build_one(so: pathlib.Path, cmd, tail=()) -> BuildInfo:
+    """Run `cmd` -o <a temporary name> `tail`, then rename the output to
+    `so`, atomically."""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    gxx = shutil.which("g++")
-    if gxx is None:
-        raise RuntimeError("g++ not found on PATH")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmpdir:
         tmp = os.path.join(tmpdir, so.name)
-        log = "".join(_run([[gxx, *HOST_FLAGS, *map(str, host_sources()),
-                             "-o", tmp]]))
+        log = "".join(_run([[*cmd, "-o", tmp, *tail]]))
         os.replace(tmp, so)
     return BuildInfo(so, time.perf_counter() - t0, log)
 
@@ -251,13 +276,8 @@ def build_generated_host(source: str) -> BuildInfo:
     """The same text built as host C++ with g++ (GENERATED_HOST_FLAGS): the
     entries dogleg_auto_host_solve_* and dogleg_auto_host_products_*, for
     the CPU tests. Raises RuntimeError where g++ is missing or fails."""
-    def gxx():
-        found = shutil.which("g++")
-        if found is None:
-            raise RuntimeError("g++ not found on PATH")
-        return found
     return _build_sources(
-        [source], gxx, ("-x", "c++", *GENERATED_HOST_FLAGS),
+        [source], _gxx, ("-x", "c++", *GENERATED_HOST_FLAGS),
         lambda src: _generated_path("libdogleg_auto_host", src,
                                     GENERATED_HOST_FLAGS))[0]
 
@@ -436,6 +456,8 @@ def launch_target(device) -> tuple:
 def load_library() -> ctypes.CDLL:
     """The kernel library, built on first use and cached in the process."""
     global _LIB, native_seconds
+    if _LIB is not None:
+        return _LIB
     with _LOCK:
         if _LIB is None:
             t0 = time.perf_counter()
@@ -444,3 +466,65 @@ def load_library() -> ctypes.CDLL:
             finally:
                 native_seconds += time.perf_counter() - t0
         return _LIB
+
+
+def launcher_flags():
+    """(g++'s flags, the libraries to link) for K1's launcher: LAUNCH_FLAGS,
+    the C++ ABI PyTorch was built with, PyTorch's headers and Python's;
+    PyTorch's libraries. The paths are those torch.utils.cpp_extension
+    gives, read from the installed package without importing that module
+    (a quarter of a second)."""
+    import torch
+    root = pathlib.Path(torch.__file__).resolve().parent
+    abi = int(torch._C._GLIBCXX_USE_CXX11_ABI)
+    flags = (*LAUNCH_FLAGS, f"-D_GLIBCXX_USE_CXX11_ABI={abi}",
+             f"-I{root / 'include'}", f"-I{sysconfig.get_paths()['include']}")
+    lib = root / "lib"
+    return flags, (f"-L{lib}", f"-Wl,-rpath,{lib}", "-lc10", "-ltorch",
+                   "-ltorch_cpu", "-ltorch_python")
+
+
+def launcher_path() -> pathlib.Path:
+    """The launcher's build: its name carries the hash of the source, the
+    flags and libraries, PyTorch's version and Python's."""
+    import torch
+    flags, libs = launcher_flags()
+    return _BUILD_DIR / _hashed_name(
+        LAUNCH_MODULE, (*flags, *libs, torch.__version__, sys.version),
+        [LAUNCH_SOURCE])
+
+
+def build_launcher() -> BuildInfo:
+    """Compile csrc/launch.cpp with g++ unless a build of the same source,
+    flags, PyTorch and Python exists. Raises RuntimeError where g++ is
+    missing or fails."""
+    so = launcher_path()
+    if so.exists():
+        return BuildInfo(so, 0.0, "")
+    flags, libs = launcher_flags()
+    return _build_one(so, [_gxx(), *flags, str(LAUNCH_SOURCE)], libs)
+
+
+def load_launcher():
+    """K1's launcher module (csrc/launch.cpp), built on first use and
+    cached in the process. Raises RuntimeError where it cannot be built or
+    imported."""
+    global _LAUNCHER, native_seconds
+    if _LAUNCHER is not None:
+        return _LAUNCHER
+    with _LOCK:
+        if _LAUNCHER is None:
+            t0 = time.perf_counter()
+            try:
+                path = build_launcher().path
+                spec = importlib.util.spec_from_file_location(LAUNCH_MODULE,
+                                                              path)
+                module = importlib.util.module_from_spec(spec)
+                spec.loader.exec_module(module)
+                _LAUNCHER = module
+            except ImportError as e:
+                raise RuntimeError(f"K1's launcher {path} cannot be "
+                                   f"imported: {e}") from e
+            finally:
+                native_seconds += time.perf_counter() - t0
+        return _LAUNCHER

@@ -22,7 +22,12 @@ of two products functions:
 The JAX package pins its kernel to decision parity with its batched solver
 (tests/test_pallas_mega.py), which is what makes that solver the kernel's
 plain version. On a CPU tensor each wrapper runs its twin; on a CUDA tensor
-it launches the kernel on the current stream or raises.
+it launches the kernel on the current stream or raises. The launch on any
+other tensor than a CPU one is one call of K1's launcher (csrc/launch.cpp,
+built by native/loader.load_launcher at the first launch): the input
+checks, which raise ValueError before anything is launched, contiguous
+inputs, the nine outputs and the call of the solve entry, whose address
+and the parameter struct's it takes from here.
 
 A third form takes any products function that parallel/mega_auto.py can
 trace and generate a functor for (K1 at any Nstate <= 16, csrc/
@@ -53,6 +58,7 @@ from typing import Optional, Tuple
 import torch
 
 from libdogleg_tpu_torch.models import quadratic_surface as qs
+from libdogleg_tpu_torch.native import loader
 from libdogleg_tpu_torch.ops import compensated
 from libdogleg_tpu_torch.params import DoglegParameters
 from libdogleg_tpu_torch.solver import (Products, SolveResult,
@@ -72,6 +78,9 @@ factored_launch_count = 0
 auto_launch_count = 0
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
+
+# (library, solve entry, dtype) -> the entry's address (_entry)
+_ENTRIES: dict = {}
 
 
 class _MegaParams(ctypes.Structure):
@@ -102,8 +111,7 @@ def kernel_group(factored: bool = False) -> int:
     """Lanes per problem of the general or the factored instance, as
     csrc/mega.cu sets them (K1_GENERAL_GROUP, K1_FACTORED_GROUP), read from
     the loaded library (building it if need be)."""
-    from libdogleg_tpu_torch.native.loader import load_library
-    return int(load_library().dogleg_mega_group(int(factored)))
+    return int(loader.load_library().dogleg_mega_group(int(factored)))
 
 
 def _check_like(p0, want) -> None:
@@ -153,36 +161,24 @@ def _factored_inputs(p0, h_hi, h_lo, n2m_hi, n2m_lo, G_pair):
                  for t in (p0, h_hi, h_lo, n2m_hi, n2m_lo, *G_pair))
 
 
-def _launch_solve(entry, p0: torch.Tensor, ins,
-                  prm: DoglegParameters) -> SolveResult:
-    """Launch the solve entry `entry` of p0's dtype: p0's pointer, then
-    `ins` (pointers as ints), then B, the parameters, the outputs
-    allocated on p0's device, and the launch target. Returns the outputs as
-    a batch-leading SolveResult."""
-    from libdogleg_tpu_torch.native.loader import launch_target
-    B, n = p0.shape
-    dev, dt = p0.device, p0.dtype
-    p = torch.empty((B, n), dtype=dt, device=dev)
-    jtx = torch.empty((B, n), dtype=dt, device=dev)
-    jtj = torch.empty((B, n, n), dtype=dt, device=dev)
-    norm2, tr, lam = torch.empty((3, B), dtype=dt, device=dev).unbind(0)
-    step_count, n_attempts, reason = torch.empty(
-        (3, B), dtype=torch.int32, device=dev).unbind(0)
-    err = entry(p0.data_ptr(), *ins, B, ctypes.byref(_c_params(prm)),
-                p.data_ptr(), jtx.data_ptr(), jtj.data_ptr(), norm2.data_ptr(),
-                tr.data_ptr(), lam.data_ptr(), step_count.data_ptr(),
-                n_attempts.data_ptr(), reason.data_ptr(), *launch_target(dev))
-    if err:
-        raise RuntimeError(f"megakernel launch failed: cudaError_t {err}")
-    return SolveResult(p=p, norm2_x=norm2, Jt_x=jtx, JtJ=jtj,
-                       step_count=step_count, n_attempts=n_attempts,
-                       reason=reason, trustregion=tr, lam=lam)
+def _entry(lib, name: str, dtype: torch.dtype) -> int:
+    """The address of the solve entry `name` of dtype in `lib`, for the
+    launcher; looked up once a library."""
+    key = (lib, name, dtype)
+    address = _ENTRIES.get(key)
+    if address is None:
+        fn = getattr(lib, name + ("_f32" if dtype == torch.float32
+                                  else "_f64"))
+        address = _ENTRIES[key] = ctypes.cast(fn, ctypes.c_void_p).value
+    return address
 
 
-def _named_entry(name: str, dtype: torch.dtype):
-    from libdogleg_tpu_torch.native.loader import load_library
-    return getattr(load_library(),
-                   name + ("_f32" if dtype == torch.float32 else "_f64"))
+def _named_entry(name: str, dtype: torch.dtype) -> int:
+    return _entry(loader.load_library(), name, dtype)
+
+
+def _params_address(prm: DoglegParameters) -> int:
+    return ctypes.addressof(_c_params(prm))
 
 
 def _require_cuda(t: torch.Tensor) -> None:
@@ -222,13 +218,11 @@ def megakernel_optimize(p0: torch.Tensor, meas: torch.Tensor,
     if p0.device.type == "cpu":
         return megakernel_optimize_reference(p0, meas, gx, gy, prm)
     with span("dogleg.launch"):
-        _check(p0, meas, gx, gy)
-        _require_cuda(p0)
-        ins = _general_inputs(p0, meas, gx, gy)
-        result = _launch_solve(_named_entry("dogleg_mega", p0.dtype), ins[0],
-                               [t.data_ptr() for t in ins[1:]], prm)
+        outs = loader.load_launcher().general(
+            _named_entry("dogleg_mega", p0.dtype), _params_address(prm), p0,
+            meas, gx, gy)
     launch_count += 1
-    return result
+    return SolveResult(*outs)
 
 
 def megakernel_optimize_factored_reference(
@@ -270,14 +264,11 @@ def megakernel_optimize_factored(p0: torch.Tensor, h_hi: torch.Tensor,
         return megakernel_optimize_factored_reference(
             p0, h_hi, h_lo, n2m_hi, n2m_lo, G_pair, prm)
     with span("dogleg.launch"):
-        _check_factored(p0, h_hi, h_lo, n2m_hi, n2m_lo, G_pair)
-        _require_cuda(p0)
-        ins = _factored_inputs(p0, h_hi, h_lo, n2m_hi, n2m_lo, G_pair)
-        result = _launch_solve(
-            _named_entry("dogleg_mega_factored", p0.dtype), ins[0],
-            [t.data_ptr() for t in ins[1:]], prm)
+        outs = loader.load_launcher().factored(
+            _named_entry("dogleg_mega_factored", p0.dtype),
+            _params_address(prm), p0, h_hi, h_lo, n2m_hi, n2m_lo, *G_pair)
     factored_launch_count += 1
-    return result
+    return SolveResult(*outs)
 
 
 def _check_generated(kernel, p: torch.Tensor, data_leaves) -> None:
@@ -360,17 +351,14 @@ def megakernel_optimize_generated(kernel, p0: torch.Tensor, data_leaves=(),
                                                        data_leaves, prm,
                                                        consts)
     with span("dogleg.launch"):
-        _check_generated(kernel, p0, data_leaves)
-        lib = kernel.library()
-        _require_cuda(p0)
-        p0 = p0.contiguous()
-        tensors, ptrs = _generated_ins(kernel, p0, data_leaves, consts)
-        entry = (lib.dogleg_auto_solve_f32 if p0.dtype == torch.float32
-                 else lib.dogleg_auto_solve_f64)
-        result = _launch_solve(entry, p0, [ctypes.addressof(ptrs)], prm)
-        del tensors
+        src = kernel.source
+        outs = loader.load_launcher().generated(
+            _entry(kernel.library(), "dogleg_auto_solve", p0.dtype),
+            _params_address(prm), p0, src.nstate, data_leaves,
+            src.data_numel,
+            kernel.adapted.consts if consts is None else consts)
     auto_launch_count += 1
-    return result
+    return SolveResult(*outs)
 
 
 def products_generated(kernel, p: torch.Tensor, data_leaves=(), consts=None):
@@ -383,7 +371,6 @@ def products_generated(kernel, p: torch.Tensor, data_leaves=(), consts=None):
             kernel.adapted.plain,
             consts=_generated_consts(kernel, p, consts)))(p, *data_leaves)
         return r.norm2_x, r.Jt_x, _lower_mirrored(r.JtJ)
-    from libdogleg_tpu_torch.native.loader import launch_target
     lib = kernel.library()
     _require_cuda(p)
     p = p.contiguous()
@@ -392,7 +379,7 @@ def products_generated(kernel, p: torch.Tensor, data_leaves=(), consts=None):
     entry = (lib.dogleg_auto_products_f32 if p.dtype == torch.float32
              else lib.dogleg_auto_products_f64)
     err = entry(p.data_ptr(), ctypes.addressof(ptrs), p.shape[0],
-                *(t.data_ptr() for t in outs), *launch_target(p.device))
+                *(t.data_ptr() for t in outs), *loader.launch_target(p.device))
     if err:
         raise RuntimeError(f"dogleg_auto_products launch failed: "
                            f"cudaError_t {err}")
@@ -480,12 +467,11 @@ def _products_out(p: torch.Tensor):
 
 
 def _launch_products(name: str, ins, outs) -> None:
-    from libdogleg_tpu_torch.native.loader import launch_target, load_library
     p = ins[0]
-    entry = getattr(load_library(),
+    entry = getattr(loader.load_library(),
                     name + ("_f32" if p.dtype == torch.float32 else "_f64"))
     err = entry(*(t.data_ptr() for t in ins), p.shape[0],
-                *(t.data_ptr() for t in outs), *launch_target(p.device))
+                *(t.data_ptr() for t in outs), *loader.launch_target(p.device))
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
 
@@ -539,7 +525,6 @@ def error_free_transforms(a: torch.Tensor, b: torch.Tensor):
     """The kernel's two_prod and two_sum on a, b (n,), float32 or float64:
     (p, e_p, s, e_s) with p + e_p == a * b and s + e_s == a + b exactly.
     CPU tensors take the twin, error_free_transforms_reference."""
-    from libdogleg_tpu_torch.native.loader import launch_target, load_library
     if (a.dim() != 1 or a.shape != b.shape or a.dtype != b.dtype
             or a.device != b.device
             or a.dtype not in (torch.float32, torch.float64)):
@@ -548,13 +533,13 @@ def error_free_transforms(a: torch.Tensor, b: torch.Tensor):
     if a.device.type == "cpu":
         return error_free_transforms_reference(a, b)
     _require_cuda(a)
-    lib = load_library()
+    lib = loader.load_library()
     entry = (lib.dogleg_error_free_f32 if a.dtype == torch.float32
              else lib.dogleg_error_free_f64)
     a, b = a.contiguous(), b.contiguous()
     outs = torch.empty((4, a.shape[0]), dtype=a.dtype, device=a.device)
     err = entry(a.data_ptr(), b.data_ptr(), a.shape[0],
-                *(o.data_ptr() for o in outs), *launch_target(a.device))
+                *(o.data_ptr() for o in outs), *loader.launch_target(a.device))
     if err:
         raise RuntimeError(f"error-free transforms launch failed: "
                            f"cudaError_t {err}")

@@ -1535,6 +1535,189 @@ def test_named_k1_bits_unchanged(cuda):
     assert c.k1_digests(cuda) == c.K1_DIGESTS
 
 
+# K1's launcher (csrc/launch.cpp) against the library's solve entry called
+# directly through ctypes, on the same inputs and outputs that torch.empty
+# allocates, as the wrappers launched K1 before the launcher.
+
+def _direct_solve(entry, p0, in_ptrs, prm):
+    """The solve entry `entry` (bound by ctypes) on p0 (contiguous), the
+    inputs' pointers and the parameters, into nine fresh outputs, on the
+    current stream: a SolveResult."""
+    import ctypes
+
+    from libdogleg_tpu_torch.native import loader
+    from libdogleg_tpu_torch.solver import SolveResult
+    B, n = p0.shape
+    f = dict(dtype=p0.dtype, device=p0.device)
+    i = dict(dtype=torch.int32, device=p0.device)
+    outs = SolveResult(
+        p=torch.empty(B, n, **f), norm2_x=torch.empty(B, **f),
+        Jt_x=torch.empty(B, n, **f), JtJ=torch.empty(B, n, n, **f),
+        step_count=torch.empty(B, **i), n_attempts=torch.empty(B, **i),
+        reason=torch.empty(B, **i), trustregion=torch.empty(B, **f),
+        lam=torch.empty(B, **f))
+    order = (outs.p, outs.Jt_x, outs.JtJ, outs.norm2_x, outs.trustregion,
+             outs.lam, outs.step_count, outs.n_attempts, outs.reason)
+    err = entry(p0.data_ptr(), *in_ptrs, B,
+                ctypes.byref(mega._c_params(prm)),
+                *(t.data_ptr() for t in order),
+                *loader.launch_target(p0.device))
+    assert err == 0
+    return outs
+
+
+def _same_bits(a, b):
+    """Every field of two SolveResults holds the same bits."""
+    for name, x, y in zip(a._fields, a, b):
+        if x is None:
+            assert y is None, name
+            continue
+        assert x.shape == y.shape and x.dtype == y.dtype, name
+        assert x.is_contiguous() and x.device == y.device, name
+        wide = torch.int64 if x.element_size() == 8 else torch.int32
+        assert torch.equal(x.view(wide), y.view(wide)), name
+
+
+def _direct_named(name, args, prm):
+    from libdogleg_tpu_torch.native import loader
+    p0, *ins = (t.contiguous() for t in args)
+    entry = getattr(loader.load_library(), name + (
+        "_f32" if p0.dtype == torch.float32 else "_f64"))
+    return _direct_solve(entry, p0, [t.data_ptr() for t in ins], prm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("strided", [False, True])
+def test_launcher_general_is_the_entry_bit_for_bit(cuda, dtype, strided):
+    """The general instance through the launcher gives the entry's own
+    bits, with p0 and meas contiguous or not; one launch counted."""
+    p0, meas, gx, gy = _instances(5, 1000, dtype, cuda)
+    if strided:
+        p0 = p0.t().contiguous().t()
+        meas = meas.t().contiguous().t()
+        assert not p0.is_contiguous() and not meas.is_contiguous()
+    before = mega.launch_count
+    got = mega.megakernel_optimize(p0, meas, gx, gy, BENCH)
+    assert mega.launch_count == before + 1
+    _same_bits(got, _direct_named("dogleg_mega", (p0, meas, gx, gy), BENCH))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n2m_shape", ["(B,)", "(B, 1)"])
+def test_launcher_factored_is_the_entry_bit_for_bit(cuda, n2m_shape):
+    p0, hh, hl, nh, nl, G = _factored_instances(6, 1000, torch.float32, cuda)
+    if n2m_shape == "(B, 1)":
+        nh, nl = nh[:, None], nl[:, None]
+    before = mega.factored_launch_count
+    got = mega.megakernel_optimize_factored(p0, hh, hl, nh, nl, G, BENCH)
+    assert mega.factored_launch_count == before + 1
+    _same_bits(got, _direct_named("dogleg_mega_factored",
+                                  (p0, hh, hl, nh, nl, *G), BENCH))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_launcher_generated_is_the_entry_bit_for_bit(cuda, dtype):
+    """The generated K1 on config 3's closure: the launcher's bits are the
+    entry's, with the pointer array built in Python as before; a constant
+    of another dtype is taken to p0's."""
+    import ctypes
+
+    from libdogleg_tpu_torch.parallel import mega_auto
+    c = _smoke()
+    _, fn, p0, meas = c.auto_cases(dtype, cuda, (1000, 1, 1))[0]
+    plan = mega_auto.plan_megakernel(fn, p0, None, problem_data=meas,
+                                     forced=True)
+    kernel, leaves = plan.kernel, plan.data_leaves
+    other = torch.float64 if dtype == torch.float32 else torch.float32
+    for consts in (plan.consts, tuple(t.to(other) for t in plan.consts)):
+        before = mega.auto_launch_count
+        got = mega.megakernel_optimize_generated(kernel, p0, leaves, BENCH,
+                                                 consts)
+        assert mega.auto_launch_count == before + 1
+        tensors, ptrs = mega._generated_ins(kernel, p0, leaves, consts)
+        entry = getattr(kernel.library(), "dogleg_auto_solve_" + (
+            "f32" if dtype == torch.float32 else "f64"))
+        want = _direct_solve(entry, p0.contiguous(),
+                             [ctypes.addressof(ptrs)], BENCH)
+        torch.cuda.synchronize()
+        del tensors
+        _same_bits(got, want)
+
+
+@pytest.mark.cuda
+def test_launcher_launches_on_the_current_stream(cuda):
+    """A call under a side stream lands on it: p0 is written on that
+    stream behind a long sleep, so a launch on any other stream would read
+    the NaNs it held before. The result's bits are then those of a call on
+    the default stream."""
+    p0, meas, gx, gy = _instances(7, 512, torch.float32, cuda)
+    want = mega.megakernel_optimize(p0, meas, gx, gy, BENCH)
+    late = torch.full_like(p0, float("nan"))
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)
+        late.copy_(p0)
+        got = mega.megakernel_optimize(late, meas, gx, gy, BENCH)
+        assert not side.query()
+    side.synchronize()
+    _same_bits(got, want)
+
+
+@pytest.mark.cuda
+def test_launcher_outputs_are_fresh_each_call(cuda):
+    """A second call writes new outputs: the first call's stay as they
+    were, and no output of one call shares memory with another's."""
+    p0, meas, gx, gy = _instances(8, 777, torch.float64, cuda)
+    first = mega.megakernel_optimize(p0, meas, gx, gy, BENCH)
+    kept = [t.clone() for t in first if t is not None]
+    second = mega.megakernel_optimize(p0 * 0.5, meas, gx, gy, BENCH)
+    torch.cuda.synchronize()
+    for a, b in zip(first, kept):
+        assert torch.equal(a, b)
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+                   for r in (first, second) for t in r if t is not None)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert not torch.equal(first.p, second.p)
+
+
+@pytest.mark.cuda
+def test_launcher_rejects_bad_inputs_before_any_launch(cuda):
+    """Wrong shapes, dtypes and devices raise ValueError and launch
+    nothing: the counters and the card's kernel count stay."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    p0, meas, gx, gy = _instances(9, 64, torch.float32, cuda)
+    hh, hl, nh, nl = qs.factored_statistics(meas)
+    G = qs.gram_pair(torch.float32, cuda)
+    calls = [
+        ("p0", lambda: mega.megakernel_optimize(p0[:, :5], meas, gx, gy)),
+        ("meas", lambda: mega.megakernel_optimize(p0, meas[:, :99], gx, gy)),
+        ("dtype", lambda: mega.megakernel_optimize(p0, meas.double(), gx,
+                                                   gy)),
+        ("device", lambda: mega.megakernel_optimize(p0, meas.cpu(), gx, gy)),
+        ("float32 or float64", lambda: mega.megakernel_optimize(
+            p0.half(), meas.half(), gx.half(), gy.half())),
+        ("n2m_lo", lambda: mega.megakernel_optimize_factored(
+            p0, hh, hl, nh, nl[:3], G)),
+        ("Ghi", lambda: mega.megakernel_optimize_factored(
+            p0, hh, hl, nh, nl, (G[0].cpu(), G[1]))),
+    ]
+    before = (mega.launch_count, mega.factored_launch_count)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for match, call in calls:
+            with pytest.raises(ValueError, match=match):
+                call()
+        torch.cuda.synchronize()
+    assert (mega.launch_count, mega.factored_launch_count) == before
+    assert not [ev.key for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA
+                and "dogleg" in ev.key.lower()]
+
+
 def _operator_cases(dtype, device):
     """Each kernel's operator with inputs at a shape of the export path:
     (name, operator, its direct launch, arguments)."""

@@ -9,6 +9,8 @@ itself is compared with this twin by tests/test_torch_cuda.py and
 chip_smoke.py on a card.
 """
 
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from libdogleg_tpu.ops.pallas_mega import megakernel_optimize as jax_mega
 from libdogleg_tpu_torch import DoglegParameters
 from libdogleg_tpu_torch.models import quadratic_surface as tsp
 from libdogleg_tpu_torch.ops import mega
+from libdogleg_tpu_torch.solver import SolveResult
 
 torch.set_num_threads(1)
 BENCH = dict(max_iterations=10, Jt_x_threshold=1e-3, update_threshold=1e-5,
@@ -238,3 +241,213 @@ def test_parameter_struct_built_once_per_parameters():
         want = (prm.resolved_max_attempts() if name == "max_attempts"
                 else getattr(prm, name))
         assert getattr(c, name) == want, name
+
+
+# The CUDA branch of K1's three wrappers without a card: meta tensors stand
+# for the card's, and stand-ins for the launcher (csrc/launch.cpp) and the
+# libraries record what the wrappers hand them.
+
+class _Library:
+    """A library's solve entries, each a C function pointer with an
+    address, as ctypes binds them."""
+
+    def __init__(self, *names):
+        self.callbacks = []
+        for name in names:
+            fn = ctypes.CFUNCTYPE(ctypes.c_int)(lambda: 0)
+            self.callbacks.append(fn)
+            setattr(self, name, fn)
+
+    def address(self, name):
+        return ctypes.cast(getattr(self, name), ctypes.c_void_p).value
+
+
+class _Launcher:
+    """Records each call (function, arguments, the spans open around it)
+    and returns nine meta tensors in SolveResult's order."""
+
+    def __init__(self, open_spans):
+        self.open_spans, self.calls = open_spans, []
+
+    def _record(self, name, entry, params, p0, *rest):
+        self.calls.append((name, entry, params, p0, rest,
+                           list(self.open_spans)))
+        B, n = p0.shape
+        f = dict(dtype=p0.dtype, device="meta")
+        i = dict(dtype=torch.int32, device="meta")
+        return (torch.empty(B, n, **f), torch.empty(B, **f),
+                torch.empty(B, n, **f), torch.empty(B, n, n, **f),
+                torch.empty(B, **i), torch.empty(B, **i), torch.empty(B, **i),
+                torch.empty(B, **f), torch.empty(B, **f))
+
+    def general(self, *args):
+        return self._record("general", *args)
+
+    def factored(self, *args):
+        return self._record("factored", *args)
+
+    def generated(self, *args):
+        return self._record("generated", *args)
+
+
+@pytest.fixture
+def stand_ins(monkeypatch):
+    import contextlib
+
+    from libdogleg_tpu_torch.native import loader
+    open_spans = []
+
+    @contextlib.contextmanager
+    def span(name):
+        open_spans.append(name)
+        try:
+            yield
+        finally:
+            open_spans.pop()
+    launcher = _Launcher(open_spans)
+    library = _Library("dogleg_mega_f32", "dogleg_mega_f64",
+                       "dogleg_mega_factored_f32", "dogleg_mega_factored_f64")
+    monkeypatch.setattr(mega, "span", span)
+    monkeypatch.setattr(loader, "load_launcher", lambda: launcher)
+    monkeypatch.setattr(loader, "load_library", lambda: library)
+    monkeypatch.setattr(mega, "_ENTRIES", {})
+    return launcher, library
+
+
+class _Kernel:
+    """A generated kernel as parallel/mega_auto.GeneratedKernel holds it:
+    its source's Nstate and data sizes, the trace's constants, its
+    library."""
+
+    def __init__(self, nstate, data_numel, consts):
+        import types
+        self.source = types.SimpleNamespace(nstate=nstate,
+                                            data_numel=data_numel)
+        self.adapted = types.SimpleNamespace(consts=consts)
+        self.lib = _Library("dogleg_auto_solve_f32", "dogleg_auto_solve_f64")
+
+    def library(self):
+        return self.lib
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("wrapper", ["general", "factored", "generated",
+                                     "generated, its own constants"])
+def test_cuda_branch_hands_the_launcher_its_arguments(stand_ins, wrapper,
+                                                      dtype):
+    """Each wrapper's CUDA branch makes one launcher call inside a
+    `dogleg.launch` span, with the solve entry's address, the parameter
+    struct's and the tensors as given; returns the launcher's nine outputs
+    as a SolveResult and counts one launch."""
+    launcher, library = stand_ins
+    meta = dict(dtype=dtype, device="meta")
+    B, prm = 16, DoglegParameters(**BENCH)
+    p0 = torch.empty(B, 6, **meta)
+    suffix = "_f32" if dtype == torch.float32 else "_f64"
+    if wrapper == "general":
+        tensors = (torch.empty(B, 100, **meta), torch.empty(100, **meta),
+                   torch.empty(100, **meta))
+        count = "launch_count"
+        call = lambda: mega.megakernel_optimize(p0, *tensors, prm)  # noqa
+        want = ("general", library.address("dogleg_mega" + suffix), tensors)
+    elif wrapper == "factored":
+        stats = [torch.empty(B, 6, **meta) for _ in range(2)] + [
+            torch.empty(B, **meta) for _ in range(2)]
+        G = (torch.empty(6, 6, **meta), torch.empty(6, 6, **meta))
+        count = "factored_launch_count"
+        call = lambda: mega.megakernel_optimize_factored(  # noqa
+            p0, *stats, G, prm)
+        want = ("factored", library.address("dogleg_mega_factored" + suffix),
+                (*stats, *G))
+    else:
+        traced = (torch.empty(100, **meta), torch.empty(100, **meta))
+        consts = (None if wrapper == "generated" else
+                  (torch.empty(100, device="meta"),))
+        kernel = _Kernel(6, (100,), traced)
+        leaves = (torch.empty(B, 100, **meta),)
+        count = "auto_launch_count"
+        call = lambda: mega.megakernel_optimize_generated(  # noqa
+            kernel, p0, leaves, prm, consts)
+        want = ("generated", kernel.lib.address("dogleg_auto_solve" + suffix),
+                (6, leaves, (100,), traced if consts is None else consts))
+    before = getattr(mega, count)
+    r = call()
+    assert getattr(mega, count) == before + 1
+    (name, entry, params, p, rest, spans), = launcher.calls
+    assert (name, entry) == want[:2] and entry
+    assert params == ctypes.addressof(mega._c_params(prm))
+    assert p is p0 and spans == ["dogleg.launch"]
+    assert len(rest) == len(want[2])
+    for got, expected in zip(rest, want[2]):
+        if isinstance(expected, tuple):
+            assert len(got) == len(expected)
+            assert all(a is b for a, b in zip(got, expected))
+        else:
+            assert got is expected
+    assert isinstance(r, SolveResult) and r.history is None
+    assert r.p.shape == (B, 6) and r.JtJ.shape == (B, 6, 6)
+    assert r.norm2_x.dtype == dtype and r.reason.dtype == torch.int32
+    # a second call reads the entry's address from the cache
+    call()
+    assert launcher.calls[1][1] == entry
+
+
+def test_entry_address_looked_up_once_a_library():
+    """The solve entry's address is read once for each library, entry and
+    dtype, then from the cache."""
+    looked = []
+
+    class Counting(_Library):
+        def __getattribute__(self, name):
+            if name.startswith("dogleg_"):
+                looked.append(name)
+            return object.__getattribute__(self, name)
+    a = Counting("dogleg_mega_f32", "dogleg_mega_f64")
+    b = Counting("dogleg_mega_f32")
+    first = mega._entry(a, "dogleg_mega", torch.float32)
+    assert first == a.address("dogleg_mega_f32")
+    assert mega._entry(a, "dogleg_mega", torch.float32) == first
+    assert looked.count("dogleg_mega_f32") == 2   # the lookup, address()
+    assert mega._entry(a, "dogleg_mega", torch.float64) == a.address(
+        "dogleg_mega_f64")
+    assert mega._entry(b, "dogleg_mega", torch.float32) == b.address(
+        "dogleg_mega_f32") != first
+
+
+def test_cpu_run_builds_nothing(monkeypatch):
+    """CPU tensors take each wrapper's plain twin: nothing is built or
+    loaded (no launcher, no kernel library, no generated library) and no
+    launch is counted."""
+    from libdogleg_tpu_torch.native import loader
+    from libdogleg_tpu_torch.parallel import mega_auto
+    from libdogleg_tpu_torch.solver import Products
+
+    def refused(*args, **kwargs):
+        raise AssertionError("a CPU run built or loaded a native library")
+    for name in ("build", "load_library", "build_launcher", "load_launcher",
+                 "build_generated", "load_generated"):
+        monkeypatch.setattr(loader, name, refused)
+    meas, p0, gx, gy = (torch.as_tensor(a)
+                        for a in _instances(11, 4, np.float64))
+    prm = DoglegParameters(**BENCH)
+    G = tsp.gram_pair(torch.float64, "cpu")
+
+    def products(p, m):
+        x = tsp.model(p, gx, gy) - m
+        J = tsp.jacobian(p, gx, gy)
+        return Products(norm2_x=x @ x, Jt_x=J.T @ x, JtJ=J.T @ J)
+    plan = mega_auto.plan_megakernel(products, p0, None, problem_data=meas,
+                                     forced=True)
+    counts = (mega.launch_count, mega.factored_launch_count,
+              mega.auto_launch_count)
+    results = [
+        mega.megakernel_optimize(p0, meas, gx, gy, prm),
+        mega.megakernel_optimize_factored(
+            p0, *tsp.factored_statistics(meas), G, prm),
+        mega.megakernel_optimize_generated(plan.kernel, p0, plan.data_leaves,
+                                           prm, plan.consts)]
+    assert (mega.launch_count, mega.factored_launch_count,
+            mega.auto_launch_count) == counts
+    for r in results:
+        assert r.p.device.type == "cpu" and bool((r.reason > 0).all())
+    assert loader._LAUNCHER is None
